@@ -1,0 +1,31 @@
+"""Architecture registry of the port.
+
+``get_config(arch_id)`` returns the full published config;
+``get_smoke_config(arch_id)`` the reduced same-family variant the CPU tests
+use.  Only qwen2.5-3b is ported so far; the other architectures of the
+reference registry are listed in ROADMAP.md (queue 1, M8).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ("qwen2.5-3b",)
+
+_MODULES = {"qwen2.5-3b": "qwen2_5_3b"}
+
+
+def _module(arch_id: str):
+    if arch_id not in _MODULES:
+        raise NotImplementedError(
+            f"{arch_id!r} is not ported to repro_torch yet (ported: "
+            f"{', '.join(ARCH_IDS)}); see ROADMAP.md, queue 1, M8")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str):
+    return _module(arch_id).config()
+
+
+def get_smoke_config(arch_id: str):
+    return _module(arch_id).smoke_config()

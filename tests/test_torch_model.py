@@ -1,0 +1,219 @@
+"""The port's dense decoder against ``repro.models`` on the CPU.
+
+Reference params (``jax.random`` init) are converted with
+``params_from_numpy``; inputs come from a numpy seed.  Logits are held to
+2e-5 in fp32 (absolute and relative, the band of ``tests/test_kernels.py``).
+Cache entries are held to 2e-5 of the cache's largest magnitude: the
+layer-1 K/V rows sit after a whole layer whose random weights make them
+O(20), and the two frameworks round their matrix products in different
+orders."""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import get_smoke_config as jax_get_smoke  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.models.params import init_params as jax_init_params  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models.params import (  # noqa: E402
+    map_tree, params_from_numpy, tree_leaves)
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _cfgs(**kw):
+    jc = dataclasses.replace(jax_get_smoke("qwen2.5-3b"), num_layers=2, **kw)
+    tc = dataclasses.replace(get_smoke_config("qwen2.5-3b"), num_layers=2, **kw)
+    return jc, tc
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    jc, _ = _cfgs()
+    return jax_init_params(JM.param_specs(jc), jax.random.PRNGKey(0),
+                           jnp.float32)
+
+
+def _cpu(tree):
+    return params_from_numpy(tree, device="cpu")
+
+
+def _assert_cache_close(tcache, jcache):
+    for a, b in zip(tree_leaves(tcache), tree_leaves(_cpu(jcache))):
+        scale = float(b.abs().max())
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=2e-5 * max(scale, 1.0))
+
+
+# ----------------------------------------------------------------------------
+# Config, specs and the weight bridge
+# ----------------------------------------------------------------------------
+
+def test_configs_equal_reference_field_for_field():
+    assert dataclasses.asdict(get_config("qwen2.5-3b")) == \
+        dataclasses.asdict(jax_get_config("qwen2.5-3b"))
+    assert dataclasses.asdict(get_smoke_config("qwen2.5-3b")) == \
+        dataclasses.asdict(jax_get_smoke("qwen2.5-3b"))
+    assert get_config("qwen2.5-3b").param_count() == \
+        jax_get_config("qwen2.5-3b").param_count()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("gemma-7b")
+
+
+def test_specs_equal_reference():
+    jc, tc = _cfgs()
+    is_spec = lambda s: hasattr(s, "axes")  # noqa: E731
+    for jt, tt in ((JM.param_specs(jc), TM.param_specs(tc)),
+                   (JM.cache_specs(jc, 4, 64), TM.cache_specs(tc, 4, 64))):
+        jl = jax.tree.leaves(jt, is_leaf=is_spec)
+        tl = tree_leaves(tt)
+        assert [(s.shape, s.axes, s.init) for s in jl] == \
+            [(s.shape, s.axes, s.init) for s in tl]
+        assert jax.tree.structure(jt, is_leaf=is_spec) == \
+            jax.tree.structure(map_tree(lambda s: 0, tt))
+
+
+def test_params_round_trip_bit_exact(jax_params):
+    tp = _cpu(jax_params)
+    assert jax.tree.structure(jax_params) == \
+        jax.tree.structure(map_tree(lambda t: 0, tp))
+    for j, t in zip(jax.tree.leaves(jax_params), tree_leaves(tp)):
+        assert t.dtype == torch.float32
+        np.testing.assert_array_equal(np.asarray(j), t.numpy())
+    # bf16 leaves keep their bits
+    jb = jax.tree.map(lambda x: x.astype(jnp.bfloat16), jax_params)
+    for j, t in zip(jax.tree.leaves(jb), tree_leaves(_cpu(jb))):
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(np.asarray(j).view(np.uint16),
+                                      t.view(torch.uint16).numpy())
+
+
+def test_unported_model_parts_raise():
+    _, tc = _cfgs()
+    for bad in (dict(group_pattern=(("attn", "moe"),)),
+                dict(cache_layout="bhsd"), dict(decode_unroll_layers=True),
+                dict(pos_embedding="sinusoidal"), dict(scale_embeddings=True)):
+        with pytest.raises(NotImplementedError):
+            TM.param_specs(dataclasses.replace(tc, **bad))
+
+
+def test_auto_decode_attention_resolves_from_device():
+    _, tc = _cfgs()
+    assert tc.decode_attention_impl == "auto"
+    assert tc.resolve_decode_attention_impl(torch.device("cpu")) == "dense"
+    assert tc.resolve_decode_attention_impl(torch.device("cuda")) == "ragged"
+    for forced in ("dense", "ragged"):
+        c = dataclasses.replace(tc, decode_attention_impl=forced)
+        assert c.resolve_decode_attention_impl(torch.device("cpu")) == forced
+
+
+# ----------------------------------------------------------------------------
+# Layers
+# ----------------------------------------------------------------------------
+
+def test_rmsnorm_and_rope_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 4, 16), np.float32) * 3
+    w = rng.standard_normal((16,), np.float32) * 0.1
+    pos = rng.integers(0, 4000, (2, 5)).astype(np.int32)
+    np.testing.assert_allclose(
+        TL.rmsnorm(torch.from_numpy(x), torch.from_numpy(w), 1e-6).numpy(),
+        np.asarray(JL.rmsnorm(jnp.asarray(x), jnp.asarray(w), 1e-6)), **TOL)
+    np.testing.assert_allclose(
+        TL.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6).numpy(),
+        np.asarray(JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)),
+        atol=1e-4, rtol=1e-4)   # angles up to 4000 rad: cos/sin round apart
+
+
+@pytest.mark.parametrize("kw", [
+    dict(causal=True, window=None),
+    dict(causal=True, window=5, softcap=30.0),
+    dict(causal=False, window=None, kv_len_mask=True),
+])
+def test_dense_attention_matches_reference(kw):
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((2, 12, 4, 16), np.float32)
+    k = rng.standard_normal((2, 12, 2, 16), np.float32)
+    v = rng.standard_normal((2, 12, 2, 16), np.float32)
+    jkw, tkw = dict(kw), dict(kw)
+    if kw.get("kv_len_mask"):
+        m = np.arange(12)[None, :] < np.array([[7], [12]])
+        jkw["kv_len_mask"], tkw["kv_len_mask"] = jnp.asarray(m), torch.from_numpy(m)
+    out = TL.dense_attention(*map(torch.from_numpy, (q, k, v)), **tkw)
+    ref = JL.dense_attention(*map(jnp.asarray, (q, k, v)), **jkw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+# ----------------------------------------------------------------------------
+# Prefill + 32 decode steps
+# ----------------------------------------------------------------------------
+
+def _prefill_both(jc, tc, jp, tp, toks, lens, max_seq):
+    jcache = JM.init_cache(jc, toks.shape[0], max_seq, jnp.float32)
+    jl, jcache = jax.jit(lambda p, c, t, l: JM.prefill(
+        jc, p, t, cache=c, prompt_lens=l))(jp, jcache, jnp.asarray(toks),
+                                            jnp.asarray(lens))
+    tcache = TM.init_cache(tc, toks.shape[0], max_seq, torch.float32,
+                           device="cpu")
+    tl, tcache = TM.prefill(tc, tp, torch.from_numpy(toks), cache=tcache,
+                            prompt_lens=torch.from_numpy(lens))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_cache_close(tcache, jcache)
+    return jl, jcache, tl, tcache
+
+
+@pytest.mark.parametrize("mode", ["onehot", "scatter", "uniform"])
+@pytest.mark.parametrize("impl", ["dense", "ragged"])
+def test_prefill_and_decode_match_reference(jax_params, impl, mode):
+    jc, tc = _cfgs(decode_attention_impl=impl, decode_cache_update=mode)
+    tp = _cpu(jax_params)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 512, (3, 16)).astype(np.int32)
+    # 'uniform' writes every slot at slot 0's position: lock-step lengths
+    lens = np.full(3, 16, np.int32) if mode == "uniform" else \
+        np.array([16, 5, 9], np.int32)
+    jl, jcache, tl, tcache = _prefill_both(jc, tc, jax_params, tp, toks,
+                                           lens, 64)
+    step = jax.jit(lambda p, c, t, l: JM.decode_step(jc, p, c, t, l))
+    tok = np.array(jnp.argmax(jl, -1), np.int32)
+    kv = lens.copy()
+    for _ in range(32):
+        jl, jcache = step(jax_params, jcache, jnp.asarray(tok), jnp.asarray(kv))
+        tl, tcache = TM.decode_step(tc, tp, tcache, torch.from_numpy(tok),
+                                    torch.from_numpy(kv))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        tok = np.array(jnp.argmax(jl, -1), np.int32)
+        kv = kv + 1
+    _assert_cache_close(tcache, jcache)
+
+
+def test_long_prefill_takes_blockwise_attention(jax_params):
+    """A prompt above ``attn_dense_max_seq`` (128 at smoke size) runs
+    ``blockwise_attention`` in both packages."""
+    jc, tc = _cfgs()
+    assert 160 > tc.attn_dense_max_seq
+    toks = np.random.default_rng(3).integers(0, 512, (2, 160)).astype(np.int32)
+    _prefill_both(jc, tc, jax_params, _cpu(jax_params), toks,
+                  np.array([160, 131], np.int32), 192)
+
+
+def test_blockwise_attention_matches_reference():
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((1, 64, 4, 16), np.float32)
+    k = rng.standard_normal((1, 64, 2, 16), np.float32)
+    v = rng.standard_normal((1, 64, 2, 16), np.float32)
+    kw = dict(causal=True, window=24, block_q=16, block_kv=16)
+    out = TL.blockwise_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+    ref = JL.blockwise_attention(*map(jnp.asarray, (q, k, v)), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
