@@ -4,18 +4,22 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build both hand-written kernels from ``src/repro_torch/kernels/*/csrc``
-     with nvcc into ``build/kernels/``;
+  1. build the four hand-written kernels from
+     ``src/repro_torch/kernels/*/csrc`` with nvcc into ``build/kernels/``,
+     one nvcc per source, all started together;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes qwen2.5-3b serving gives it, and time kernel, plain version,
-     one PyTorch library call and the bound from bytes;
-  3. check a small fp32 model end to end: the engine on the card (ragged
-     kernel, fused compaction) emits the same greedy tokens as the engine
-     on the CPU (plain paths);
+     one PyTorch library call and the bound;
+  3. check a small fp32 model end to end: the engine on the card (all four
+     kernels) emits the same greedy tokens as the engine on the CPU (plain
+     paths);
   4. serve qwen2.5-3b at full width (random bf16 weights from a seed)
      through ``run_engine_schedule`` with elastic, then dynamic batching,
-     with each kernel's launch counter set to 0 before each run and read
-     after it.
+     and profile one decode chunk;
+  5. run the adaptive-control serving launcher
+     (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width.
+Each path runs with every kernel's launch counter set to 0 just before it
+and read just after it.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -52,8 +56,14 @@ def log(*a):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Mean milliseconds per call on the device, by CUDA events."""
+    """Mean milliseconds per call of ``fn`` on the device, two ways:
+    ``call`` by CUDA events around ``iters`` back-to-back calls (the host's
+    launch rate bounds it when the device work is short), and ``device``
+    as the summed time of the kernels and copies the calls ran, from
+    torch.profiler (host gaps excluded).  Returns (call, device)."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -62,7 +72,26 @@ def time_ms(fn, iters=20, warmup=3):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    call = start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(e.device_time for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    assert dev_us > 0, "the profiler saw no device work"
+    return call, dev_us / 1e3 / iters
+
+
+def fmt(t):
+    """A (call, device) pair from ``time_ms`` as text."""
+    return f"{t[1]:.4f} ms device ({t[0]:.4f} ms per call)"
+
+
+def rotating(fn, inputs):
+    """``fn`` over ``inputs`` in turn, so each launch reads past the L2."""
+    turn = iter(range(10 ** 9))
+    return lambda: fn(*inputs[next(turn) % len(inputs)])
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -119,30 +148,27 @@ def check_ragged(dev):
                torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16))
               for _ in range(4)]
     mask = (torch.arange(s, device=dev)[None, :] < ln[:, None])[:, None, None, :]
-    turn = iter(range(10 ** 9))
-
-    def rot(fn):
-        return lambda: fn(*caches[next(turn) % len(caches)])
-
-    ms = time_ms(rot(lambda k, v: ragged_decode_attention(q, k, v, ln)))
-    plain_ms = time_ms(rot(lambda k, v: decode_attention_reference(q, k, v, ln)))
-    lib_ms = time_ms(rot(lambda k, v: F.scaled_dot_product_attention(
+    ms = time_ms(rotating(lambda k, v: ragged_decode_attention(q, k, v, ln),
+                          caches))
+    plain_ms = time_ms(rotating(
+        lambda k, v: decode_attention_reference(q, k, v, ln), caches))
+    lib_ms = time_ms(rotating(lambda k, v: F.scaled_dot_product_attention(
         q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-        enable_gqa=True)))
+        enable_gqa=True), caches))
     kv_rows = int(lens.sum())
     nbytes = kv_rows * hkv * d * 2 * 2 + 2 * q.numel() * 2 + b * 4
     flops = 4 * kv_rows * hq * d
     bnd = bound_ms(nbytes, flops, dtype)
-    log(f"K1 timing B={b} S={s} bf16 sum(lengths)={kv_rows}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bnd:.4f} ms "
+    log(f"K1 timing B={b} S={s} bf16 sum(lengths)={kv_rows}: kernel {fmt(ms)}, "
+        f"plain {fmt(plain_ms)}, sdpa {fmt(lib_ms)}, bound {bnd:.4f} ms "
         f"(bytes); grid {b * hkv} blocks on 132 SMs")
     return {"name": "ragged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/ragged_decode_attention/csrc/"
                       "ragged_decode_attention.cu",
             "replaces": "src/repro/kernels/ragged_decode_attention/kernel.py:70",
-            "max_abs_err": max(max_err.values()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": "bytes",
-            "library_ms": lib_ms}
+            "max_abs_err": max(max_err.values()), "ms": ms[1],
+            "plain_ms": plain_ms[1], "bound_ms": bnd, "bound_by": "bytes",
+            "library_ms": lib_ms[1]}
 
 
 def check_gather(dev, engine, cfg):
@@ -192,14 +218,121 @@ def check_gather(dev, engine, cfg):
     nbytes = row * (len(set(nb_idx.tolist())) + len(nb_idx)) + 4 * len(nb_idx)
     bnd = bound_ms(nbytes, 0, "bfloat16")
     log(f"K2 timing leaf {tuple(leaf.shape)} bf16 16 -> 8 slots "
-        f"({nbytes / 1e6:.1f} MB read + written): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound {bnd:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB read + written): kernel {fmt(ms)}, plain "
+        f"{fmt(plain_ms)}, index_select {fmt(lib_ms)}, bound {bnd:.4f} ms "
         f"(bytes)")
     return {"name": "gather_rows", "route": "cuda",
             "source": "src/repro_torch/kernels/compaction/csrc/gather_rows.cu",
             "replaces": "src/repro/kernels/compaction/kernel.py:30",
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd, "bound_by": "bytes", "library_ms": lib_ms}
+            "max_abs_err": 0.0, "ms": ms[1], "plain_ms": plain_ms[1],
+            "bound_ms": bnd, "bound_by": "bytes", "library_ms": lib_ms[1]}
+
+
+def check_flash(dev):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_reference, flash_attention)
+    hq, hkv, d = QWEN["hq"], QWEN["hkv"], QWEN["d"]
+    rng = np.random.default_rng(2)
+    # prompt buckets, some no multiple of any block; one sliding window
+    cases = [(b, s, None) for s in (16, 80, 192, 256, 1000) for b in (1, 16)]
+    cases += [(1, 4096, None), (1, 1000, 256), (16, 192, 64)]
+    max_err = {}
+    for dtype in ("bfloat16", "float32"):
+        td = getattr(torch, dtype)
+        err = 0.0
+        for b, s, win in cases:
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (b, s, h, d), np.float32)).to(dev, td) for h in (hq, hkv, hkv))
+            out = flash_attention(q, k, v, window=win)
+            ref = attention_reference(q, k, v, window=win)
+            torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+            err = max(err, float((out.float() - ref.float()).abs().max()))
+        max_err[dtype] = err
+        log(f"K3 flash_attention {dtype}: max |kernel - plain| = {err:.3e} "
+            f"over (B, S, window) in {cases}")
+
+    entry = None
+    for b, s in ((16, 256), (1, 8192)):
+        q = torch.randn(b, s, hq, d, device=dev, dtype=torch.bfloat16)
+        k, v = (torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        ms = time_ms(lambda: flash_attention(q, k, v))
+        plain_ms = time_ms(lambda: attention_reference(q, k, v), iters=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * b * hq * d * (s * (s + 1) // 2)    # visible pairs only
+        bnd = bound_ms(nbytes, flops, "bfloat16")
+        by = "operations" if flops / PEAK_FLOPS["bfloat16"] > \
+            nbytes / HBM_BYTES_PER_S else "bytes"
+        log(f"K3 timing B={b} S={s} bf16 causal: kernel {fmt(ms)}, plain "
+            f"{fmt(plain_ms)}, sdpa {fmt(lib_ms)}, bound {bnd:.4f} ms "
+            f"({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+            f"{flops / ms[1] / 1e9:.1f} TFLOP/s")
+        if entry is None:     # the serving shape goes into the JSON line
+            entry = {"name": "flash_attention", "route": "cuda",
+                     "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                               "flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
+                     "max_abs_err": max(max_err.values()), "ms": ms[1],
+                     "plain_ms": plain_ms[1], "bound_ms": bnd, "bound_by": by,
+                     "library_ms": lib_ms[1]}
+        del q, k, v
+    return entry
+
+
+def check_rmsnorm(dev):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import fused_rmsnorm, rmsnorm_reference
+    d, eps = 2048, 1e-6
+    rng = np.random.default_rng(3)
+    max_err = {}
+    for dtype in ("bfloat16", "float32"):
+        td = getattr(torch, dtype)
+        err = 0.0
+        for t in (1, 16, 4096):
+            x, r = (torch.from_numpy(rng.standard_normal((t, d), np.float32)
+                                     ).to(dev, td) for _ in range(2))
+            w = torch.from_numpy(rng.standard_normal(d, np.float32) * 0.1
+                                 ).to(dev, td)
+            s, n = fused_rmsnorm(x, r, w, eps=eps)
+            assert torch.equal(s, x + r), "fused sum differs from x + residual"
+            ref = rmsnorm_reference(x, r, w, eps)[1]
+            torch.testing.assert_close(n.float(), ref.float(), **TOL[dtype])
+            err = max(err, float((n.float() - ref.float()).abs().max()))
+        max_err[dtype] = err
+        log(f"K4 fused_rmsnorm {dtype}: s bit-equal to x + residual, max "
+            f"|n - plain| = {err:.3e} over T in (1, 16, 4096), D={d}")
+
+    entry = None
+    for t in (4096, 16):
+        sets = [tuple(torch.randn(t, d, device=dev, dtype=torch.bfloat16)
+                      for _ in range(2)) for _ in range(4)]
+        w = torch.randn(d, device=dev, dtype=torch.bfloat16) * 0.1
+        w1 = (1.0 + w.float()).to(torch.bfloat16)   # rms_norm's own weight
+        ms = time_ms(rotating(lambda x, r: fused_rmsnorm(x, r, w, eps=eps), sets))
+        plain_ms = time_ms(rotating(
+            lambda x, r: rmsnorm_reference(x, r, w, eps), sets))
+        lib_ms = time_ms(rotating(lambda x, r: F.rms_norm(
+            torch.add(x, r), (d,), weight=w1, eps=eps), sets))
+        nbytes = 2 * (4 * t * d + d)
+        bnd = bound_ms(nbytes, 0, "bfloat16")
+        log(f"K4 timing T={t} D={d} bf16: kernel {fmt(ms)}, plain "
+            f"{fmt(plain_ms)}, add + rms_norm {fmt(lib_ms)}, bound "
+            f"{bnd:.4f} ms (bytes; {nbytes / 1e6:.2f} MB)")
+        if entry is None:     # the prefill shape goes into the JSON line
+            entry = {"name": "fused_rmsnorm", "route": "cuda",
+                     "source": "src/repro_torch/kernels/rmsnorm/csrc/"
+                               "fused_rmsnorm.cu",
+                     "replaces": "src/repro/kernels/rmsnorm/kernel.py:26",
+                     "max_abs_err": max(max_err.values()), "ms": ms[1],
+                     "plain_ms": plain_ms[1], "bound_ms": bnd,
+                     "bound_by": "bytes", "library_ms": lib_ms[1]}
+    return entry
 
 
 # ----------------------------------------------------------------------------
@@ -227,14 +360,15 @@ def check_small_model(dev):
     targets = [21, 4, 12]
     K.reset_launches()
     rg = gpu.generate(prompts, targets, elastic=True, return_tokens=True)
-    assert min(K.LAUNCHES.values()) > 0, K.LAUNCHES
+    assert all(K.LAUNCHES[name] > 0 for name in K.SOURCES), K.LAUNCHES
     rc = cpu.generate(prompts, targets, elastic=True, return_tokens=True)
     assert rg["tokens"] == rc["tokens"], "card and CPU engines disagree"
     assert list(rg["produced"]) == targets
     assert [e["impl"] for e in gpu.step_log if e["kind"] == "compact"] == \
         ["fused", "fused"]
-    log(f"small fp32 model: card (ragged + fused compaction) and CPU (plain) "
-        f"emit the same {sum(len(t) for t in rg['tokens'])} greedy tokens")
+    log(f"small fp32 model: card (all four kernels, launches "
+        f"{dict(K.LAUNCHES)}) and CPU (plain) emit the same "
+        f"{sum(len(t) for t in rg['tokens'])} greedy tokens")
 
 
 # ----------------------------------------------------------------------------
@@ -323,6 +457,8 @@ def profile_decode(engine, reqs, steps=8):
             continue
         name = e.name.lower()
         kind = ("ragged_decode_attention" if "ragged_decode" in name else
+                "fused_rmsnorm" if "fused_rmsnorm" in name else
+                "flash_attention" if "flash_attention_kernel" in name else
                 "gemm" if any(w in name for w in ("gemm", "gemv", "cutlass",
                                                   "sm90_xmma", "nvjet")) else
                 "copy/fill" if "memcpy" in name or "memset" in name else
@@ -383,6 +519,45 @@ def serve_full(engine):
     return totals
 
 
+# ----------------------------------------------------------------------------
+# Phase 5: the adaptive-control serving launcher
+# ----------------------------------------------------------------------------
+
+def serve_launcher(dev):
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import serve
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve("qwen2.5-3b", requests=32, lam=0.5, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    rec = out["recommendation"]
+    assert sum(out["batch_sizes"]) == 32, "a request was not served"
+    assert rec.n_max is not None and "reason" not in rec.details, \
+        "the controller never left warmup"
+    limits = np.repeat([np.inf if n is None else n for n in out["n_max"]],
+                       out["batch_sizes"])
+    produced = np.asarray(out["produced"])
+    assert np.all(produced >= 1) and np.all(produced <= limits), \
+        "outputs not clipped at the recommended n_max"
+    for name in ("ragged_decode_attention", "flash_attention", "fused_rmsnorm"):
+        assert launches[name] > 0, f"{name} never ran in the launcher"
+    log_ = out["step_log"]
+    seqs = sorted({e["seq"] for e in log_ if e["kind"] == "prefill"})
+    pre_ms = [1e3 * e["seconds"] for e in log_ if e["kind"] == "prefill"]
+    steps = sum(e["steps"] for e in log_ if e["kind"] == "decode_chunk")
+    dec_s = sum(e["seconds"] for e in log_ if e["kind"] == "decode_chunk")
+    log(f"launcher: {len(out['batch_sizes'])} batches {out['batch_sizes']}, "
+        f"policies {sorted(set(out['policies']))}, final n_max {rec.n_max} "
+        f"b_max {rec.b_max} policy {rec.policy}; virtual clock "
+        f"{out['clock']:.2f} s (wall {wall:.2f} s); prompt buckets {seqs}, "
+        f"prefill {np.mean(pre_ms):.1f} ms mean; decode {steps} steps at "
+        f"{1e3 * dec_s / max(steps, 1):.2f} ms/step; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -427,12 +602,17 @@ def main() -> int:
         f"decode attention resolves to "
         f"{cfg.resolve_decode_attention_impl(engine.device)}")
 
-    kernels = [check_ragged(dev), check_gather(dev, engine, cfg)]
+    kernels = [check_ragged(dev), check_gather(dev, engine, cfg),
+               check_flash(dev), check_rmsnorm(dev)]
     check_small_model(dev)
-    launches = serve_full(engine)
+    paths = {"serving schedule": serve_full(engine)}
+    del engine
+    torch.cuda.empty_cache()
+    paths["launcher"] = serve_launcher(dev)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        assert k["launches"] > 0, f"{k['name']} never ran on the main path"
+        k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+        assert k["launches"] > 0, f"{k['name']} never ran on a path"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

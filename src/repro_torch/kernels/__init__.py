@@ -38,6 +38,8 @@ SOURCES = {
     "ragged_decode_attention":
         _PKG / "ragged_decode_attention" / "csrc" / "ragged_decode_attention.cu",
     "gather_rows": _PKG / "compaction" / "csrc" / "gather_rows.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "fused_rmsnorm": _PKG / "rmsnorm" / "csrc" / "fused_rmsnorm.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

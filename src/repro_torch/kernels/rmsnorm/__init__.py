@@ -1,0 +1,4 @@
+from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+
+__all__ = ["fused_rmsnorm", "rmsnorm_reference"]

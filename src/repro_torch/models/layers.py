@@ -1,4 +1,4 @@
-"""Core transformer layers: norms, RoPE, attention (dense / blockwise /
+"""Core transformer layers: norm specs, RoPE, attention (dense / blockwise /
 decode), dense FFN.  Plain functions over param dicts, mirroring
 ``repro.models.layers`` name for name; the sharding constraints of the
 reference are dropped (one device).
@@ -26,14 +26,8 @@ _NEG_INF = -1e30
 # Norms
 # ----------------------------------------------------------------------------
 
-def rmsnorm(x, weight, eps: float):
-    """RMSNorm in fp32; ``weight`` is stored as (w - 1), so zeros-init is
-    the identity."""
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps)
-    return (y * (1.0 + weight.float())).to(x.dtype)
-
+# The norm itself is ``repro_torch.kernels.rmsnorm.fused_rmsnorm``: the
+# model adds each branch's residual as it normalizes (``models.model``).
 
 def rmsnorm_specs(d_model: int):
     return Spec((d_model,), ("embed",), init="zeros")
@@ -277,6 +271,14 @@ def attention_block(p, x, cfg: ModelConfig, *, positions, cache=None,
 
 
 def _self_attention_full(q, k, v, cfg: ModelConfig):
+    """Prefill attention.  On CUDA tensors the hand-written flash kernel
+    runs at every length (a softcap config keeps the dense path: the
+    kernel has none); on the CPU, dense up to ``attn_dense_max_seq`` and
+    blockwise above it, as in the reference."""
+    from repro_torch.kernels import on_cuda
+    if on_cuda(q, k, v) and not cfg.attn_logit_softcap:
+        from repro_torch.kernels.flash_attention import flash_attention
+        return flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     if q.shape[1] <= cfg.attn_dense_max_seq:
         return dense_attention(q, k, v, causal=True, window=cfg.sliding_window,
                                softcap=cfg.attn_logit_softcap)

@@ -8,6 +8,10 @@ layout are ported; MoE, Mamba and cross-attention positions, the bhsd
 layout and ``decode_unroll_layers`` raise ``NotImplementedError`` (see
 ROADMAP.md, queue 1, M8).
 
+Every norm is the fused residual-add + RMSNorm (``kernels.rmsnorm``): the
+residual add of each branch is deferred to the next norm site, and the
+last one to ``final_norm`` in the head.
+
 Two entry points serve the engine:
   prefill(...)      the prompt; writes the KV caches, returns last logits
   decode_step(...)  one token against the caches (updated in place)
@@ -19,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import resolve_device
+from repro_torch.kernels.rmsnorm import fused_rmsnorm
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Spec, map_tree, stack_specs
@@ -96,26 +101,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 # Group application
 # ----------------------------------------------------------------------------
 
-def _apply_position(cfg: ModelConfig, ffn: str, p, x, *, positions,
+def _apply_position(cfg: ModelConfig, ffn: str, p, x, delta, *, positions,
                     pos_cache, kv_lens, rope):
-    """One (attn, ffn) layer. Returns (x, pos_cache)."""
-    h = L.rmsnorm(x, p["pre_norm"], cfg.norm_eps)
+    """One (attn, ffn) layer.  ``x`` is the residual stream and ``delta``
+    the previous branch's output, not yet added: the fused kernel adds it
+    while it normalizes.  Returns (x, delta, pos_cache)."""
+    x, h = fused_rmsnorm(delta, x, p["pre_norm"], eps=cfg.norm_eps)
     out, pos_cache = L.attention_block(
         p["mixer"], h, cfg, positions=positions, cache=pos_cache,
         kv_lens=kv_lens, rope=rope)
-    x = x + out
-    if ffn == "dense":
-        h2 = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-        x = x + L.ffn_block(p["ffn"], h2, cfg)
-    return x, pos_cache
+    if ffn != "dense":
+        return x, out, pos_cache
+    x, h2 = fused_rmsnorm(out, x, p["ffn_norm"], eps=cfg.norm_eps)
+    return x, L.ffn_block(p["ffn"], h2, cfg), pos_cache
 
 
 def _run_groups(cfg: ModelConfig, params, x, *, positions, cache, kv_lens):
     """Loop over the stacked group dim; layer g reads the views
     ``leaf[g]`` of the stacked params and caches (cache writes land in the
-    stacked tensors)."""
+    stacked tensors).  Returns (x, delta): the residual stream and the last
+    branch output, which ``_head`` adds as it applies ``final_norm``.  The
+    first layer adds the embeddings to a zero stream, so every norm of the
+    model goes through the fused kernel."""
     rope = (L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.pos_embedding == "rope" else None)
+    x, delta = torch.zeros_like(x), x
     for g in range(cfg.num_groups):
         gparams = map_tree(lambda leaf: leaf[g], params["groups"])
         for i, (_, ffn) in enumerate(cfg.group_pattern):
@@ -123,10 +133,10 @@ def _run_groups(cfg: ModelConfig, params, x, *, positions, cache, kv_lens):
             pos_cache = None
             if cache is not None:
                 pos_cache = {"k": cache[key]["k"][g], "v": cache[key]["v"][g]}
-            x, _ = _apply_position(cfg, ffn, gparams[key], x,
-                                   positions=positions, pos_cache=pos_cache,
-                                   kv_lens=kv_lens, rope=rope)
-    return x
+            x, delta, _ = _apply_position(
+                cfg, ffn, gparams[key], x, delta, positions=positions,
+                pos_cache=pos_cache, kv_lens=kv_lens, rope=rope)
+    return x, delta
 
 
 # ----------------------------------------------------------------------------
@@ -139,8 +149,8 @@ def _embed_inputs(cfg: ModelConfig, params, tokens):
         torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32))
 
 
-def _head(cfg: ModelConfig, params, x):
-    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+def _head(cfg: ModelConfig, params, x, delta):
+    _, x = fused_rmsnorm(delta, x, params["final_norm"], eps=cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x, w.to(x.dtype))
     if cfg.logits_fp32:
@@ -163,10 +173,11 @@ def prefill(cfg: ModelConfig, params, tokens, *, cache, prompt_lens=None):
         prompt_lens = torch.full((b,), s, dtype=torch.int32,
                                  device=tokens.device)
     x = _embed_inputs(cfg, params, tokens)
-    x = _run_groups(cfg, params, x, positions=positions, cache=cache,
-                    kv_lens=prompt_lens)
+    x, delta = _run_groups(cfg, params, x, positions=positions, cache=cache,
+                           kv_lens=prompt_lens)
     last = (prompt_lens.long() - 1).view(b, 1, 1).expand(b, 1, x.shape[-1])
-    return _head(cfg, params, torch.gather(x, 1, last))[:, 0], cache
+    return _head(cfg, params, torch.gather(x, 1, last),
+                 torch.gather(delta, 1, last))[:, 0], cache
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, kv_lens):
@@ -177,6 +188,6 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, kv_lens):
     check_supported(cfg)
     positions = kv_lens[:, None]
     x = _embed_inputs(cfg, params, tokens[:, None])
-    x = _run_groups(cfg, params, x, positions=positions, cache=cache,
-                    kv_lens=kv_lens)
-    return _head(cfg, params, x)[:, 0], cache
+    x, delta = _run_groups(cfg, params, x, positions=positions, cache=cache,
+                           kv_lens=kv_lens)
+    return _head(cfg, params, x, delta)[:, 0], cache

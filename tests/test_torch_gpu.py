@@ -7,7 +7,7 @@ file imports no JAX, so it runs on a machine that has only the port:
 
 Tolerances: 2e-5 in fp32; in bf16 4e-3 plus 8e-3 relative, one bf16 ulp
 of the output (both sides compute in fp32 and differ only in the final
-rounding); the gather is bit-equal."""
+rounding); the gather and the fused norm's residual sum are bit-equal."""
 
 import numpy as np
 import pytest
@@ -18,8 +18,11 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels.compaction import fused_compact, gather_rows  # noqa: E402
 from repro_torch.kernels.compaction.ref import (  # noqa: E402
     compact_reference, gather_rows_reference)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_reference, flash_attention)
 from repro_torch.kernels.ragged_decode_attention import (  # noqa: E402
     decode_attention_reference, ragged_decode_attention)
+from repro_torch.kernels.rmsnorm import fused_rmsnorm, rmsnorm_reference  # noqa: E402
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=4e-3, rtol=8e-3)}
@@ -103,3 +106,82 @@ def test_fused_compact_bit_equal_to_host_gathers(cuda):
     for a, b in ((c["pos0"]["k"], rc["pos0"]["k"]),
                  (c["pos0"]["v"], rc["pos0"]["v"]), (l, rl), (t, rt)):
         assert torch.equal(a, b)
+
+
+# prompt lengths that are no block multiple among them; B = 16 with S = 4096
+# is left out only because the plain version's [B, H, S, S] scores would
+# take 17 GB
+FLASH_SHAPES = [(b, s, None) for s in (16, 80, 192, 256, 1000) for b in (1, 16)] \
+    + [(1, 4096, None), (2, 1000, 256), (16, 192, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,win", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, b, s, win, dtype):
+    q = _randn((b, s, 16, 128), dtype, cuda, 0)
+    k = _randn((b, s, 2, 128), dtype, cuda, 1)
+    v = _randn((b, s, 2, 128), dtype, cuda, 2)
+    before = K.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, window=win)
+    assert K.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(
+        out.float(), attention_reference(q, k, v, window=win).float(),
+        **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_kernel_reads_strided_bshd_views(cuda):
+    """q, k and v as views of one fused projection: read through their
+    strides, no copy."""
+    qkv = _randn((2, 80, 20, 128), torch.bfloat16, cuda, 3)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:18], qkv[:, :, 18:]
+    torch.testing.assert_close(flash_attention(q, k, v).float(),
+                               attention_reference(q, k, v).float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q = _randn((1, 32, 6, 128), torch.float32, cuda, 0)
+    k = _randn((1, 32, 2, 128), torch.float32, cuda, 1)
+    with pytest.raises(ValueError, match="built for"):    # G = 3
+        flash_attention(q, k, k)
+    q64 = _randn((1, 32, 16, 64), torch.float32, cuda, 0)
+    k64 = _randn((1, 32, 2, 64), torch.float32, cuda, 1)
+    with pytest.raises(ValueError, match="built for"):    # D = 64
+        flash_attention(q64, k64, k64)
+    q16 = _randn((1, 32, 16, 128), torch.float32, cuda, 0)
+    with pytest.raises(TypeError):                        # mixed dtypes
+        flash_attention(q16.bfloat16(), k, k)
+    with pytest.raises(ValueError):                       # CPU + CUDA
+        flash_attention(q16, k, k.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 16, 4096, (4, 37)])
+def test_rmsnorm_kernel_matches_plain(cuda, rows, dtype):
+    shape = (rows if isinstance(rows, tuple) else (rows,)) + (2048,)
+    x = _randn(shape, dtype, cuda, 0) * 3
+    r = _randn(shape, dtype, cuda, 1)
+    w = _randn((2048,), dtype, cuda, 2) * 0.1
+    before = K.LAUNCHES["fused_rmsnorm"]
+    s, n = fused_rmsnorm(x, r, w, eps=1e-6)
+    assert K.LAUNCHES["fused_rmsnorm"] == before + 1
+    assert s.dtype == n.dtype == dtype and s.shape == n.shape == x.shape
+    assert torch.equal(s, x + r)
+    torch.testing.assert_close(n.float(),
+                               rmsnorm_reference(x, r, w, 1e-6)[1].float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_rmsnorm_kernel_rejects_what_it_does_not_take(cuda):
+    x = _randn((4, 2048), torch.bfloat16, cuda, 0)
+    with pytest.raises(TypeError):                        # fp32 weight
+        fused_rmsnorm(x, x, torch.zeros(2048, device=cuda))
+    x3 = _randn((4, 2044), torch.bfloat16, cuda, 0)
+    with pytest.raises(ValueError, match="16-byte"):      # D * 2 % 16 != 0
+        fused_rmsnorm(x3, x3, x3[0])

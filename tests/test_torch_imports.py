@@ -27,7 +27,23 @@ def _imported_modules(path):
 
 def test_port_files_found():
     assert len(PORT_FILES) > 10
-    assert ROOT / "src" / "repro_torch" / "serving" / "engine.py" in PORT_FILES
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("serving/engine.py", "launch/serve.py", "core/control.py",
+                "core/bulk.py", "core/policy_opt.py", "core/impatience.py",
+                "core/mg1.py", "core/latency_model.py",
+                "core/distributions.py", "kernels/flash_attention/ops.py",
+                "kernels/rmsnorm/ops.py"):
+        assert port / rel in PORT_FILES, rel
+
+
+def test_every_kernel_source_is_registered():
+    """Each CUDA source of the port is built by ``kernels.build`` and has a
+    launch counter that ``reset_launches`` zeroes."""
+    from repro_torch import kernels as K
+    sources = sorted((ROOT / "src" / "repro_torch" / "kernels").rglob("*.cu"))
+    assert sorted(K.SOURCES.values()) == sources and len(sources) == 4
+    K.reset_launches()
+    assert {K.LAUNCHES[name] for name in K.SOURCES} == {0}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -4,8 +4,9 @@ On the CPU each wrapper runs its plain PyTorch version; those are held
 against the Pallas kernels (interpret mode, as ``tests/test_kernels.py``
 runs them) and the reference oracles on the same numpy inputs.  Tolerances
 are the bands of ``tests/test_kernels.py``: 2e-5 in fp32, 2e-2 in bf16;
-the gathers are bit-equal.  ``tests/test_torch_gpu.py`` holds the CUDA
-kernels against the same plain versions on the card."""
+the gathers, and the fused norm's residual sum, are bit-equal.
+``tests/test_torch_gpu.py`` holds the CUDA kernels against the same plain
+versions on the card."""
 
 import dataclasses
 
@@ -19,10 +20,16 @@ import numpy as np  # noqa: E402
 from repro.configs import get_smoke_config  # noqa: E402
 from repro.kernels.compaction import fused_compact as jax_fused_compact  # noqa: E402
 from repro.kernels.compaction import gather_rows as jax_gather_rows  # noqa: E402
+from repro.kernels.flash_attention import (  # noqa: E402
+    attention_reference as jax_attention_reference)
+from repro.kernels.flash_attention import (  # noqa: E402
+    flash_attention as jax_flash_attention)
 from repro.kernels.ragged_decode_attention import (  # noqa: E402
     decode_attention_reference as jax_decode_reference)
 from repro.kernels.ragged_decode_attention import (  # noqa: E402
     ragged_decode_attention as jax_ragged)
+from repro.kernels.rmsnorm import fused_rmsnorm as jax_fused_rmsnorm  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm_reference as jax_rmsnorm_reference  # noqa: E402
 from repro.models.layers import _ragged_block_kv  # noqa: E402
 from repro.serving.engine import Engine as JaxEngine  # noqa: E402
 from repro.serving.engine import EngineConfig as JaxEngineConfig  # noqa: E402
@@ -30,8 +37,13 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels.compaction import (  # noqa: E402
     compact_reference, fused_compact, gather_rows)
 from repro_torch.kernels.compaction.ops import keep_indices  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_reference, flash_attention)
 from repro_torch.kernels.ragged_decode_attention import (  # noqa: E402
     decode_attention_reference, ragged_decode_attention)
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    fused_rmsnorm, rmsnorm_reference)
+from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models.params import params_from_numpy, tree_leaves  # noqa: E402
 
 
@@ -214,3 +226,105 @@ def test_fused_compact_pads_with_slot_zero(qwen_cache):
         produced, targets, nb=2)
     assert keep.tolist() == [1, 0]
     assert torch.equal(c["pos0"]["k"][:, 1], tcache["pos0"]["k"][:, 0])
+
+
+# ----------------------------------------------------------------------------
+# K3: prefill flash attention
+# ----------------------------------------------------------------------------
+
+def _attn_inputs(b, s, hq, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, hq, d), np.float32),
+            rng.standard_normal((b, s, hkv, d), np.float32),
+            rng.standard_normal((b, s, hkv, d), np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,hq,hkv,d,win", [
+    (2, 256, 4, 4, 64, None),
+    (1, 512, 8, 2, 128, None),
+    (2, 256, 4, 2, 128, 128),
+    (1, 128, 2, 1, 256, None),
+    (1, 384, 6, 3, 64, 96),
+])
+def test_flash_plain_matches_pallas(b, s, hq, hkv, d, win, dtype):
+    """The ``test_flash_attention_sweep`` shapes of ``tests/test_kernels.py``
+    (the Pallas kernel in interpret mode, 64-blocks)."""
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype)
+                                    for a in _attn_inputs(b, s, hq, hkv, d))
+    out = flash_attention(tq, tk, tv, window=win)
+    assert out.dtype == tq.dtype and out.shape == (b, s, hq, d)
+    pallas = jax_flash_attention(jq, jk, jv, window=win, block_q=64,
+                                 block_kv=64)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,win", [(80, None), (200, None), (200, 48)])
+def test_flash_plain_matches_oracle_off_block_multiples(s, win, dtype):
+    """Prompt buckets that are no multiple of the Pallas kernel's blocks
+    (the port's kernel masks the tail itself): held to the reference's
+    oracle, since the Pallas op cannot run them."""
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype)
+                                    for a in _attn_inputs(2, s, 16, 2, 128))
+    out = flash_attention(tq, tk, tv, window=win)
+    ref = jax_attention_reference(jq, jk, jv, window=win)
+    np.testing.assert_allclose(_f32(out), _f32(ref), **_tol(dtype))
+
+
+def test_flash_plain_equals_model_dense_path_in_fp32():
+    """In fp32 the kernel's function is the model's causal dense prefill
+    attention (the model's path rounds probabilities to v's dtype before
+    P.V, a no-op in fp32)."""
+    q, k, v = map(torch.from_numpy, _attn_inputs(2, 48, 16, 2, 128, seed=5))
+    for win in (None, 7):
+        np.testing.assert_allclose(
+            flash_attention(q, k, v, window=win).numpy(),
+            TL.dense_attention(q, k, v, causal=True, window=win).numpy(),
+            atol=2e-5, rtol=2e-5)
+
+
+def test_flash_wrapper_runs_plain_version_on_cpu():
+    q, k, v = map(torch.from_numpy, _attn_inputs(1, 40, 16, 2, 128))
+    before = K.LAUNCHES["flash_attention"]
+    assert torch.equal(flash_attention(q, k, v),
+                       attention_reference(q, k, v, causal=True))
+    assert K.LAUNCHES["flash_attention"] == before
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, window=0)
+
+
+# ----------------------------------------------------------------------------
+# K4: fused residual-add + RMSNorm
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 64, 256), (1, 128, 512), (4, 32, 128)])
+def test_rmsnorm_plain_matches_pallas(shape, dtype):
+    """The ``test_fused_rmsnorm_sweep`` shapes of ``tests/test_kernels.py``,
+    with an fp32 weight as there."""
+    rng = np.random.default_rng(6)
+    (jx, tx), (jr, tr) = (_pair(rng.standard_normal(shape, np.float32), dtype)
+                          for _ in range(2))
+    w = rng.standard_normal(shape[-1:], np.float32) * 0.1
+    s, n = fused_rmsnorm(tx, tr, torch.from_numpy(w), eps=1e-6)
+    assert s.dtype == n.dtype == tx.dtype and s.shape == n.shape == shape
+    js, jn = jax_fused_rmsnorm(jx, jr, jnp.asarray(w), eps=1e-6, block_rows=32)
+    os_, on = jax_rmsnorm_reference(jx, jr, jnp.asarray(w), 1e-6)
+    for got, want in ((s, js), (n, jn), (s, os_), (n, on)):
+        np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_sum_is_the_add(dtype):
+    """s is bit-equal to ``x + residual``, at any row count and eps."""
+    rng = np.random.default_rng(7)
+    td = DTYPES[dtype][1]
+    x, r = (torch.from_numpy(rng.standard_normal((3, 5, 2048), np.float32))
+            .to(td) for _ in range(2))
+    w = torch.from_numpy(rng.standard_normal(2048, np.float32) * 0.1).to(td)
+    before = K.LAUNCHES["fused_rmsnorm"]
+    s, n = fused_rmsnorm(x, r, w, eps=1e-5)
+    assert K.LAUNCHES["fused_rmsnorm"] == before
+    assert torch.equal(s, x + r)
+    assert torch.equal(n, rmsnorm_reference(x, r, w, 1e-5)[1])

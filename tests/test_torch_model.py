@@ -24,6 +24,7 @@ from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models.params import init_params as jax_init_params  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.kernels.rmsnorm import fused_rmsnorm  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
@@ -127,8 +128,12 @@ def test_rmsnorm_and_rope_match_reference():
     x = rng.standard_normal((2, 5, 4, 16), np.float32) * 3
     w = rng.standard_normal((16,), np.float32) * 0.1
     pos = rng.integers(0, 4000, (2, 5)).astype(np.int32)
+    # the port's norm is the fused residual-add + RMSNorm; with a zero
+    # residual it is the reference's plain layer norm
+    tx = torch.from_numpy(x)
     np.testing.assert_allclose(
-        TL.rmsnorm(torch.from_numpy(x), torch.from_numpy(w), 1e-6).numpy(),
+        fused_rmsnorm(tx, torch.zeros_like(tx), torch.from_numpy(w),
+                      eps=1e-6)[1].numpy(),
         np.asarray(JL.rmsnorm(jnp.asarray(x), jnp.asarray(w), 1e-6)), **TOL)
     np.testing.assert_allclose(
         TL.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6).numpy(),
