@@ -6,10 +6,12 @@
 Phases (any failure raises and the script exits non-zero):
   1. build the four hand-written kernels from
      ``src/repro_torch/kernels/*/csrc`` with nvcc into ``build/kernels/``,
-     one nvcc per source, all started together;
+     one nvcc per source, all started together, and print the registers,
+     shared memory and spills ptxas reports for the two attention kernels;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes qwen2.5-3b serving gives it, and time kernel, plain version,
-     one PyTorch library call and the bound;
+     one PyTorch library call and the bound (K3 also as TFLOP/s and share
+     of the bound; K1 with its split count and grid);
   3. check a small fp32 model end to end: the engine on the card (all four
      kernels) emits the same greedy tokens as the engine on the CPU (plain
      paths);
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +101,26 @@ def bound_ms(nbytes, flops, dtype):
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype])
 
 
+def ptxas_report(build_log):
+    """One line per kernel from nvcc's ``-Xptxas -v`` output: its name,
+    registers, shared memory and spills."""
+    out, entry, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = re.search(r"([a-z_]+_kernel)", mangled)
+            entry = name.group(1) if name else mangled
+            entry += (" (bf16)" if "_kernelI13__nv_bfloat16" in mangled else
+                      " (fp32)" if "_kernelIf" in mangled else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and entry:
+            out.append(f"{entry}: {line.split(':', 1)[1].strip()}; {spill}")
+            entry = None
+    return out
+
+
 # ----------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------------
@@ -106,7 +129,8 @@ def check_ragged(dev):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ragged_decode_attention import (
-        decode_attention_reference, ragged_decode_attention)
+        decode_attention_reference, ragged_decode_attention, split_count)
+    from repro_torch.kernels.ragged_decode_attention.ops import _launch
     hq, hkv, d = QWEN["hq"], QWEN["hkv"], QWEN["d"]
     rng = np.random.default_rng(0)
     max_err = {}
@@ -134,6 +158,13 @@ def check_ragged(dev):
             kc2[i, n:], vc2[i, n:] = 1e4, -1e4
         assert torch.equal(ragged_decode_attention(q, kc2, vc2, ln), out), \
             "stale cache rows changed the ragged kernel's output"
+        assert torch.equal(ragged_decode_attention(q, kc, vc, ln), out), \
+            "two calls of the ragged kernel differ"
+        # every split count up to the chosen one agrees with the plain version
+        ref = decode_attention_reference(q, kc, vc, ln).float()
+        for n in range(1, split_count(b, hkv, kc.shape[1]) + 1):
+            torch.testing.assert_close(_launch(q, kc, vc, ln, n).float(), ref,
+                                       **TOL[dtype])
         max_err[dtype] = err
         log(f"K1 ragged_decode_attention {dtype}: max |kernel - plain| = {err:.3e}")
 
@@ -159,9 +190,12 @@ def check_ragged(dev):
     nbytes = kv_rows * hkv * d * 2 * 2 + 2 * q.numel() * 2 + b * 4
     flops = 4 * kv_rows * hq * d
     bnd = bound_ms(nbytes, flops, dtype)
+    splits = split_count(b, hkv, s)
     log(f"K1 timing B={b} S={s} bf16 sum(lengths)={kv_rows}: kernel {fmt(ms)}, "
         f"plain {fmt(plain_ms)}, sdpa {fmt(lib_ms)}, bound {bnd:.4f} ms "
-        f"(bytes); grid {b * hkv} blocks on 132 SMs")
+        f"(bytes, {100 * bnd / ms[1]:.1f}% of it); {splits} splits, grid "
+        f"({splits}, {hkv}, {b}) = {splits * hkv * b} blocks on 132 SMs, then "
+        f"a combine grid of {hkv * b}")
     return {"name": "ragged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/ragged_decode_attention/csrc/"
                       "ragged_decode_attention.cu",
@@ -238,6 +272,9 @@ def check_flash(dev):
     # prompt buckets, some no multiple of any block; one sliding window
     cases = [(b, s, None) for s in (16, 80, 192, 256, 1000) for b in (1, 16)]
     cases += [(1, 4096, None), (1, 1000, 256), (16, 192, 64)]
+    # the bf16 kernel's first, partial and last K/V tiles (64 keys) and a
+    # window across tile edges
+    cases += [(16, 64, None), (1, 65, None), (16, 129, None), (2, 300, 100)]
     max_err = {}
     for dtype in ("bfloat16", "float32"):
         td = getattr(torch, dtype)
@@ -271,7 +308,8 @@ def check_flash(dev):
         log(f"K3 timing B={b} S={s} bf16 causal: kernel {fmt(ms)}, plain "
             f"{fmt(plain_ms)}, sdpa {fmt(lib_ms)}, bound {bnd:.4f} ms "
             f"({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-            f"{flops / ms[1] / 1e9:.1f} TFLOP/s")
+            f"{flops / ms[1] / 1e9:.1f} TFLOP/s, {100 * bnd / ms[1]:.1f}% of "
+            f"the bound")
         if entry is None:     # the serving shape goes into the JSON line
             entry = {"name": "flash_attention", "route": "cuda",
                      "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -458,7 +496,7 @@ def profile_decode(engine, reqs, steps=8):
         name = e.name.lower()
         kind = ("ragged_decode_attention" if "ragged_decode" in name else
                 "fused_rmsnorm" if "fused_rmsnorm" in name else
-                "flash_attention" if "flash_attention_kernel" in name else
+                "flash_attention" if "flash_attention" in name else
                 "gemm" if any(w in name for w in ("gemm", "gemv", "cutlass",
                                                   "sm90_xmma", "nvjet")) else
                 "copy/fill" if "memcpy" in name or "memset" in name else
@@ -588,6 +626,9 @@ def main() -> int:
     secs = K.build()
     log(f"build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, parallel)")
+    for name in ("flash_attention", "ragged_decode_attention"):
+        for line in ptxas_report(K.build_log(name)):
+            log(f"ptxas {name}: {line}")
 
     cfg = dataclasses.replace(get_config("qwen2.5-3b"),
                               decode_cache_update="scatter")

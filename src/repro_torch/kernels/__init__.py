@@ -4,9 +4,10 @@ counters, and the one place that decides where a tensor runs.
 Each kernel is a CUDA C++ source under ``<kernel>/csrc`` with a plain C
 interface.  ``library(name)`` compiles it with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` at the root of the checkout (file name keyed by a hash
-of the source and flags, so an edited source rebuilds) and loads it with
-``ctypes``.  Nothing is built or loaded at import: the CPU tests import
-every module on a machine with no ``nvcc``.
+of the source and its flags, so an edited source rebuilds) and loads it
+with ``ctypes``; the compiler's output is kept beside it (``.log``).
+Nothing is built or loaded at import: the CPU tests import every module on
+a machine with no ``nvcc``.
 
 ``on_cuda(*tensors)`` is the device check every wrapper uses: True for
 CUDA tensors (launch the kernel), False for CPU tensors (run the plain
@@ -44,6 +45,12 @@ SOURCES = {
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# flags for one source only, after NVCC_FLAGS: the redesigned kernels report
+# their registers, shared memory and spills (ptxas -v) into the build log
+EXTRA_FLAGS = {
+    "ragged_decode_attention": ("-Xptxas=-v",),
+    "flash_attention": ("-Xptxas=-v",),
+}
 
 LAUNCHES: Dict[str, int] = collections.Counter()
 
@@ -87,10 +94,21 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str):
+    return (*NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()))
+
+
 def _target(name: str) -> Path:
     src = SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's output from building kernel ``name`` ('' if it was
+    not built here)."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -108,7 +126,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             secs[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -119,6 +137,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)     # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

@@ -1,5 +1,6 @@
-"""Wrapper for the prefill flash attention kernel
-(``csrc/flash_attention.cu``).
+"""Wrapper for the prefill flash attention kernels
+(``csrc/flash_attention.cu``: bf16 on the tensor cores, fp32 on the fp32
+cores, chosen by dtype inside the one C entry point).
 
 CUDA tensors launch the kernel; CPU tensors run the plain version in
 ``ref.py``.  The wrapper checks what the kernel takes and raises on the
@@ -51,6 +52,9 @@ def _launch(q, k, v, causal, window):
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 b, s, hq, hkv, d, int(causal), 0 if window is None else window,
                 _DTYPES[q.dtype], K.stream_ptr(q))
+    if status == -2:
+        raise RuntimeError(f"flash_attention: no TMA tensor map for k/v with "
+                           f"strides {k.stride()}/{v.stride()}")
     K.check_status("flash_attention", status)
     K.LAUNCHES["flash_attention"] += 1
     return out

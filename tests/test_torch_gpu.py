@@ -21,7 +21,8 @@ from repro_torch.kernels.compaction.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_reference, flash_attention)
 from repro_torch.kernels.ragged_decode_attention import (  # noqa: E402
-    decode_attention_reference, ragged_decode_attention)
+    decode_attention_reference, ragged_decode_attention, split_count)
+from repro_torch.kernels.ragged_decode_attention import ops as ragged_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import fused_rmsnorm, rmsnorm_reference  # noqa: E402
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
@@ -78,6 +79,43 @@ def test_ragged_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_every_split_count(cuda, dtype):
+    """Every split count from 1 to the one the wrapper picks, with lengths
+    of 1, of S, and fewer positions than splits."""
+    b, s = 4, 300
+    chosen = split_count(b, 2, s)
+    q = _randn((b, 16, 128), dtype, cuda, 0)
+    kc = _randn((b, s, 2, 128), dtype, cuda, 1)
+    vc = _randn((b, s, 2, 128), dtype, cuda, 2)
+    ln = torch.tensor([1, s, 3, 150], dtype=torch.int32, device=cuda)
+    ref = decode_attention_reference(q, kc, vc, ln).float()
+    for splits in range(1, chosen + 1):
+        out = ragged_ops._launch(q, kc, vc, ln, splits)
+        torch.testing.assert_close(out.float(), ref, **TOL[dtype],
+                                   msg=lambda m: f"splits={splits}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_bit_equal_across_calls_and_stale_rows(cuda, dtype):
+    """The splits merge in a fixed order with no atomics: two calls give the
+    same bits, and rows at or past lengths (never read) change nothing."""
+    b, s = 16, 2048
+    q = _randn((b, 16, 128), dtype, cuda, 0)
+    kc = _randn((b, s, 2, 128), dtype, cuda, 1)
+    vc = _randn((b, s, 2, 128), dtype, cuda, 2)
+    lens = np.random.default_rng(5).integers(1, s + 1, b).astype(np.int32)
+    lens[:3] = (1, s, 7)
+    ln = torch.from_numpy(lens).to(cuda)
+    out = ragged_decode_attention(q, kc, vc, ln)
+    assert torch.equal(ragged_decode_attention(q, kc, vc, ln), out)
+    for i, n in enumerate(lens.tolist()):
+        kc[i, n:], vc[i, n:] = float("nan"), 1e4
+    assert torch.equal(ragged_decode_attention(q, kc, vc, ln), out)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32,
                                    torch.uint8])
 @pytest.mark.parametrize("shape", [(3, 8, 65), (2, 16, 4, 3, 5), (36, 16, 2048)])
@@ -131,15 +169,54 @@ def test_flash_kernel_matches_plain(cuda, b, s, win, dtype):
         **TOL[dtype])
 
 
+# the bf16 kernel's K/V tiles are 64 keys and its blocks 8 positions:
+# first, partial and last tiles of the ring, and windows across tile edges
+RING_SHAPES = [(b, s, None) for s in (1, 63, 64, 65, 127, 129) for b in (1, 16)] \
+    + [(2, 300, 100), (1, 200, 64), (3, 129, 65), (1, 1000, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,win", RING_SHAPES)
+def test_flash_bf16_kernel_ring_edges(cuda, b, s, win):
+    q = _randn((b, s, 16, 128), torch.bfloat16, cuda, 4)
+    k = _randn((b, s, 2, 128), torch.bfloat16, cuda, 5)
+    v = _randn((b, s, 2, 128), torch.bfloat16, cuda, 6)
+    torch.testing.assert_close(
+        flash_attention(q, k, v, window=win).float(),
+        attention_reference(q, k, v, window=win).float(), **TOL[torch.bfloat16])
+
+
 @pytest.mark.gpu
 def test_flash_kernel_reads_strided_bshd_views(cuda):
     """q, k and v as views of one fused projection: read through their
     strides, no copy."""
-    qkv = _randn((2, 80, 20, 128), torch.bfloat16, cuda, 3)
-    q, k, v = qkv[:, :, :16], qkv[:, :, 16:18], qkv[:, :, 18:]
-    torch.testing.assert_close(flash_attention(q, k, v).float(),
-                               attention_reference(q, k, v).float(),
-                               **TOL[torch.bfloat16])
+    for s in (80, 1000):
+        qkv = _randn((2, s, 20, 128), torch.bfloat16, cuda, 3)
+        q, k, v = qkv[:, :, :16], qkv[:, :, 16:18], qkv[:, :, 18:]
+        torch.testing.assert_close(flash_attention(q, k, v).float(),
+                                   attention_reference(q, k, v).float(),
+                                   **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "wgmma"),
+                                          (torch.float32, "simt")])
+def test_flash_kernel_dispatch_by_dtype(cuda, dtype, kernel):
+    """bf16 runs the tensor-core kernel, fp32 the fp32-core one (the
+    tensor cores would take fp32 only as TF32)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q = _randn((1, 100, 16, 128), dtype, cuda, 0)
+    k = _randn((1, 100, 2, 128), dtype, cuda, 1)
+    flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            flash_attention(q, k, k)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+    ours = {n for n in names if "flash_attention" in n}
+    assert ours and all(f"flash_attention_{kernel}" in n for n in ours), names
 
 
 @pytest.mark.gpu

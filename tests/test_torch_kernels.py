@@ -40,7 +40,11 @@ from repro_torch.kernels.compaction.ops import keep_indices  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_reference, flash_attention)
 from repro_torch.kernels.ragged_decode_attention import (  # noqa: E402
-    decode_attention_reference, ragged_decode_attention)
+    decode_attention_reference, ragged_decode_attention, split_count,
+    split_decode_attention_reference)
+from repro_torch.kernels.ragged_decode_attention.ops import SMS  # noqa: E402
+from repro_torch.kernels.ragged_decode_attention.ref import (  # noqa: E402
+    split_partials)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     fused_rmsnorm, rmsnorm_reference)
 from repro_torch.models import layers as TL  # noqa: E402
@@ -115,6 +119,62 @@ def test_ragged_plain_ignores_stale_cache():
     vc2[0, 64:] = -1e4
     out2 = ragged_decode_attention(q, kc2, vc2, ln)
     np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8, 9, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_split_algorithm_matches_pallas_and_oracle(splits, dtype):
+    """The CUDA kernel's split-KV algorithm, written plainly: per-split
+    partials merged in split order.  Lengths 1, S, fewer positions than
+    splits, and a span that is no multiple of any split count."""
+    b, s, hq, hkv, d = 5, 256, 16, 2, 128
+    q, kc, vc, ln = _ragged_inputs(b, s, hq, hkv, d, [1, s, 3, 100, 77],
+                                   seed=splits)
+    jq, tq = _pair(q, dtype)
+    jk, tk = _pair(kc, dtype)
+    jv, tv = _pair(vc, dtype)
+    out = split_decode_attention_reference(tq, tk, tv, torch.from_numpy(ln),
+                                           splits)
+    assert out.dtype == tq.dtype and out.shape == (b, hq, d)
+    pallas = jax_ragged(jq, jk, jv, jnp.asarray(ln),
+                        block_kv=_ragged_block_kv(s, 128))
+    oracle = jax_decode_reference(jq, jk, jv, jnp.asarray(ln))
+    plain = decode_attention_reference(tq, tk, tv, torch.from_numpy(ln))
+    for want in (pallas, oracle, plain):
+        np.testing.assert_allclose(_f32(out), _f32(want), **_tol(dtype))
+
+
+def test_ragged_split_partials_cover_each_position_once():
+    """Share i of request b is [i c, min((i + 1) c, len)) with c = ceil(len
+    / splits): the shares tile [0, len), and a share past len is empty (m
+    = -inf, l = 0, acc = 0)."""
+    q, kc, vc, ln = map(torch.from_numpy,
+                        _ragged_inputs(3, 40, 8, 1, 64, [1, 40, 5]))
+    m, l, acc = split_partials(q, kc, vc, ln, 8)
+    live = torch.isfinite(m[:, :, 0])
+    # c = 1, 5, 1: request 0 fills share 0, request 1 all 8, request 2 five
+    assert live.sum(0).tolist() == [1, 8, 5]
+    assert torch.all(l[~live] == 0) and torch.all(acc[~live] == 0)
+    assert torch.all(l[live] >= 1)        # each share holds its own max
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("s", [128, 2048])
+@pytest.mark.parametrize("hkv", [1, 2, 8])
+def test_ragged_split_count_fills_the_card(b, s, hkv):
+    """Enough splits for two blocks per SM where B * Hkv * S allows, never
+    more splits than positions, and one split once B * Hkv alone fills the
+    card."""
+    n = split_count(b, hkv, s)
+    assert 1 <= n <= s
+    assert b * hkv * n >= min(2 * SMS, b * hkv * s)
+    assert n == 1 or b * hkv * (n - 1) < 2 * SMS     # no more than needed
+    assert split_count(2 * SMS, hkv, s) == 1
+
+
+def test_ragged_split_count_rejects_empty_shapes():
+    with pytest.raises(ValueError):
+        split_count(0, 2, 128)
 
 
 def test_ragged_wrapper_runs_plain_version_on_cpu():
