@@ -13,11 +13,15 @@ Phases (any failure raises and the script exits non-zero):
      one PyTorch library call and the bound (K3 also as TFLOP/s and share
      of the bound; K1 with its split count and grid);
   3. check a small fp32 model end to end: the engine on the card (all four
-     kernels) emits the same greedy tokens as the engine on the CPU (plain
-     paths);
+     kernels, decode chunks as CUDA graphs) emits the same greedy tokens as
+     the engine on the CPU (plain paths); sampled at a fixed seed, the two
+     draw the same noise bits, and the token agreement is printed;
   4. serve qwen2.5-3b at full width (random bf16 weights from a seed)
-     through ``run_engine_schedule`` with elastic, then dynamic batching,
-     and profile one decode chunk;
+     through ``run_engine_schedule`` with elastic, then dynamic batching
+     (every bucket that runs replays a graph), and profile one decode chunk
+     at bucket 16 as a graph replay and through the eager loop;
+  6. serve the same request stream with continuous batching
+     (``serve_continuous``, 16 slots, chunk 32) on phase 4's engine;
   5. run the adaptive-control serving launcher
      (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width.
 Each path runs with every kernel's launch counter set to 0 just before it
@@ -58,6 +62,25 @@ def log(*a):
     print(*a, flush=True)
 
 
+def profiled(fn, tries=3):
+    """Run ``fn`` under torch.profiler (CPU and CUDA activities) and return
+    (profile, fn's result).  A window in which CUPTI delivered no device
+    event at all runs again, ``tries`` times at most: such a window was
+    seen once on the card, in a timing that the same code passes in
+    other runs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            return prof, out
+    raise AssertionError(f"the profiler saw no device work in {tries} windows")
+
+
 def time_ms(fn, iters=20, warmup=3):
     """Mean milliseconds per call of ``fn`` on the device, two ways:
     ``call`` by CUDA events around ``iters`` back-to-back calls (the host's
@@ -66,7 +89,6 @@ def time_ms(fn, iters=20, warmup=3):
     torch.profiler (host gaps excluded).  Returns (call, device)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -76,13 +98,9 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     call = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    prof, _ = profiled(lambda: [fn() for _ in range(iters)])
     dev_us = sum(e.device_time for e in prof.events()
                  if e.device_type == DeviceType.CUDA)
-    assert dev_us > 0, "the profiler saw no device work"
     return call, dev_us / 1e3 / iters
 
 
@@ -231,6 +249,8 @@ def check_gather(dev, engine, cfg):
     targets = np.full(b, 9, np.int32)
     keep = np.nonzero(produced < targets)[0].astype(np.int32)
     hc, hl, ht, hb, _, _ = engine.compact(cache, kv_lens, tok, keep)
+    # both write into the engine's own bucket-8 cache: keep the host result
+    hc = {k: {n: t.clone() for n, t in v.items()} for k, v in hc.items()}
     fc, fl, ft, fb, _ = engine.compact_fused(
         cache, kv_lens, tok, torch.from_numpy(produced).to(dev),
         torch.from_numpy(targets).to(dev), len(keep))
@@ -378,6 +398,7 @@ def check_rmsnorm(dev):
 # ----------------------------------------------------------------------------
 
 def check_small_model(dev):
+    import torch
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.models.config import scaled_down
@@ -407,6 +428,32 @@ def check_small_model(dev):
     log(f"small fp32 model: card (all four kernels, launches "
         f"{dict(K.LAUNCHES)}) and CPU (plain) emit the same "
         f"{sum(len(t) for t in rg['tokens'])} greedy tokens")
+
+    # sampled: the noise words are integer hashes, equal bit for bit; the
+    # tokens can differ only where fp32 logits of the two devices reorder
+    # a near-tie of logit / T + Gumbel noise
+    from repro_torch.serving.engine import (
+        _split_slot_keys, sample_noise_bits, slot_keys_for)
+    keys = {d: slot_keys_for(0x5EED, 16, d) for d in ("cpu", dev)}
+    for _ in range(3):
+        for vocab in (cfg.vocab_size, 151936):
+            assert torch.equal(sample_noise_bits(keys["cpu"], vocab),
+                               sample_noise_bits(keys[dev], vocab).cpu()), \
+                "sampling noise bits differ between CPU and card"
+        keys = {d: _split_slot_keys(k)[0] for d, k in keys.items()}
+    kw = dict(elastic=True, temperature=0.8, top_k=40, seed=5,
+              return_tokens=True)
+    sg = gpu.generate(prompts, targets, **kw)
+    sc = cpu.generate(prompts, targets, **kw)
+    assert list(sg["produced"]) == list(sc["produced"]) == targets
+    same = sum(a == b for x, y in zip(sg["tokens"], sc["tokens"])
+               for a, b in zip(x, y))
+    total = sum(len(t) for t in sg["tokens"])
+    log(f"small fp32 model sampled (T=0.8, top_k=40, seed 5): noise bits "
+        f"equal on card and CPU (3 steps x 16 slots, vocab {cfg.vocab_size} "
+        f"and 151936); tokens {same}/{total} equal, requests identical "
+        f"{sum(x == y for x, y in zip(sg['tokens'], sc['tokens']))}/"
+        f"{len(targets)}")
 
 
 # ----------------------------------------------------------------------------
@@ -442,53 +489,60 @@ def serve(engine, policy_name, reqs):
     chunks = [e for e in log_ if e["kind"] == "decode_chunk"]
     prefills = [e for e in log_ if e["kind"] == "prefill"]
     compacts = [e for e in log_ if e["kind"] == "compact"]
+    captures = [e for e in chunks if e["graph"] == "capture"]
     assert engine.host_syncs - syncs0 == len(prefills) + len(chunks), \
         "host_syncs != prefills + chunks"
     assert all(e["impl"] == "fused" and e["syncs"] == 0 for e in compacts)
-    assert engine.sync_checked - checked0 == len(chunks) + len(compacts), \
+    # a chunk runs one checked block (a replay, or the eager run of a
+    # capture call), a capture one more, a compaction one
+    assert engine.sync_checked - checked0 == \
+        len(chunks) + len(captures) + len(compacts), \
         "a chunk or compaction ran outside the sync-error mode"
     assert len(res.batch_sizes) >= 2 and sum(res.batch_sizes) == len(reqs)
     assert launches["ragged_decode_attention"] > 0
     per_bucket = {}
     for e in chunks:
-        acc = per_bucket.setdefault(e["batch"], [0, 0.0, 0])
+        acc = per_bucket.setdefault(e["batch"], [0, 0.0, 0, 0, 0, 0.0])
         acc[0] += e["steps"]
         acc[1] += e["seconds"]
         acc[2] += e["tokens"]
+        if e["graph"] == "replay":
+            acc[3] += 1
+            acc[4] += e["steps"]
+            acc[5] += e["seconds"]
     buckets = {b: {"steps": v[0], "ms_per_step": 1e3 * v[1] / v[0],
-                   "tokens_per_s": v[2] / v[1]}
+                   "tokens_per_s": v[2] / v[1], "replays": v[3],
+                   "replay_ms_per_step": 1e3 * v[5] / max(v[4], 1)}
                for b, v in sorted(per_bucket.items())}
     pre_ms = [1e3 * e["seconds"] for e in prefills]
     log(f"{policy_name}: batch sizes {res.batch_sizes}, mean wait "
         f"{res.waits.mean():.3f} s, makespan {res.makespan:.2f} s "
         f"(wall {wall:.2f} s), prefills {len(prefills)} "
-        f"({', '.join(f'{m:.1f}' for m in pre_ms)} ms), chunks {len(chunks)}, "
-        f"compactions {[(e['batch']) for e in compacts]}, launches {launches}")
+        f"({', '.join(f'{m:.1f}' for m in pre_ms)} ms), chunks {len(chunks)} "
+        f"({len(chunks) - len(captures)} graph replays, {len(captures)} "
+        f"capture calls, whose chunk seconds hold their eager runs and "
+        f"{sum(e['capture_seconds'] for e in captures):.2f} s of capture), "
+        f"compactions "
+        f"{[(e['batch']) for e in compacts]}, launches {launches}")
     for b, v in buckets.items():
         log(f"  {policy_name} bucket {b:2d}: {v['steps']} steps, "
-            f"{v['ms_per_step']:.2f} ms/step, {v['tokens_per_s']:.1f} tokens/s")
+            f"{v['ms_per_step']:.2f} ms/step, {v['tokens_per_s']:.1f} tokens/s; "
+            f"{v['replays']} replayed chunks at {v['replay_ms_per_step']:.2f} "
+            f"ms/step")
     return launches, buckets
 
 
-def profile_decode(engine, reqs, steps=8):
-    """Where a decode step's time goes at bucket 16: one profiled chunk of
-    ``steps`` steps; device kernels by kind, device busy time per step and
-    the host's wall time per step."""
-    import torch
+def decode_ms(chunks):
+    """Decode wall ms/step over all chunks and over the graph replays
+    only (a capture call's chunk runs eagerly, then captures)."""
+    rep = [e for e in chunks if e["graph"] == "replay"]
+    return tuple(1e3 * sum(e["seconds"] for e in c) /
+                 max(sum(e["steps"] for e in c), 1) for c in (chunks, rep))
+
+
+def _kernel_kinds(prof):
+    """Device kernels of a profile by kind: {kind: [launches, ms]}."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    dev = engine.device
-    cache, kv_lens, last, b, _ = engine.prefill_batch(
-        [r.prompt_tokens for r in reqs[:16]])
-    tok = last.argmax(-1).to(torch.int32)
-    produced = torch.ones(b, dtype=torch.int32, device=dev)
-    targets = torch.full((b,), 10 ** 6, dtype=torch.int32, device=dev)
-    out = engine.decode_chunk(cache, kv_lens, tok, produced, targets, steps)
-    cache, tok, kv_lens, produced = out[:4]
-    wall_plain = out[-1] / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = engine.decode_chunk(cache, kv_lens, tok, produced, targets, steps)
-    wall_prof = out[-1] / steps
     kinds = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -504,23 +558,94 @@ def profile_decode(engine, reqs, steps=8):
         acc = kinds.setdefault(kind, [0, 0.0])
         acc[0] += 1
         acc[1] += e.device_time / 1e3
-    busy = sum(v[1] for v in kinds.values()) / steps
-    log(f"decode step at bucket 16 (profiled chunk of {steps}): wall "
-        f"{1e3 * wall_plain:.2f} ms/step unprofiled, {1e3 * wall_prof:.2f} "
-        f"profiled; device busy {busy:.2f} ms/step "
-        f"({100 * busy / (1e3 * wall_plain):.1f}% of the unprofiled step)")
-    for kind, (n, ms) in sorted(kinds.items(), key=lambda kv: -kv[1][1]):
-        log(f"  {kind}: {n / steps:.0f} launches/step, {ms / steps:.3f} ms/step")
-    assert kinds, "the profiler saw no device kernels"
+    return kinds
 
 
-def serve_full(engine):
+def profile_decode(engine, reqs, steps=8):
+    """Where a decode step's time goes at bucket 16, for one chunk of
+    ``steps`` steps run twice on the same inputs: as the engine's graph
+    replay and through its eager loop (on a copy of the cache).  Prints
+    the wall ms/step of each, the tokens they agree on, the device busy
+    time per step of each from a profiled chunk (kernels by kind), and the
+    replay's time by CUDA events.  Asserts that each profiled chunk ran
+    the K1 and K4 kernels that the graph's record adds to ``LAUNCHES`` on
+    a replay."""
     import torch
-    from repro_torch.data.pipeline import make_request_stream
+    dev = engine.device
+    cache, kv_lens, last, b, pre_s = engine.prefill_batch(
+        [r.prompt_tokens for r in reqs[:16]])
+    log(f"prefill of the first 16 prompts (bucket 16, seq "
+        f"{engine.step_log[-1]['seq']}): {1e3 * pre_s:.2f} ms")
+    tok = last.argmax(-1).to(torch.int32)
+    produced = torch.ones(b, dtype=torch.int32, device=dev)
+    targets = torch.full((b,), 10 ** 6, dtype=torch.int32, device=dev)
+    keys = torch.zeros((b, 2), dtype=torch.int64, device=dev)
+    out = engine.decode_chunk(cache, kv_lens, tok, produced, targets, steps)
+    state = out[1:4]                        # a graph exists from here on
+    copy = {k: {n: t.clone() for n, t in v.items()} for k, v in cache.items()}
+    eager_state = [t.clone() for t in state]
+    torch.cuda.synchronize()
+
+    def eager(st):
+        t0 = time.perf_counter()
+        with engine._no_sync():
+            res = engine._chunk_eager(copy, *st, targets, keys, steps, 0.0,
+                                      None)
+        host = res[4].cpu().numpy()
+        return res[:3], host, time.perf_counter() - t0
+
+    out = engine.decode_chunk(cache, state[1], state[0], state[2], targets,
+                              steps)
+    assert engine.step_log[-1]["graph"] == "replay"
+    wall_graph = out[-1] / steps
+    eager_state, host, dt = eager(eager_state)
+    wall_eager = dt / steps
+    same = int((out[5] == host[:steps * b].reshape(steps, b)).sum())
+    state = out[1:4]
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = engine.decode_chunk(cache, state[1], state[0], state[2], targets,
+                              steps)
+    end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end) / steps
+    state = out[1:4]
+    pg, out = profiled(lambda: engine.decode_chunk(
+        cache, state[1], state[0], state[2], targets, steps))
+    wall_graph_prof = out[-1] / steps
+    pe, (_, _, dt) = profiled(lambda: eager(eager_state))
+    wall_eager_prof = dt / steps
+    kinds = {"graph": _kernel_kinds(pg), "eager": _kernel_kinds(pe)}
+    # a replay adds the launches its capture recorded to LAUNCHES: hold
+    # that record to the kernels the profiler saw (K1 is a split and a
+    # combine kernel per call)
+    rec = engine._graphs[(b, steps, 0.0, None)].launches
+    want = {"ragged_decode_attention": 2 * rec["ragged_decode_attention"],
+            "fused_rmsnorm": rec["fused_rmsnorm"]}
+    for k in ("graph", "eager"):
+        seen = {n: kinds[k].get(n, [0])[0] for n in want}
+        assert seen == want, f"{k} chunk ran {seen}, the graph record " \
+            f"says {want}"
+    log(f"profiled kernels per chunk equal the graph record's launches: "
+        f"{want} (K1 as split + combine)")
+    busy = {k: sum(v[1] for v in kd.values()) / steps for k, kd in kinds.items()}
+    log(f"decode chunk of {steps} steps at bucket 16, same inputs: graph "
+        f"replay {1e3 * wall_graph:.2f} ms/step wall, eager loop "
+        f"{1e3 * wall_eager:.2f} ms/step wall; greedy tokens equal "
+        f"{same}/{steps * b}; replay by CUDA events {event_ms:.2f} ms/step")
+    for k in ("graph", "eager"):
+        wp = wall_graph_prof if k == "graph" else wall_eager_prof
+        log(f"  {k}: device busy {busy[k]:.3f} ms/step, profiled wall "
+            f"{1e3 * wp:.2f} ms/step ({100 * busy[k] / (1e3 * wp):.1f}% busy)")
+        for kind, (n, ms) in sorted(kinds[k].items(), key=lambda kv: -kv[1][1]):
+            log(f"    {kind}: {n / steps:.0f} launches/step, {ms / steps:.3f} "
+                f"ms/step")
+
+
+def serve_full(engine, reqs):
+    import torch
     cfg = engine.cfg
-    reqs = make_request_stream(32, 4.0, ClippedLogNormal(np.log(96.0), 0.8, 512),
-                               vocab=cfg.vocab_size, prompt_len_range=(16, 257),
-                               seed=0)
     targets = [r.target_output_tokens for r in reqs]
     log(f"serving {len(reqs)} requests: prompts "
         f"{min(len(r.prompt_tokens) for r in reqs)}-"
@@ -529,15 +654,19 @@ def serve_full(engine):
     # warm the path (cuBLAS handles, allocator) outside the counted runs
     engine.generate([r.prompt_tokens for r in reqs[:2]], [3, 2], elastic=True)
     torch.cuda.reset_peak_memory_stats()
-    totals = {}
+    totals, replayed, ran = {}, set(), set()
     for name in ("elastic", "dynamic"):
-        launches, _ = serve(engine, name, reqs)
+        launches, buckets = serve(engine, name, reqs)
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
         if name == "elastic":
             assert launches["gather_rows"] > 0, "no fused compaction ran"
+        ran |= set(buckets)
+        replayed |= {b for b, v in buckets.items() if v["replays"]}
+    assert ran == replayed, f"buckets {sorted(ran - replayed)} never replayed"
     assert engine.sample_fallbacks == 0, "non-finite logits"
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({len(engine._graphs)} decode graphs)")
     profile_decode(engine, reqs)
 
     # token agreement, elastic vs padded, on one batch (printed: in bf16 a
@@ -555,6 +684,44 @@ def serve_full(engine):
     log(f"elastic vs padded greedy tokens: {same}/{total} equal "
         f"(requests identical: {sum(x == y for x, y in zip(re_['tokens'], rp['tokens']))}/8)")
     return totals
+
+
+# ----------------------------------------------------------------------------
+# Phase 6: continuous batching
+# ----------------------------------------------------------------------------
+
+def serve_cont(engine, reqs):
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.serving import serve_continuous
+    prompts = [r.prompt_tokens for r in reqs]
+    targets = [r.target_output_tokens for r in reqs]
+    n0, syncs0 = len(engine.step_log), engine.host_syncs
+    K.reset_launches()
+    torch.cuda.synchronize()
+    res = serve_continuous(engine, prompts, targets, slots=16, chunk=32)
+    launches = dict(K.LAUNCHES)
+    log_ = engine.step_log[n0:]
+    chunks = [e for e in log_ if e["kind"] == "decode_chunk"]
+    prefills = [e for e in log_ if e["kind"] == "prefill"]
+    assert list(res.produced) == targets, "continuous: produced != targets"
+    assert len(prefills) == len(reqs), "one admission prefill per request"
+    assert res.host_syncs == engine.host_syncs - syncs0 == \
+        len(prefills) + len(chunks), "host_syncs != admissions + chunks"
+    for name in ("ragged_decode_attention", "flash_attention", "fused_rmsnorm"):
+        assert launches[name] > 0, f"{name} never ran in continuous batching"
+    replays = sum(e["graph"] == "replay" for e in chunks)
+    pre_ms = [1e3 * e["seconds"] for e in prefills]
+    log(f"continuous (16 slots, chunk 32): {len(reqs)} requests, "
+        f"{sum(targets)} tokens, wall {res.wall_seconds:.2f} s; "
+        f"{len(chunks)} chunks ({replays} graph replays), {res.decode_steps} "
+        f"decode steps at {decode_ms(chunks)[0]:.2f} ms/step "
+        f"({decode_ms(chunks)[1]:.2f} over the replays); admissions "
+        f"{np.median(pre_ms):.1f} ms median prefill; TTFT mean "
+        f"{np.mean(res.ttft):.3f} s, p95 {np.percentile(res.ttft, 95):.3f} s; "
+        f"completion mean {np.mean(res.completion):.3f} s, max "
+        f"{np.max(res.completion):.3f} s; launches {launches}")
+    return launches
 
 
 # ----------------------------------------------------------------------------
@@ -585,14 +752,16 @@ def serve_launcher(dev):
     log_ = out["step_log"]
     seqs = sorted({e["seq"] for e in log_ if e["kind"] == "prefill"})
     pre_ms = [1e3 * e["seconds"] for e in log_ if e["kind"] == "prefill"]
-    steps = sum(e["steps"] for e in log_ if e["kind"] == "decode_chunk")
-    dec_s = sum(e["seconds"] for e in log_ if e["kind"] == "decode_chunk")
+    chunks = [e for e in log_ if e["kind"] == "decode_chunk"]
+    steps = sum(e["steps"] for e in chunks)
     log(f"launcher: {len(out['batch_sizes'])} batches {out['batch_sizes']}, "
         f"policies {sorted(set(out['policies']))}, final n_max {rec.n_max} "
         f"b_max {rec.b_max} policy {rec.policy}; virtual clock "
         f"{out['clock']:.2f} s (wall {wall:.2f} s); prompt buckets {seqs}, "
         f"prefill {np.mean(pre_ms):.1f} ms mean; decode {steps} steps at "
-        f"{1e3 * dec_s / max(steps, 1):.2f} ms/step; launches {launches}")
+        f"{decode_ms(chunks)[0]:.2f} ms/step ({decode_ms(chunks)[1]:.2f} over "
+        f"the {sum(e['graph'] == 'replay' for e in chunks)} replayed of "
+        f"{len(chunks)} chunks); launches {launches}")
     return launches
 
 
@@ -646,7 +815,12 @@ def main() -> int:
     kernels = [check_ragged(dev), check_gather(dev, engine, cfg),
                check_flash(dev), check_rmsnorm(dev)]
     check_small_model(dev)
-    paths = {"serving schedule": serve_full(engine)}
+    from repro_torch.data.pipeline import make_request_stream
+    reqs = make_request_stream(32, 4.0, ClippedLogNormal(np.log(96.0), 0.8, 512),
+                               vocab=cfg.vocab_size, prompt_len_range=(16, 257),
+                               seed=0)
+    paths = {"serving schedule": serve_full(engine, reqs),
+             "continuous": serve_cont(engine, reqs)}
     del engine
     torch.cuda.empty_cache()
     paths["launcher"] = serve_launcher(dev)

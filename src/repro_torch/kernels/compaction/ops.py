@@ -5,7 +5,10 @@
 derives the keep indices on the device from the per-slot ``produced`` /
 ``targets`` counters and gathers every cache leaf plus ``kv_lens``, the
 last tokens and (if any) the per-slot keys through the kernel.  Nothing is
-read back to the host, so a compaction adds zero host syncs.
+read back to the host, so a compaction adds zero host syncs.  With
+``out_cache`` the cache leaves are gathered straight into a cache the
+caller owns (the engine's persistent cache of the smaller bucket, whose
+addresses its CUDA graphs hold).
 
 CUDA tensors launch the kernel; CPU tensors run the plain version in
 ``ref.py``.  The wrapper checks what the kernel takes and raises on the
@@ -19,13 +22,13 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.kernels.compaction.ref import gather_rows_reference
-from repro_torch.models.params import map_tree
+from repro_torch.models.params import map_tree, tree_leaves
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
-def _launch(src, idx):
+def _launch(src, idx, out=None):
     if src.ndim < 2:
         raise ValueError(f"src must be [G, B, ...], got {tuple(src.shape)}")
     if idx.dtype != torch.int32 or idx.ndim != 1:
@@ -37,8 +40,14 @@ def _launch(src, idx):
     if not (0 < g <= 65535 and b > 0 and 0 < nb <= 65535):
         raise ValueError(f"kernel takes 0 < G, NB <= 65535 and B > 0, got "
                          f"G={g}, B={b}, NB={nb}")
-    out = torch.empty((g, nb) + tuple(src.shape[2:]), dtype=src.dtype,
-                      device=src.device)
+    shape = (g, nb) + tuple(src.shape[2:])
+    if out is None:
+        out = torch.empty(shape, dtype=src.dtype, device=src.device)
+    elif out.shape != shape or out.dtype != src.dtype \
+            or out.device != src.device or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {src.dtype} {shape} on "
+                         f"{src.device}, got {out.dtype} {tuple(out.shape)} "
+                         f"on {out.device}")
     row_bytes = src[0, 0].numel() * src.element_size()
     if row_bytes == 0:
         return out
@@ -53,13 +62,13 @@ def _launch(src, idx):
     return out
 
 
-def gather_rows(src, idx):
+def gather_rows(src, idx, out=None):
     """Row gather: src [G, B, ...] -> [G, NB, ...] at batch rows ``idx``
     [NB] (int32, may repeat); bit-equal to ``src[:, idx]`` for any
-    dtype."""
+    dtype.  ``out``, if given, receives the rows and is returned."""
     if K.on_cuda(src, idx):
-        return _launch(src, idx.to(torch.int32))
-    return gather_rows_reference(src, idx)
+        return _launch(src, idx.to(torch.int32), out)
+    return gather_rows_reference(src, idx, out)
 
 
 def keep_indices(produced, targets, nb: int):
@@ -78,17 +87,28 @@ def keep_indices(produced, targets, nb: int):
 
 
 def fused_compact(cache, kv_lens, tokens, slot_keys, produced, targets, *,
-                  nb: int):
+                  nb: int, out_cache=None):
     """Compact the live slots of a decode bucket into bucket size ``nb``.
 
     A slot is live iff it still owes tokens (``produced < targets``;
     padding slots carry 0/0).  Returns ``(cache, kv_lens, tokens,
     slot_keys, keep)`` with every array gathered at the first ``nb`` live
     slots in slot order; entries past the live count repeat slot 0, as
-    ``Engine.compact`` pads them.  ``slot_keys`` may be None."""
+    ``Engine.compact`` pads them.  ``slot_keys`` may be None.
+    ``out_cache``, a cache tree of bucket ``nb`` with the same keys,
+    receives the gathered leaves in place and is returned as the cache;
+    without it, one is allocated."""
     keep = keep_indices(produced, targets, nb)
-    cache = map_tree(lambda leaf: gather_rows(leaf, keep)
-                     if leaf.ndim >= 2 else leaf, cache)
+    if out_cache is None:
+        out_cache = map_tree(lambda leaf: leaf.new_empty(
+            (leaf.shape[0], nb) + tuple(leaf.shape[2:]))
+            if leaf.ndim >= 2 else leaf, cache)
+    for src, dst in zip(tree_leaves(cache), tree_leaves(out_cache)):
+        if src.ndim >= 2:
+            gather_rows(src, keep, out=dst)
+        else:                       # no batch axis: passes through
+            dst.copy_(src)
+    cache = out_cache
     kv_lens = gather_rows(kv_lens.reshape(1, -1, 1), keep).reshape(nb)
     tokens = gather_rows(tokens.reshape(1, -1, 1), keep).reshape(nb)
     if slot_keys is not None:

@@ -5,12 +5,15 @@ hold the kernel against it bit for bit."""
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models.params import map_tree
 
 
-def gather_rows_reference(src, idx):
-    """src [G, B, ...] -> [G, NB, ...] at batch rows ``idx`` [NB]."""
-    return src[:, idx.long()]
+def gather_rows_reference(src, idx, out=None):
+    """src [G, B, ...] -> [G, NB, ...] at batch rows ``idx`` [NB], into
+    ``out`` if it is given."""
+    return torch.index_select(src, 1, idx.long(), out=out)
 
 
 def compact_reference(cache, kv_lens, tokens, gidx, slot_keys=None):

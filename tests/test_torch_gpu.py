@@ -262,3 +262,210 @@ def test_rmsnorm_kernel_rejects_what_it_does_not_take(cuda):
     x3 = _randn((4, 2044), torch.bfloat16, cuda, 0)
     with pytest.raises(ValueError, match="16-byte"):      # D * 2 % 16 != 0
         fused_rmsnorm(x3, x3, x3[0])
+
+
+# ----------------------------------------------------------------------------
+# The compiled decode chunk (one CUDA graph per bucket, steps and sampling
+# setting) against the engine's eager loop, and the serving paths on it.
+# Small fp32 model: qwen's 16/2 heads of 128 keep the ragged kernel on its
+# one shape.
+# ----------------------------------------------------------------------------
+
+def _small_engines(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import scaled_down
+    from repro_torch.models.params import map_tree
+    from repro_torch.serving import Engine, EngineConfig
+    cfg = scaled_down(get_config("qwen2.5-3b"), num_groups=2, d_model=128,
+                      num_heads=16, num_kv_heads=2, head_dim=128, d_ff=256,
+                      decode_cache_update="scatter")
+    ecfg = EngineConfig(max_batch=16, max_seq=128, prompt_bucket=16,
+                        decode_chunk=8)
+    gpu = Engine(cfg, ecfg, seed=3, device=cuda)
+    cpu = Engine(cfg, ecfg, device="cpu",
+                 params=map_tree(lambda t: t.cpu(), gpu.params))
+    return gpu, cpu
+
+
+def _prompts(n, seed, vocab=512):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(m)).astype(np.int32)
+            for m in rng.integers(3, 40, n)]
+
+
+def _launch_delta(fn):
+    before = dict(K.LAUNCHES)
+    out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in K.LAUNCHES.items()
+                 if v != before.get(k, 0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature,top_k", [(0.0, None), (0.8, None),
+                                               (0.8, 5)])
+def test_graph_replay_equals_eager_loop(cuda, temperature, top_k):
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.engine import slot_keys_for
+    eng, _ = _small_engines(cuda)
+    cache, kv, last, b, _ = eng.prefill_batch(_prompts(16, 0))
+    tok = last.argmax(-1).to(torch.int32)
+    prod = torch.ones(b, dtype=torch.int32, device=cuda)
+    targ = torch.from_numpy(np.arange(b, dtype=np.int32) % 12 + 2).to(cuda)
+    keys = slot_keys_for(7, b, cuda)
+    steps = 8
+    out = eng.decode_chunk(cache, kv, tok, prod, targ, steps, temperature,
+                           top_k, keys)
+    cap = eng.step_log[-1]
+    assert cap["graph"] == "capture"
+    # the capture is part of the call's time, and M4's fit leaves it out
+    assert 0 < cap["capture_seconds"] < cap["seconds"] == out[-1]
+    _, tok, kv, prod, keys = out[:5]
+    cache_e = {k: {n: t.clone() for n, t in v.items()} for k, v in cache.items()}
+    state = [t.clone() for t in (tok, kv, prod, keys)]
+    out, d_graph = _launch_delta(lambda: eng.decode_chunk(
+        cache, kv, tok, prod, targ, steps, temperature, top_k, keys))
+    assert eng.step_log[-1]["graph"] == "replay"
+    assert eng.calibration_log()["decode"] == [(b, out[-1] / steps)]
+    (t_e, kv_e, prod_e, keys_e, packed), d_eager = _launch_delta(
+        lambda: eng._chunk_eager(cache_e, *state[:3], targ, state[3], steps,
+                                 temperature, top_k))
+    host = packed.cpu().numpy()
+    n = steps * b
+    np.testing.assert_array_equal(out[5], host[:n].reshape(steps, b))
+    np.testing.assert_array_equal(out[6], host[n:2 * n].reshape(steps, b) > 0)
+    np.testing.assert_array_equal(out[7], host[2 * n + 1:])
+    for a, e in zip(out[1:5], (t_e, kv_e, prod_e, keys_e)):
+        assert torch.equal(a, e)
+    for a, e in zip(tree_leaves(cache), tree_leaves(cache_e)):
+        assert torch.equal(a, e)
+    # a replay counts what the eager loop launches
+    assert d_graph == d_eager
+    assert d_graph["ragged_decode_attention"] == steps * 2
+    assert d_graph["fused_rmsnorm"] == steps * (2 * 2 + 1)
+
+
+@pytest.mark.gpu
+def test_graph_second_batch_and_compaction_equal_cpu(cuda):
+    """Other prompts through graphs captured by an earlier batch (stale
+    static buffers would show), and a 16 -> 8 compaction followed by
+    replays at bucket 8: the card's greedy tokens equal the CPU's."""
+    gpu, cpu = _small_engines(cuda)
+    targets = [20] * 8 + [3] * 8           # half finish in the first chunk
+    for seed in (1, 2):
+        prompts = _prompts(16, seed)
+        n0 = len(gpu.step_log)
+        rg = gpu.generate(prompts, targets, elastic=True, return_tokens=True)
+        rc = cpu.generate(prompts, targets, elastic=True, return_tokens=True)
+        assert rg["tokens"] == rc["tokens"]
+        assert list(rg["produced"]) == targets
+        log = gpu.step_log[n0:]
+        assert [(e["impl"], e["batch"]) for e in log
+                if e["kind"] == "compact"] == [("fused", 8)]
+        chunks = [(e["batch"], e["graph"]) for e in log
+                  if e["kind"] == "decode_chunk"]
+        if seed == 2:
+            assert chunks and all(g == "replay" for _, g in chunks)
+            assert (8, "replay") in chunks
+
+
+@pytest.mark.gpu
+def test_graph_sampled_generate_equals_cpu(cuda):
+    gpu, cpu = _small_engines(cuda)
+    prompts, targets = _prompts(5, 3), [9, 4, 12, 2, 7]
+    for _ in range(2):                      # capture, then replay
+        kw = dict(elastic=True, temperature=0.9, top_k=50, seed=11,
+                  return_tokens=True)
+        rg = gpu.generate(prompts, targets, **kw)
+        rc = cpu.generate(prompts, targets, **kw)
+        assert rg["tokens"] == rc["tokens"]
+
+
+@pytest.mark.gpu
+def test_graph_refuses_a_cache_it_does_not_own(cuda):
+    eng, _ = _small_engines(cuda)
+    cache, kv, last, b, _ = eng.prefill_batch(_prompts(4, 0))
+    foreign = {k: {n: t.clone() for n, t in v.items()} for k, v in cache.items()}
+    tok = last.argmax(-1).to(torch.int32)
+    ones = torch.ones(b, dtype=torch.int32, device=cuda)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="own cache"):
+        eng.decode_chunk(foreign, kv, tok, ones, ones * 5, 4)
+    assert dict(K.LAUNCHES) == before and not eng._graphs
+
+
+@pytest.mark.gpu
+def test_serve_continuous_card_equals_cpu(cuda):
+    """The same admissions, chunks and active-slot tokens on the card (K1,
+    K3, K4, graphs) as on the CPU (plain paths), and the pool's live rows
+    (each slot's rows below its final ``kv_lens``) within the cache band
+    of ``tests/test_torch_model.py``: 2e-5 of the leaf's largest magnitude.
+    The random weights make the K/V rows O(30); layer 0's rows agree to
+    2e-5 absolute, and fp32 rounding carried through layer 0's attention
+    and MLP moves layer 1's rows by more than that.  The rows from
+    ``kv_lens`` on are dead (a
+    slot without a request keeps decoding and rewrites the row at its
+    ``kv_lens`` every step) and are not compared.  Where card and CPU
+    differ is printed by leaf and layer."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving import serve_continuous
+    gpu, cpu = _small_engines(cuda)
+    prompts, targets = _prompts(7, 4), [6, 2, 9, 4, 3, 11, 1]
+    emitted = {}
+    for name, eng in (("gpu", gpu), ("cpu", cpu)):
+        chunk_fn, seen = eng.decode_chunk, []
+
+        def recording(*a, chunk_fn=chunk_fn, seen=seen, **kw):
+            out = chunk_fn(*a, **kw)
+            seen.append((out[5][out[6]].tolist(), out[7].copy()))
+            return out
+
+        eng.decode_chunk = recording
+        emitted[name] = (serve_continuous(eng, prompts, targets, slots=4,
+                                          chunk=8), seen)
+        # no admission after the last chunk, so its kv_lens are the pool's
+        assert eng.step_log[-1]["kind"] == "decode_chunk"
+    (rg, tg), (rc, tc) = emitted["gpu"], emitted["cpu"]
+    assert list(rg.produced) == list(rc.produced) == targets
+    assert rg.decode_steps == rc.decode_steps
+    assert rg.host_syncs == rc.host_syncs
+    toks = [t for t, _ in tg]
+    assert toks == [t for t, _ in tc]
+    assert sum(map(len, toks)) == sum(targets) - len(targets)
+    assert any(e.get("graph") == "replay" for e in gpu.step_log)
+
+    kv = tc[-1][1].astype(np.int64)
+    np.testing.assert_array_equal(tg[-1][1], kv)
+    pos = torch.arange(gpu.ecfg.max_seq)[None, None, :, None, None]
+    live = pos < torch.from_numpy(kv)[None, :, None, None, None]
+    leaves, report = [], []
+    for leaf, (a, e) in enumerate(zip(tree_leaves(gpu._caches[4]),
+                                      tree_leaves(cpu._caches[4]))):
+        a, mask = a.cpu(), live.expand_as(e)
+        atol = 2e-5 * max(float(e[mask].abs().max()), 1.0)
+        leaves.append((a[mask], e[mask], atol))
+        diff = (a - e).abs()
+        for g in range(e.shape[0]):
+            on, off = diff[g][mask[g]], diff[g][~mask[g]]
+            report.append(
+                f"leaf {leaf} layer {g}: band {atol:.1e}; live rows max "
+                f"{on.max():.1e}, {int((on > 1e-4).sum())} of {on.numel()} "
+                f"above 1e-4; dead rows max {off.max():.1e}, "
+                f"{int((off > 1e-4).sum())} of {off.numel()} above 1e-4")
+    print("continuous pool, card vs CPU: " + "; ".join(report))
+    for a, e, atol in leaves:
+        torch.testing.assert_close(a, e, rtol=0, atol=atol)
+
+
+@pytest.mark.gpu
+def test_sampling_bits_equal_on_cpu_and_cuda(cuda):
+    from repro_torch.serving.engine import (
+        _sample_tokens, _split_slot_keys, sample_noise_bits, slot_keys_for)
+    keys = {d: slot_keys_for(0xDEADBEEF, 16, d) for d in ("cpu", cuda)}
+    for _ in range(3):
+        bits = {d: sample_noise_bits(k, 151936) for d, k in keys.items()}
+        assert torch.equal(bits["cpu"], bits[cuda].cpu())
+        keys = {d: _split_slot_keys(k)[0] for d, k in keys.items()}
+    logits = _randn((16, 1000), torch.float32, "cpu", 5) * 3
+    toks = {d: _sample_tokens(keys[d], logits.to(d), 1.0, None)[0].cpu()
+            for d in keys}
+    assert torch.equal(toks["cpu"], toks[cuda])
