@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the four hand-written kernels from
+  1. build the six hand-written kernels from
      ``src/repro_torch/kernels/*/csrc`` with nvcc into ``build/kernels/``,
      one nvcc per source, all started together, and print the registers,
-     shared memory and spills ptxas reports for the two attention kernels;
-  2. hold each kernel against its plain PyTorch version on the card, at the
+     shared memory and spills ptxas reports for the two attention kernels
+     and the two simulator scans;
+  2. hold each serving kernel against its plain PyTorch version on the card, at the
      shapes qwen2.5-3b serving gives it, and time kernel, plain version,
      one PyTorch library call and the bound (K3 also as TFLOP/s and share
      of the bound; K1 with its split count and grid);
@@ -23,7 +24,17 @@ Phases (any failure raises and the script exits non-zero):
   6. serve the same request stream with continuous batching
      (``serve_continuous``, 16 slots, chunk 32) on phase 4's engine;
   5. run the adaptive-control serving launcher
-     (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width.
+     (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width;
+  7. run the paper's simulators (``repro_torch.core.fastsim``) on the card:
+     the Fig 5 and heavy-tail Fig 6b grids (dynamic, elastic, capped and
+     not, as 64 lanes of one ``batch_scan`` launch each; fixed b=4, 8 by
+     the closed form) and the Fig 4 FCFS cells (``impatience_scan``), then
+     the four scan policies once more on k1..k4 fitted from phase 4's
+     engine (ROADMAP M4; a fitted slope below 0 is held at 0); hold every
+     lane of the counted scans, at full length, bit for bit to their plain
+     versions on the card and four lanes of the Fig 5 launch to the NumPy
+     oracle, print every lane's mean wait beside the paper's analytic
+     delay, and time both scans against their bytes bound.
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after it.
 
@@ -49,13 +60,18 @@ ROOT = Path(__file__).resolve().parent
 
 # the card's published peaks (H100 SXM data sheet; dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,
+              "float64": 34e12}      # float64 outside the tensor cores
 # bf16: the kernel and its plain version both compute in fp32 and differ
 # only in the output's rounding, at most one bf16 ulp (2^-7 relative)
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=4e-3, rtol=8e-3)}
 
 QWEN = dict(hq=16, hkv=2, d=128)
+# the kernels of the model's serving path (the other two are the
+# simulators' scans, phase 7)
+SERVING_KERNELS = ("ragged_decode_attention", "gather_rows", "flash_attention",
+                   "fused_rmsnorm")
 
 
 def log(*a):
@@ -419,13 +435,13 @@ def check_small_model(dev):
     targets = [21, 4, 12]
     K.reset_launches()
     rg = gpu.generate(prompts, targets, elastic=True, return_tokens=True)
-    assert all(K.LAUNCHES[name] > 0 for name in K.SOURCES), K.LAUNCHES
+    assert all(K.LAUNCHES[name] > 0 for name in SERVING_KERNELS), K.LAUNCHES
     rc = cpu.generate(prompts, targets, elastic=True, return_tokens=True)
     assert rg["tokens"] == rc["tokens"], "card and CPU engines disagree"
     assert list(rg["produced"]) == targets
     assert [e["impl"] for e in gpu.step_log if e["kind"] == "compact"] == \
         ["fused", "fused"]
-    log(f"small fp32 model: card (all four kernels, launches "
+    log(f"small fp32 model: card (the four serving kernels, launches "
         f"{dict(K.LAUNCHES)}) and CPU (plain) emit the same "
         f"{sum(len(t) for t in rg['tokens'])} greedy tokens")
 
@@ -765,6 +781,291 @@ def serve_launcher(dev):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# Phase 7: the paper's simulators
+# ----------------------------------------------------------------------------
+
+SIM_N = 150_000           # requests a lane (Figs 5 and 6b, the fitted law)
+FIG4_N = 200_000          # requests a Fig 4 cell
+
+
+def event_ms(fn, iters=3, warmup=1):
+    """Milliseconds per call of ``fn`` by CUDA events, after ``warmup``
+    calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def wall_ms(fn):
+    """Milliseconds of one call of ``fn`` on the host's clock, the card
+    synchronized before and after (for the plain versions' Python loops)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _fit_line(x, y, what):
+    """Least-squares line y = a x + b with a >= 0.  ``np.polyfit``'s line
+    when its slope is not negative; else the times do not grow with x
+    beyond their noise, and the best line with a >= 0 is a = 0, b =
+    mean(y)."""
+    from repro_torch.core.latency_model import linear_fit_r2
+    a, b = np.polyfit(x, y, 1)
+    log(f"  {what}: np.polyfit slope {a:.4e} s, intercept {b:.4e} s, R^2 "
+        f"{linear_fit_r2(x, y):.3f}, {len(x)} points at "
+        f"{sorted({int(v) for v in x})}")
+    if a < 0:
+        a, b = 0.0, float(np.mean(y))
+        log(f"  {what}: a slope below 0 (time falling as the batch grows) "
+            f"is no latency law: slope held at 0, intercept the mean "
+            f"{b:.4e} s")
+    assert b > 0, f"{what}: intercept {b}"
+    return float(a), float(b)
+
+
+def fit_engine_latency(cal):
+    """ROADMAP M4: k3, k4 from the decode law (per-step seconds of the
+    replayed chunks against the batch bucket) and k1, k2 from the prefills
+    at the sequence bucket with the most distinct batch sizes, each a
+    least-squares line with a slope of at least 0 (``_fit_line``)."""
+    from repro_torch.core.latency_model import BatchLatencyModel
+    bs = np.array([b for b, _ in cal["decode"]], np.float64)
+    ts = np.array([t for _, t in cal["decode"]], np.float64)
+    assert len(set(bs)) >= 2, f"decode entries at one bucket only: {set(bs)}"
+    by_seq = {}
+    for b, seq, t in cal["prefill"]:
+        by_seq.setdefault(seq, []).append((b, t))
+    seq = max(by_seq, key=lambda q: (len({b for b, _ in by_seq[q]}),
+                                     len(by_seq[q])))
+    pb = np.array([b for b, _ in by_seq[seq]], np.float64)
+    pt = np.array([t for _, t in by_seq[seq]], np.float64)
+    assert len(set(pb)) >= 2, f"prefills at seq {seq} of one batch size"
+    log("M4 fit on the card (phase 4's calibration log):")
+    k3, k4 = _fit_line(bs, ts, "decode step against the batch bucket (k3, "
+                       "k4)")
+    k1, k2 = _fit_line(pb, pt, f"prefill at seq {seq} against the batch "
+                       f"(k1, k2)")
+    lat = BatchLatencyModel(k1, k2, k3, k4)
+    log(f"  fitted law: {lat}")
+    return lat
+
+
+def _sim_grid(name, dist, lat, lams, policies, dev):
+    """One λ grid through ``sweep``; its scan lanes run in one S1 launch,
+    whose inputs and outputs ``scan_out`` hands back."""
+    from repro_torch.core.fastsim import sweep
+    scan = {}
+    t0 = time.perf_counter()
+    waits = sweep(policies, lams, dist, lat, num_requests=SIM_N, device=dev,
+                  scan_out=scan)
+    wall = time.perf_counter() - t0
+    return {"name": name, "dist": dist, "lat": lat, "lams": lams,
+            "waits": waits, "wall": wall, "scan": scan}
+
+
+def _print_grid(g, policies):
+    log(f"{g['name']}: {len(g['lams'])} λ from {g['lams'][0]:.4f} to "
+        f"{g['lams'][-1]:.4f}/s, {len(g['scan']['lanes'])} scan lanes of "
+        f"{SIM_N} requests in one batch_scan launch, sweep wall "
+        f"{g['wall']:.2f} s; mean wait simulated / analytic (s):")
+    for name, pol in policies.items():
+        pairs = []
+        for lam, w in zip(g["lams"], g["waits"][name]):
+            a = pol.analytic_delay(lam, g["dist"], g["lat"])
+            assert np.isfinite(w), f"{name} at λ={lam}: wait {w}"
+            pairs.append(f"{w:.3f}/{'-' if a is None else f'{a:.3f}'}")
+        log(f"  {name} [{pol.analytic_kind or 'no closed form'}]: "
+            f"{' '.join(pairs)}")
+
+
+def check_batch_scan(g, dev):
+    """Every lane of the grid's counted S1 launch, at full length, against
+    the plain version on the card on the same inputs; then the kernel
+    timed on them.  Returns (lanes, n, ms, plain_ms, bound_ms)."""
+    import torch
+    from repro_torch.kernels.batch_scan import (
+        NO_CAP, batch_scan, batch_scan_reference)
+    scan = g["scan"]
+    arr, tok = (torch.from_numpy(scan[k]).to(dev) for k in ("arr", "tok"))
+    el = torch.tensor([e for *_, e, _ in scan["lanes"]], device=dev)
+    bm = torch.tensor([NO_CAP if b is None else float(b)
+                       for *_, b in scan["lanes"]], dtype=torch.float64,
+                      device=dev)
+    k = (g["lat"].k1, g["lat"].k2, g["lat"].k3, g["lat"].k4)
+    (ref_s, ref_c), plain_ms = wall_ms(
+        lambda: batch_scan_reference(arr, tok, el, bm, *k))
+    assert np.array_equal(ref_s.cpu().numpy(), scan["starts"]) and \
+        np.array_equal(ref_c.cpu().numpy(), scan["closed"]), \
+        f"{g['name']}: batch_scan differs from its plain version"
+    n, lanes = arr.shape
+    ms = event_ms(lambda: batch_scan(arr, tok, el, bm, *k))
+    nbytes = lanes * n * (8 + 8 + 8 + 1) + lanes * (1 + 8)
+    bnd = bound_ms(nbytes, 8 * lanes * n, "float64")
+    log(f"S1 batch_scan {lanes} lanes x {n}: {ms:.3f} ms by CUDA events "
+        f"({lanes * n / ms / 1e6:.3f} G lane-requests/s), bound {bnd:.4f} ms "
+        f"(bytes, {nbytes / 1e6:.1f} MB; {100 * bnd / ms:.2f}% of it); plain "
+        f"{plain_ms:.1f} ms; the counted launch's starts and closed equal "
+        f"the plain version's over all {lanes} lanes at full length "
+        f"({g['name']})")
+    return lanes, n, ms, plain_ms, bnd
+
+
+def run_simulators(dev, cal):
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core.bulk import elastic_batching_bound
+    from repro_torch.core.distributions import LogNormalTokens, UniformTokens
+    from repro_torch.core.fastsim import simulate_policy_fast
+    from repro_torch.core.latency_model import (
+        PAPER_A100_LLAMA2_7B, BatchLatencyModel)
+    from repro_torch.core.policies import (
+        DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy)
+    from repro_torch.core.simulate import _warm, no_warmup, simulate_policy
+    from repro_torch.kernels.impatience_scan import (
+        impatience_scan, impatience_scan_reference)
+
+    pols = {"dynamic": DynamicPolicy(), "dynamic_b8": DynamicPolicy(b_max=8),
+            "elastic": ElasticPolicy(), "elastic_b8": ElasticPolicy(b_max=8),
+            "fixed_b4": FixedPolicy(b=4), "fixed_b8": FixedPolicy(b=8)}
+    scan_pols = {k: v for k, v in pols.items() if v.scan_lane() is not None}
+    uni, ln = UniformTokens(1000), LogNormalTokens(7.0, 0.7)
+    lat5 = BatchLatencyModel(0.05, 0.5, 0.0005, 0.02)
+    lat6 = BatchLatencyModel(0.05, 0.5, 2e-4, 0.002)
+    # elastic batching without a cap is the fastest policy here: it
+    # saturates at 1 / (k1 + k3 E[N]) (Eq 26's slope)
+    sat6 = 1.0 / elastic_batching_bound(ln, lat6, 1.0)["alpha"]
+    lat_fit = fit_engine_latency(cal)
+    mu16 = float(lat_fit.service_rate(uni, 16)[0])
+    fcfs_cells = [(n_max, tau) for n_max in (None, 1600)
+                  for tau in (30.0, 120.0, None)]
+
+    # the main path, counted: three sweeps and the Fig 4 cells
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fig5 = _sim_grid("Fig 5 (uniform 0..1000, k = 0.05, 0.5, 5e-4, 0.02)",
+                     uni, lat5, np.geomspace(0.05, 0.8, 16), pols, dev)
+    fig6 = _sim_grid("Fig 6b (lognormal(7, 0.7), k = 0.05, 0.5, 2e-4, "
+                     f"0.002; elastic saturates at {sat6:.4f}/s)", ln, lat6,
+                     np.geomspace(0.05, 0.9 * sat6, 16), pols, dev)
+    fit = _sim_grid(f"fitted law (λ 10%-90% of mu[16] = {mu16:.4f}/s)", uni,
+                    lat_fit, np.linspace(0.1, 0.9, 9) * mu16, scan_pols, dev)
+    fig4 = {}
+    for n_max, tau in fcfs_cells:
+        fig4[n_max, tau] = simulate_policy_fast(
+            FCFSPolicy(n_max=n_max, tau=tau), 1 / 40, ln, PAPER_A100_LLAMA2_7B,
+            num_requests=FIG4_N, device=dev)
+    torch.cuda.synchronize()
+    main_wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    assert launches["batch_scan"] == 3 and launches["impatience_scan"] == 4, \
+        launches
+    log(f"simulators: main path {main_wall:.2f} s wall, launches {launches}")
+    for g in (fig5, fig6):
+        _print_grid(g, pols)
+    _print_grid(fit, scan_pols)
+    for (n_max, tau), r in fig4.items():
+        pol = FCFSPolicy(n_max=n_max, tau=tau)
+        a = pol.analytic_delay(1 / 40, ln, PAPER_A100_LLAMA2_7B)
+        log(f"Fig 4 FCFS λ=1/40 n_max={n_max} tau={tau} "
+            f"({'S2' if tau else 'closed form'}): mean wait {r['mean_wait']:.3f}"
+            f" s (analytic {a:.3f}), loss {r['loss_frac']:.4f}")
+
+    # four lanes of the counted Fig 5 launch at full length against the
+    # NumPy oracle (host CPU)
+    scan = fig5["scan"]
+    col = {(name, li): c for c, (name, li, _, _) in enumerate(scan["lanes"])}
+    last = len(fig5["lams"]) - 1
+    for name in ("dynamic", "elastic"):
+        for li in (0, last):
+            lam, c = fig5["lams"][li], col[name, li]
+            c0 = time.process_time()
+            with no_warmup():
+                ora = simulate_policy(pols[name], lam, uni, lat5,
+                                      num_requests=SIM_N)
+            cpu_s = time.process_time() - c0
+            assert np.array_equal(scan["starts"][:, c] - scan["arr"][:, c],
+                                  ora["waits"]), \
+                f"{name} at λ={lam}: card and oracle waits differ"
+            assert SIM_N / scan["closed"][:, c].sum() == ora["mean_batch"]
+            log(f"oracle check {name} λ={lam:.4f}: {SIM_N} waits of the "
+                f"counted launch equal bit for bit, mean batch "
+                f"{ora['mean_batch']:.4f} equal; the oracle took {cpu_s:.2f} "
+                f"s of host CPU time")
+    for (n_max, tau), r in fig4.items():
+        ora = simulate_policy(FCFSPolicy(n_max=n_max, tau=tau), 1 / 40, ln,
+                              PAPER_A100_LLAMA2_7B, num_requests=FIG4_N)
+        assert np.array_equal(r["waits"], ora["waits"]), (n_max, tau)
+    log(f"Fig 4: all {len(fig4)} FCFS cells' {FIG4_N} waits equal the oracle's")
+
+    # S1: every lane of the three counted launches against the plain
+    # version on the card, at full length
+    rows = [check_batch_scan(g, dev) for g in (fig5, fig6, fit)]
+    lanes, n, ms, plain_ms, bnd = rows[0]
+    s1 = {"name": "batch_scan", "route": "cuda",
+          "source": "src/repro_torch/kernels/batch_scan/csrc/batch_scan.cu",
+          "replaces": "src/repro/core/fastsim.py:300 (_batching_core, a "
+                      "lax.scan; no Pallas kernel)",
+          "shape": [n, lanes], "max_abs_err": 0.0, "ms": ms,
+          "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": "bytes",
+          "library_ms": None}
+
+    # S2: each impatient Fig 4 cell at the main path's shape [FIG4_N, 1],
+    # against the plain version run once over the four cells as lanes and
+    # against the counted launch's waits
+    cells = [(n_max, tau) for n_max, tau in fcfs_cells if tau is not None]
+    inter, service = [], []
+    for n_max, tau in cells:
+        wl = FCFSPolicy(n_max=n_max, tau=tau).sample_workload(
+            1 / 40, ln, FIG4_N, 0)
+        inter.append(wl.inter)
+        service.append(PAPER_A100_LLAMA2_7B.service_time(wl.tokens))
+    inter = torch.from_numpy(np.stack(inter, axis=1)).to(dev)
+    service = torch.from_numpy(np.stack(service, axis=1)).to(dev)
+    tau = torch.tensor([t for _, t in cells], dtype=torch.float64, device=dev)
+    (rw, rl), plain_ms = wall_ms(
+        lambda: impatience_scan_reference(inter, service, tau))
+    for j, cell in enumerate(cells):
+        w, lost = impatience_scan(inter[:, j:j + 1], service[:, j:j + 1],
+                                  tau[j:j + 1])
+        assert torch.equal(w[:, 0], rw[:, j]) and \
+            torch.equal(lost[:, 0], rl[:, j]), \
+            f"impatience_scan differs from its plain version at {cell}"
+        assert np.array_equal(_warm(w[:, 0].cpu().numpy()), fig4[cell]["waits"])
+    one = (inter[:, :1].contiguous(), service[:, :1].contiguous(), tau[:1])
+    ms1 = event_ms(lambda: impatience_scan(*one))
+    ms = event_ms(lambda: impatience_scan(inter, service, tau))
+    lanes = len(cells)
+    nbytes = lanes * FIG4_N * (8 + 8 + 8 + 1) + lanes * 8
+    bnd = bound_ms(nbytes, 3 * lanes * FIG4_N, "float64")
+    log(f"S2 impatience_scan {lanes} lanes x {FIG4_N}: {ms:.3f} ms by CUDA "
+        f"events ({lanes * FIG4_N / ms / 1e6:.3f} G lane-requests/s), bound "
+        f"{bnd:.4f} ms (bytes; {100 * bnd / ms:.2f}% of it), plain "
+        f"{plain_ms:.1f} ms; 1 lane (the main path's launch) {ms1:.3f} ms; "
+        f"each cell's launch at [{FIG4_N}, 1] equals the plain version's "
+        f"lane at full length and the counted launch's waits")
+    s2 = {"name": "impatience_scan", "route": "cuda",
+          "source": "src/repro_torch/kernels/impatience_scan/csrc/"
+                    "impatience_scan.cu",
+          "replaces": "src/repro/core/fastsim.py:224 (_impatience_scan, a "
+                      "lax.scan; no Pallas kernel)",
+          "shape": [FIG4_N, lanes], "max_abs_err": 0.0, "ms": ms,
+          "ms_one_lane": ms1, "plain_ms": plain_ms, "bound_ms": bnd,
+          "bound_by": "bytes", "library_ms": None}
+    return launches, [s1, s2]
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -795,7 +1096,8 @@ def main() -> int:
     secs = K.build()
     log(f"build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, parallel)")
-    for name in ("flash_attention", "ragged_decode_attention"):
+    for name in ("flash_attention", "ragged_decode_attention", "batch_scan",
+                 "impatience_scan"):
         for line in ptxas_report(K.build_log(name)):
             log(f"ptxas {name}: {line}")
 
@@ -819,13 +1121,19 @@ def main() -> int:
     reqs = make_request_stream(32, 4.0, ClippedLogNormal(np.log(96.0), 0.8, 512),
                                vocab=cfg.vocab_size, prompt_len_range=(16, 257),
                                seed=0)
-    paths = {"serving schedule": serve_full(engine, reqs),
-             "continuous": serve_cont(engine, reqs)}
+    paths = {"serving schedule": serve_full(engine, reqs)}
+    cal = engine.calibration_log()          # phase 4's measurements (M4)
+    paths["continuous"] = serve_cont(engine, reqs)
     del engine
     torch.cuda.empty_cache()
     paths["launcher"] = serve_launcher(dev)
+    t0 = time.perf_counter()
+    paths["simulators"], sim_kernels = run_simulators(dev, cal)
+    log(f"phase 7 (simulators) took {time.perf_counter() - t0:.1f} s")
+    kernels += sim_kernels
     for k in kernels:
-        k["launches_by_path"] = {p: n[k["name"]] for p, n in paths.items()}
+        k["launches_by_path"] = {p: n.get(k["name"], 0)
+                                 for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         assert k["launches"] > 0, f"{k['name']} never ran on a path"
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,11 +11,13 @@ copy of the part of ``repro.core.bulk`` the control plane reaches.
   b requests; mean wait via the roots of z^b = exp(lam*H*(z-1)); the paper's
   truncated Lagrange series for the roots is provided alongside an exact
   fixed-point solve.
+* Elastic batching (Eq 26): early-exit replies shrink the effective batch;
+  completion time k1 b + k2 + k3*sum(n_i) + k4*max(n_i), again linearized.
 * Multi-bin batching (Guldogan et al. 2024): the delay envelope and the
   load-dependent bin boundaries.
 
-The elastic, WAIT, SRPT, tandem, breakdown and session forms wait for the
-simulators and the layers they model (ROADMAP.md M6, M7).
+The WAIT, SRPT, tandem, breakdown and session forms wait for the
+simulators and the layers they model (ROADMAP.md M6b, M7).
 """
 
 from __future__ import annotations
@@ -50,6 +52,21 @@ def dynamic_batching_bound(dist: TokenDistribution, lat: BatchLatencyModel,
     """Paper Eqs (19)-(20) generalized: linearize H^[b] then apply Eq (16)."""
     alpha, beta = lat.linear_envelope(dist, mode=mode, quantile=quantile,
                                       b_range=b_range)
+    return {
+        "alpha": alpha,
+        "beta": beta,
+        "wait_bound": inoue_bound(lam, alpha, beta),
+        "stable": lam * alpha < 1.0,
+    }
+
+
+def elastic_batching_bound(dist: TokenDistribution, lat: BatchLatencyModel,
+                           lam: float, quantile: float = 1.0) -> dict:
+    """Paper Eq (26) + Eq (16): H_el[b] <= (k1 + k3*E[N])*b + k2 + k4*L_inf."""
+    en = dist.mean()
+    linf = dist.max_order_stat_limit(quantile)
+    alpha = lat.k1 + lat.k3 * en
+    beta = lat.k2 + lat.k4 * linf
     return {
         "alpha": alpha,
         "beta": beta,
@@ -197,6 +214,12 @@ def optimal_fixed_batch(dist: TokenDistribution, lat: BatchLatencyModel,
         return {"b_star": None, "wait": np.inf, "waits": waits}
     b_star = min(finite, key=finite.get)
     return {"b_star": b_star, "wait": finite[b_star], "waits": waits}
+
+
+def service_rate_curve(dist: TokenDistribution, lat: BatchLatencyModel,
+                       bs) -> np.ndarray:
+    """mu^[b] = b / H^[b] (paper Eq 24 / Fig 3b)."""
+    return lat.service_rate(dist, np.asarray(bs))
 
 
 # ----------------------------------------------------------------------------

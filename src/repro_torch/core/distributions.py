@@ -1,16 +1,19 @@
-"""Output-token length distributions: a copy of the part of
-``repro.core.distributions`` the control plane uses (the base class, the
-lognormal family and the empirical estimator).
+"""Output-token length distributions: a copy of
+``repro.core.distributions`` (the base class, the lognormal, uniform,
+truncated Gaussian, deterministic and geometric families and the empirical
+estimator).
 
 Token counts are discrete; every distribution exposes a pmf over the integer
 grid ``0..support`` plus the derived quantities the paper's analysis needs:
 
   * clipped moments under a max-token limit ``n_max``            (Eqs 2-3)
   * the maximum order statistic E[L | batch size b]              (Eq 23)
-  * sampling (for the engine workloads)
+  * sampling (for the simulators and the engine workloads): one
+    ``rng.choice`` over the pmf, so equal seeds draw equal token counts in
+    both packages
 
-The lognormal family is discretized by CDF differences on integers, which
-is exactly how token counts realize it.
+Continuous families (lognormal / truncated Gaussian) are discretized by CDF
+differences on integers, which is exactly how token counts realize them.
 """
 
 from __future__ import annotations
@@ -131,6 +134,59 @@ class LogNormalTokens(TokenDistribution):
         pmf = np.diff(np.concatenate([[0.0], cdf]))
         pmf[-1] += 1.0 - cdf[-1]
         pmf[0] = 0.0   # zero-token replies don't occur
+        super().__init__(pmf)
+
+
+class UniformTokens(TokenDistribution):
+    """Uniform lo..m (paper §IV-B1 / Fig 5)."""
+
+    name = "uniform"
+
+    def __init__(self, m: int = 1000, lo: int = 0):
+        pmf = np.zeros(m + 1)
+        pmf[lo:] = 1.0
+        super().__init__(pmf)
+        self.m = m
+
+
+class TruncGaussianTokens(TokenDistribution):
+    """Truncated Gaussian on [0, inf) (paper §IV-B2, Eqs 21-22)."""
+
+    name = "trunc_gaussian"
+
+    def __init__(self, mean: float = 800.0, std: float = 20.0,
+                 support: int = None):
+        support = int(support or (mean + 8 * std))
+        a = (0.0 - mean) / std
+        d = stats.truncnorm(a, np.inf, loc=mean, scale=std)
+        grid = np.arange(support + 1, dtype=np.float64)
+        cdf = d.cdf(grid + 0.5)
+        pmf = np.diff(np.concatenate([[0.0], cdf]))
+        pmf[-1] += 1.0 - cdf[-1]
+        super().__init__(pmf)
+        self.mu, self.sigma = mean, std
+
+
+class DeterministicTokens(TokenDistribution):
+    name = "deterministic"
+
+    def __init__(self, n: int):
+        pmf = np.zeros(n + 1)
+        pmf[n] = 1.0
+        super().__init__(pmf)
+
+
+class GeometricTokens(TokenDistribution):
+    """Memoryless discrete analogue of exponential service."""
+
+    name = "geometric"
+
+    def __init__(self, mean: float, support: int = None):
+        p = 1.0 / mean
+        support = int(support or mean * 12)
+        n = np.arange(support + 1, dtype=np.float64)
+        pmf = p * (1 - p) ** np.maximum(n - 1, 0)
+        pmf[0] = 0.0
         super().__init__(pmf)
 
 

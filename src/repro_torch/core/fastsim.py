@@ -1,0 +1,321 @@
+"""The fast simulators behind the batching-policy core: a port of
+``repro.core.fastsim`` onto the card.
+
+The NumPy event loops in :mod:`repro_torch.core.simulate` stay the
+reference oracle; this module runs the same recursions fast.  Dispatch is
+structural: every :class:`repro_torch.core.policies.BatchPolicy` names its
+kernel in ``policy.fast_kernel`` and ``KERNELS`` maps the name to an
+implementation; a policy without one (``ContinuousPolicy``) runs the
+oracle, as in the reference.
+
+  * ``"mg1"``          Lindley / workload recursion.  tau=None is the
+    oracle's closed-form cumulative minimum (host NumPy, as the reference's
+    fast path is); with impatience the workload recursion runs as kernel
+    S2 (``kernels/impatience_scan``), one lane per cell.
+  * ``"batch_scan"``   dynamic / elastic batch formation as a per-request
+    scan with an O(1) carry (start, count, token sum, token max): kernel
+    S1 (``kernels/batch_scan``), one thread per lane.
+  * ``"fixed_cummax"`` closed form: the free-time recursion
+    F_k = max(F_{k-1}, A_k) + H_k telescopes to a running maximum (host
+    NumPy, as in the reference).
+
+``sweep(policies, lam_grid, ...)`` stacks every (λ, policy) cell whose
+policy rides the batching scan as a lane of ONE S1 launch; the other
+policies dispatch through ``KERNELS`` per cell.
+
+Every entry point takes ``device``: None runs on the card and raises
+without one; ``"cpu"`` runs the kernels' plain PyTorch versions (the CPU
+tests).  All times are float64 tensors: simulated clocks reach about 1e6 s,
+where a float32 ulp (about 0.06 s) would swamp the waits.  Every kernel
+samples its workload through the policy's ``sample_workload``, the same
+rng call order as the oracle and the reference, so equal seeds give equal
+trajectories, bit for bit.
+
+Not ported yet: the multi-bin, WAIT and SRPT batch-event loops,
+``sweep_noise`` and the tandem loop (ROADMAP.md M6b); fault traces,
+traffic, sessions and memory budgets (M7); ``lane_scan=`` (M9).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.distributions import TokenDistribution
+from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
+from repro_torch.core.policies import (
+    BatchPolicy, DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy,
+    policy_from_spec, single_from_batch)
+from repro_torch.core.simulate import (
+    _warm, check_no_m7_layers, simulate_fixed_batching, simulate_policy)
+from repro_torch.kernels import resolve_device
+from repro_torch.kernels.batch_scan import NO_CAP, batch_scan
+from repro_torch.kernels.impatience_scan import impatience_scan
+
+KERNELS: Dict[str, Callable] = {}
+
+
+def kernel(name: str):
+    """Register a kernel; ``BatchPolicy.fast_kernel`` names it."""
+    def deco(fn):
+        KERNELS[name] = fn
+        return fn
+    return deco
+
+
+def _f64(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float64), device=device)
+
+
+def simulate_policy_fast(policy: BatchPolicy, lam: float,
+                         dist: Optional[TokenDistribution], lat,
+                         num_requests: int = 200_000, seed: int = 0,
+                         workload=None, fault_trace=None, traffic=None,
+                         sessions=None, memory=None, device=None) -> dict:
+    """Fast twin of :func:`repro_torch.core.simulate.simulate_policy`:
+    dispatch to the policy's kernel, or run the oracle when the policy has
+    none (``fast_kernel=None``).  ``workload`` overrides the policy's own
+    sampling, exactly like the oracle's parameter."""
+    check_no_m7_layers(fault_trace=fault_trace, traffic=traffic,
+                       sessions=sessions, memory=memory)
+    device = resolve_device(device)
+    if policy.uses_single_latency and isinstance(lat, BatchLatencyModel):
+        lat = single_from_batch(lat)
+    if policy.fast_kernel is None:
+        return simulate_policy(policy, lam, dist, lat,
+                               num_requests=num_requests, seed=seed,
+                               workload=workload)
+    return KERNELS[policy.fast_kernel](policy, lam, dist, lat, num_requests,
+                                       seed, workload=workload, device=device)
+
+
+# ----------------------------------------------------------------------------
+# M/G/1 with deterministic impatience tau (kernel S2)
+# ----------------------------------------------------------------------------
+
+@kernel("mg1")
+def _mg1_kernel(policy, lam, dist, lat, num_requests, seed, workload=None,
+                *, device) -> dict:
+    if policy.tau is None:
+        # the reference tau=None path is already a closed-form vectorized
+        # Lindley recursion — it IS the fast path.
+        return simulate_policy(policy, lam, dist, lat,
+                               num_requests=num_requests, seed=seed,
+                               workload=workload)
+    wl = workload if workload is not None else \
+        policy.sample_workload(lam, dist, num_requests, seed)
+    service = np.asarray(lat.service_time(wl.tokens), np.float64)
+    waits, lost = impatience_scan(_f64(wl.inter, device)[:, None],
+                                  _f64(service, device)[:, None],
+                                  _f64([policy.tau], device))
+    waits_w = _warm(waits[:, 0].cpu().numpy())
+    lost_w = _warm(lost[:, 0].cpu().numpy())
+    served = waits_w[~lost_w]
+    return {
+        "mean_wait": float(waits_w.mean()),
+        "mean_wait_served": float(served.mean()) if served.size else 0.0,
+        "loss_frac": float(lost_w.mean()),
+        "p95_wait": float(np.percentile(waits_w, 95)),
+        "waits": waits_w,
+    }
+
+
+def simulate_mg1_fast(lam: float, dist: TokenDistribution, lat: LatencyModel,
+                      n_max: Optional[int] = None, tau: Optional[float] = None,
+                      num_requests: int = 200_000, seed: int = 0,
+                      device=None) -> dict:
+    """Drop-in fast twin of :func:`repro_torch.core.simulate.simulate_mg1`."""
+    return simulate_policy_fast(FCFSPolicy(n_max=n_max, tau=tau), lam, dist,
+                                lat, num_requests=num_requests, seed=seed,
+                                device=device)
+
+
+# ----------------------------------------------------------------------------
+# Dynamic / elastic batching (kernel S1)
+# ----------------------------------------------------------------------------
+
+def _batch_lane_stats(starts, closed, arrivals):
+    starts = np.asarray(starts)
+    nb = int(np.asarray(closed).sum())
+    waits = starts - arrivals
+    w = _warm(waits)
+    return {
+        "mean_wait": float(w.mean()),
+        "p95_wait": float(np.percentile(w, 95)),
+        "mean_batch": float(len(starts) / max(nb, 1)),
+        "waits": w,
+    }
+
+
+def _scan_lanes(arr, tok, lanes, lat, device):
+    """Kernel S1 over stacked lanes: arr, tok [n, lanes] numpy, lanes
+    minor; ``lanes`` a list of (elastic, b_max).  Returns (starts, closed)
+    as [n, lanes] numpy."""
+    elastic = torch.tensor([bool(e) for e, _ in lanes], device=device)
+    b_max = _f64([NO_CAP if bm is None else float(bm) for _, bm in lanes],
+                 device)
+    starts, closed = batch_scan(_f64(arr, device), _f64(tok, device),
+                                elastic, b_max, lat.k1, lat.k2, lat.k3,
+                                lat.k4)
+    return starts.cpu().numpy(), closed.cpu().numpy()
+
+
+@kernel("batch_scan")
+def _batch_scan_kernel(policy, lam, dist, lat, num_requests, seed,
+                       workload=None, *, device) -> dict:
+    wl = workload if workload is not None else \
+        policy.sample_workload(lam, dist, num_requests, seed)
+    starts, closed = _scan_lanes(wl.arrivals[:, None], wl.tokens[:, None],
+                                 [policy.scan_lane()], lat, device)
+    return _batch_lane_stats(starts[:, 0], closed[:, 0], wl.arrivals)
+
+
+def simulate_dynamic_batching_fast(lam: float, dist: TokenDistribution,
+                                   lat: BatchLatencyModel,
+                                   b_max: Optional[int] = None,
+                                   elastic: bool = False,
+                                   n_max: Optional[int] = None,
+                                   num_requests: int = 200_000,
+                                   seed: int = 0, device=None) -> dict:
+    """Drop-in fast twin of simulate_dynamic_batching (same seeds =>
+    trajectory-identical batch boundaries)."""
+    cls = ElasticPolicy if elastic else DynamicPolicy
+    return simulate_policy_fast(cls(n_max=n_max, b_max=b_max), lam, dist,
+                                lat, num_requests=num_requests, seed=seed,
+                                device=device)
+
+
+# ----------------------------------------------------------------------------
+# Fixed batching (closed form — the recursion telescopes to a cummax)
+# ----------------------------------------------------------------------------
+
+@kernel("fixed_cummax")
+def _fixed_kernel(policy, lam, dist, lat, num_requests, seed,
+                  workload=None, *, device) -> dict:
+    if "batch_time" in vars(policy):
+        # an instance-level batch_time override cannot be vectorized:
+        # the reference runs its oracle loop here, and so does the port
+        return simulate_policy(policy, lam, dist, lat,
+                               num_requests=num_requests, seed=seed,
+                               workload=workload)
+    b = policy.b
+    wl = workload if workload is not None else \
+        policy.sample_workload(lam, dist, num_requests, seed)
+    n_served = (len(wl.arrivals) // b) * b    # provided workloads may be
+    arrivals = wl.arrivals[:n_served]         # ragged
+    tokens = wl.tokens[:n_served]
+    arr_kb = arrivals.reshape(-1, b)
+    h = np.asarray(lat.batch_time(b, tokens.reshape(-1, b).max(axis=1)),
+                   np.float64)
+    c = np.cumsum(h)
+    # F_k = max(F_{k-1}, A_k) + H_k  =>  F_k - C_k = cummax_j(A_j - C_{j-1})
+    free = np.maximum.accumulate(arr_kb[:, -1] - (c - h)) + c
+    starts = free - h
+    waits = (starts[:, None] - arr_kb).reshape(-1)
+    w = _warm(waits)
+    return {
+        "mean_wait": float(w.mean()),
+        "p95_wait": float(np.percentile(w, 95)),
+        "waits": w,
+    }
+
+
+def simulate_fixed_batching_fast(lam: float, b: int,
+                                 dist: Optional[TokenDistribution],
+                                 lat: Optional[BatchLatencyModel] = None,
+                                 batch_time: Optional[Callable] = None,
+                                 num_requests: int = 200_000,
+                                 seed: int = 0, device=None) -> dict:
+    """Drop-in fast twin of simulate_fixed_batching. With an arbitrary
+    ``batch_time`` callable the per-batch times cannot be vectorized, so that
+    case runs the reference loop."""
+    if batch_time is not None:
+        resolve_device(device)
+        return simulate_fixed_batching(lam, b, dist, lat,
+                                       batch_time=batch_time,
+                                       num_requests=num_requests, seed=seed)
+    assert lat is not None
+    return simulate_policy_fast(FixedPolicy(b=b), lam, dist, lat,
+                                num_requests=num_requests, seed=seed,
+                                device=device)
+
+
+# ----------------------------------------------------------------------------
+# Uniform sweep: one S1 launch for every batch_scan lane, kernels for the rest
+# ----------------------------------------------------------------------------
+
+def _instances(policies: dict) -> dict:
+    return {name: (p if isinstance(p, BatchPolicy) else policy_from_spec(p))
+            for name, p in policies.items()}
+
+
+def scan_lane_inputs(policies: dict, lam_grid, dist,
+                     num_requests: int = 100_000, seed: int = 0):
+    """The lanes ``sweep`` stacks into its one S1 launch: every (policy, λ)
+    cell whose policy rides the batching scan with no ``n_max``.  Returns
+    (lanes, arr, tok): a list of (name, lam_index, elastic, b_max) and the
+    [n, lanes] float64 arrivals and tokens, lanes minor as S1 takes them
+    (one workload per λ, sampled as the oracle samples it)."""
+    lam_grid = list(lam_grid)
+    lanes = []
+    for name, pol in _instances(policies).items():
+        lane = pol.scan_lane()
+        if lane is not None and pol.n_max is None:
+            lanes += [(name, li) + lane for li in range(len(lam_grid))]
+    wls = [DynamicPolicy().sample_workload(lam, dist, num_requests, seed)
+           for lam in lam_grid] if lanes else []
+    arr = np.stack([wls[li].arrivals for _, li, _, _ in lanes], axis=1) \
+        if lanes else np.zeros((num_requests, 0))
+    tok = np.stack([wls[li].tokens for _, li, _, _ in lanes], axis=1) \
+        if lanes else np.zeros((num_requests, 0))
+    return lanes, arr, tok
+
+
+def sweep(policies: dict, lam_grid, dist, lat,
+          num_requests: int = 100_000, seed: int = 0, device=None,
+          scan_out: Optional[dict] = None) -> dict:
+    """Mean wait for each policy over an arrival-rate grid — the uniform
+    fast entry point.  ``policies``: name -> BatchPolicy (or legacy spec
+    dict).  Policies riding the batching scan (``scan_lane() is not
+    None``, no ``n_max``) are stacked as lanes of ONE S1 launch
+    (:func:`scan_lane_inputs`); every other policy dispatches through
+    ``KERNELS`` per (λ, policy) cell (the oracle when it has no kernel).
+    A ``scan_out`` dict is filled with that launch's ``lanes``, its inputs
+    ``arr``, ``tok`` and outputs ``starts``, ``closed`` ([n, lanes] numpy),
+    for a caller that checks the kernel."""
+    device = resolve_device(device)
+    lam_grid = list(lam_grid)
+    insts = _instances(policies)
+    lanes, arr, tok = scan_lane_inputs(insts, lam_grid, dist, num_requests,
+                                       seed)
+    laned = {name for name, *_ in lanes}
+    out = {name: [None] * len(lam_grid) for name in insts}
+    for name, pol in insts.items():
+        if name in laned:
+            continue
+        for li, lam in enumerate(lam_grid):
+            r = simulate_policy_fast(pol, lam, dist, lat,
+                                     num_requests=num_requests, seed=seed,
+                                     device=device)
+            out[name][li] = r["mean_wait"]
+    if lanes:
+        starts, closed = _scan_lanes(arr, tok, [(e, b) for *_, e, b in lanes],
+                                     lat, device)
+        for col, (name, li, _, _) in enumerate(lanes):
+            stats = _batch_lane_stats(starts[:, col], closed[:, col],
+                                      arr[:, col])
+            out[name][li] = stats["mean_wait"]
+        if scan_out is not None:
+            scan_out.update(lanes=lanes, arr=arr, tok=tok, starts=starts,
+                            closed=closed)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def simulate_policy_sweep_fast(lam_grid, dist, lat, policies: dict,
+                               num_requests: int = 100_000,
+                               seed: int = 0, device=None) -> dict:
+    """Drop-in fast twin of simulate_policy_sweep (legacy argument order)."""
+    return sweep(policies, lam_grid, dist, lat,
+                 num_requests=num_requests, seed=seed, device=device)

@@ -1,19 +1,72 @@
-"""Batch formation for the paper's batching disciplines: a copy of the
-formation part of ``repro.core.policies`` (dynamic, elastic and fixed
-batching) with no analytics and no simulators.
+"""The batching-policy core: a copy of ``repro.core.policies`` for the
+paper's disciplines (M/G/1 FCFS with clipping and impatience; dynamic,
+elastic and fixed batching) and iteration-level continuous batching.
 
-``formation()`` returns an iterator-style state whose
-``next_batch(t_free)`` encodes the trigger (when service starts) and the
-member selection (who is in the batch); ``serving.scheduler`` walks it on
-the arrival timeline and runs each batch on the engine.
+Each discipline is defined once for every layer:
+
+  * **workload law**: ``sample_workload`` fixes the rng call order
+    (arrivals, token counts, clipping), so the oracle
+    (:mod:`repro_torch.core.simulate`), the fast path
+    (:mod:`repro_torch.core.fastsim`) and the reference package see the
+    same trajectory for equal seeds;
+  * **batch formation**: ``formation()`` returns an iterator-style state
+    whose ``next_batch(t_free)`` encodes the trigger (when service starts)
+    and the member selection (who is in the batch);
+  * **service law**: ``batch_time`` (simulator layer, a
+    ``BatchLatencyModel``/``LatencyModel``) and ``service_clock``
+    (scheduler layer, a clock) give the batch occupancy and the
+    per-member completion offsets;
+  * **analytic delay**: ``analytic_delay`` exposes the paper's closed
+    forms and bounds (Pollaczek-Khinchine, Inoue Eq 16, M/D^b/1 Eq 25).
+
+Consumers dispatch structurally: ``simulate_policy`` on ``oracle_kind``,
+``fastsim`` on ``fast_kernel``.  Not ported yet, and raising
+``NotImplementedError``: length predictors (ROADMAP.md M7), the tandem
+``stage_split`` (the memory part of M7), and the multi-bin, WAIT and SRPT
+disciplines (M6b).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Type
 
 import numpy as np
 
+from repro_torch.core.distributions import TokenDistribution
+from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
+
+
+# ----------------------------------------------------------------------------
+# Workload: the sampled request stream a policy operates on
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """Arrivals + (clipped) output-token counts, sampled in a fixed rng
+    order so every layer sees the same trajectory for equal seeds."""
+
+    arrivals: np.ndarray          # absolute arrival times (cumsum of expos)
+    tokens: np.ndarray            # float64 output-token counts (clipped)
+    inter: Optional[np.ndarray] = None   # inter-arrival times (FCFS oracle)
+
+
+def single_from_batch(lat: BatchLatencyModel) -> LatencyModel:
+    """A single-request latency law derived from the batch law: S(n) =
+    H(1, n) = (k1 + k2) + (k3 + k4) n.  Used when a single-service policy
+    (FCFS) is swept with only a ``BatchLatencyModel`` in hand."""
+    return LatencyModel(a=lat.k3 + lat.k4, c=lat.k1 + lat.k2)
+
+
+def not_ported(what: str, item: str):
+    """Raise for a part of the reference that the port does not have yet,
+    naming its ROADMAP.md item."""
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+# ----------------------------------------------------------------------------
+# Formation states (trigger + member selection, shared by oracle & scheduler)
+# ----------------------------------------------------------------------------
 
 class _DynamicFormation:
     """Serve everything waiting when the server frees (cap ``b_max``); an
@@ -68,7 +121,14 @@ class _FixedFormation:
         self.head -= k
 
 
+# ----------------------------------------------------------------------------
+# BatchPolicy protocol + registry
+# ----------------------------------------------------------------------------
+
 REGISTRY: Dict[str, Type["BatchPolicy"]] = {}
+
+# the reference's batch-event disciplines, not ported yet
+_M6B = ("multibin", "wait", "srpt")
 
 
 def register(cls: Type["BatchPolicy"]) -> Type["BatchPolicy"]:
@@ -78,25 +138,83 @@ def register(cls: Type["BatchPolicy"]) -> Type["BatchPolicy"]:
 
 def get_policy(name: str, **kwargs) -> "BatchPolicy":
     if name not in REGISTRY:
+        item = "M6b" if name in _M6B else "queue 1"
         raise NotImplementedError(
             f"policy {name!r} is not ported yet (ported: "
-            f"{', '.join(sorted(REGISTRY))}); see ROADMAP.md")
+            f"{', '.join(sorted(REGISTRY))}); see ROADMAP.md {item}")
     return REGISTRY[name](**kwargs)
 
 
+def policy_from_spec(spec: dict) -> "BatchPolicy":
+    """Legacy ``{"kind": ..., **params}`` spec dicts -> policy instance."""
+    spec = dict(spec)
+    kind = spec.pop("kind")
+    if kind in _M6B:
+        return get_policy(kind, **spec)
+    if kind not in REGISTRY:
+        raise ValueError(kind)
+    return REGISTRY[kind](**spec)
+
+
+def default_policies(b: int = 4,
+                     b_max: Optional[int] = 8) -> Dict[str, "BatchPolicy"]:
+    """One representative instance per ported discipline: the reference's
+    set without multi-bin, WAIT and SRPT (ROADMAP.md M6b)."""
+    return {
+        "fcfs": FCFSPolicy(),
+        "dynamic": DynamicPolicy(),
+        f"dynamic_b{b_max}": DynamicPolicy(b_max=b_max),
+        "elastic": ElasticPolicy(),
+        f"fixed_b{b}": FixedPolicy(b=b),
+        "continuous": ContinuousPolicy(slots=16),
+    }
+
+
 class BatchPolicy:
-    """One batching discipline's formation and clipping rules."""
+    """One serving discipline, defined once for every layer.
+
+    Class attributes (the structural dispatch surface):
+      name               registry key
+      oracle_kind        event-loop family in ``repro_torch.core.simulate``
+      fast_kernel        kernel in ``repro_torch.core.fastsim`` (None ->
+                         the fast layer runs the oracle)
+      analytic_kind      'exact' | 'bound' | 'approx' | None
+      uses_single_latency  True -> expects a ``LatencyModel`` (single
+                         request); drivers convert a ``BatchLatencyModel``
+                         via :func:`single_from_batch`
+    """
 
     name = "base"
+    oracle_kind = "batches"
+    fast_kernel: Optional[str] = None
+    analytic_kind: Optional[str] = None
+    uses_single_latency = False
 
-    def __init__(self, n_max: Optional[int] = None):
+    def __init__(self, n_max: Optional[int] = None, predictor=None):
+        if predictor is not None:
+            not_ported("a length predictor", "M7")
         self.n_max = n_max
+
+    # -------------------- workload law --------------------
+    def sample_workload(self, lam: float, dist: Optional[TokenDistribution],
+                        num_requests: int, seed: int) -> Workload:
+        rng = np.random.default_rng(seed)
+        arrivals = np.cumsum(rng.exponential(1.0 / lam, num_requests))
+        if dist is not None:
+            tokens = dist.sample(rng, num_requests).astype(np.float64)
+        else:
+            tokens = np.zeros(num_requests)
+        if self.n_max is not None:
+            tokens = np.minimum(tokens, self.n_max)
+        return Workload(arrivals=arrivals, tokens=tokens)
 
     def clip(self, tokens):
         return (np.minimum(tokens, self.n_max) if self.n_max is not None
                 else tokens)
 
-    def formation(self, arrivals: np.ndarray, tokens: np.ndarray):
+    # -------------------- formation (trigger + membership) ------------
+    def formation(self, arrivals: np.ndarray, tokens: np.ndarray,
+                  dist: Optional[TokenDistribution] = None):
         raise NotImplementedError
 
     def schedule_length(self, n: int) -> int:
@@ -104,9 +222,117 @@ class BatchPolicy:
         batching truncates to a multiple of b)."""
         return n
 
+    # -------------------- service law --------------------
+    def batch_time(self, ns: np.ndarray, lat) -> float:
+        """Batch occupancy on the simulator layer (``lat`` is the policy's
+        latency model: batch or single per ``uses_single_latency``)."""
+        raise NotImplementedError
+
+    def service_clock(self, ns: np.ndarray, clock):
+        """(occupancy, per-member completion offsets) on the scheduler
+        layer.  Default: padded semantics — everyone completes with the
+        batch."""
+        h = clock.batch_time(ns)
+        return h, np.full(len(ns), h)
+
+    def stage_split(self, ns: np.ndarray, lat):
+        not_ported("the prefill/decode tandem split", "M7 (memory)")
+
+    # -------------------- analytics --------------------
+    def analytic_delay(self, lam: float, dist: TokenDistribution,
+                       lat) -> Optional[float]:
+        """Mean queueing delay from the paper's closed forms, or None when
+        the discipline has no analytic form (see ``analytic_kind``)."""
+        return None
+
+    # -------------------- convenience layer entry points --------------
+    def simulate(self, lam, dist, lat, num_requests: int = 200_000,
+                 seed: int = 0) -> dict:
+        from repro_torch.core.simulate import simulate_policy
+        return simulate_policy(self, lam, dist, lat,
+                               num_requests=num_requests, seed=seed)
+
+    def simulate_fast(self, lam, dist, lat, num_requests: int = 200_000,
+                      seed: int = 0, device=None) -> dict:
+        from repro_torch.core.fastsim import simulate_policy_fast
+        return simulate_policy_fast(self, lam, dist, lat,
+                                    num_requests=num_requests, seed=seed,
+                                    device=device)
+
+    def scheduler(self, clock, predictor=None):
+        from repro_torch.serving.scheduler import PolicyScheduler
+        return PolicyScheduler(self, clock, predictor=predictor)
+
+    # -------------------- fast-path hints --------------------
+    def scan_lane(self):
+        """(elastic_flag, b_max) when this policy can ride a lane of the
+        shared batching scan (kernel S1), else None."""
+        return None
+
     def __repr__(self):
         keys = {k: v for k, v in vars(self).items() if v is not None}
         return f"{type(self).__name__}({keys})"
+
+
+# ----------------------------------------------------------------------------
+# The paper's disciplines
+# ----------------------------------------------------------------------------
+
+@register
+class FCFSPolicy(BatchPolicy):
+    """M/G/1 FCFS with max-token clipping and optional deterministic
+    impatience tau (paper §III, Eqs 1-9)."""
+
+    name = "fcfs"
+    oracle_kind = "mg1"
+    fast_kernel = "mg1"
+    analytic_kind = "exact"
+    uses_single_latency = True
+
+    def __init__(self, n_max: Optional[int] = None,
+                 tau: Optional[float] = None, predictor=None):
+        super().__init__(n_max, predictor)
+        self.tau = tau
+
+    def sample_workload(self, lam, dist, num_requests, seed) -> Workload:
+        # The FCFS oracle consumes inter-arrival times directly (same rng
+        # call order as arrivals=cumsum(inter), so trajectories still align).
+        rng = np.random.default_rng(seed)
+        inter = rng.exponential(1.0 / lam, num_requests)
+        tokens = self.clip(dist.sample(rng, num_requests))
+        return Workload(arrivals=np.cumsum(inter), tokens=tokens, inter=inter)
+
+    def formation(self, arrivals, tokens, dist=None):
+        return _DynamicFormation(arrivals, b_max=1)
+
+    def batch_time(self, ns, lat) -> float:
+        return float(lat.service_time(ns[0]))
+
+    def service_clock(self, ns, clock):
+        h = clock.single_time(ns[0])
+        return h, np.array([h])
+
+    def analytic_delay(self, lam, dist, lat) -> float:
+        from repro_torch.core.mg1 import mg1_wait
+        if isinstance(lat, BatchLatencyModel):
+            lat = single_from_batch(lat)
+        if self.tau is not None:
+            from repro_torch.core.impatience import exact_impatience
+            return exact_impatience(dist, lat, lam, self.tau, self.n_max).wq_all
+        return mg1_wait(dist, lat, lam, self.n_max).wait
+
+    def optimize_n_max(self, lam, dist, lat, theta: float,
+                       loss_cost: float = 4.0) -> int:
+        """The paper's optimal max-token limit (Eqs 10-13) for this
+        discipline: V1 when users are patient, V2 under impatience tau."""
+        from repro_torch.core.policy_opt import (
+            optimize_token_limit_v1, optimize_token_limit_v2)
+        if isinstance(lat, BatchLatencyModel):
+            lat = single_from_batch(lat)
+        if self.tau is None:
+            return optimize_token_limit_v1(dist, lat, lam, theta).n_max
+        return optimize_token_limit_v2(dist, lat, lam, theta, self.tau,
+                                       loss_cost).n_max
 
 
 @register
@@ -115,14 +341,35 @@ class DynamicPolicy(BatchPolicy):
     decode H[b, max] (paper §IV-A/B, Eq 18)."""
 
     name = "dynamic"
+    fast_kernel = "batch_scan"
+    analytic_kind = "bound"
 
     def __init__(self, n_max: Optional[int] = None,
-                 b_max: Optional[int] = None):
-        super().__init__(n_max)
+                 b_max: Optional[int] = None, predictor=None):
+        super().__init__(n_max, predictor)
         self.b_max = b_max
+        if b_max is not None:
+            # the Inoue bound assumes serve-ALL-waiting; capping batch size
+            # lowers throughput, so the unbounded bound is not an upper
+            # bound for the capped system — no closed form available
+            self.analytic_kind = None
 
-    def formation(self, arrivals, tokens):
+    def formation(self, arrivals, tokens, dist=None):
         return _DynamicFormation(arrivals, self.b_max)
+
+    def batch_time(self, ns, lat) -> float:
+        return float(lat.batch_time(len(ns), ns.max()))
+
+    def scan_lane(self):
+        return (False, self.b_max)
+
+    def analytic_delay(self, lam, dist, lat) -> Optional[float]:
+        from repro_torch.core.bulk import dynamic_batching_bound
+        if self.b_max is not None:
+            return None
+        return dynamic_batching_bound(dist if self.n_max is None
+                                      else dist.clip(self.n_max),
+                                      lat, lam)["wait_bound"]
 
 
 @register
@@ -132,6 +379,27 @@ class ElasticPolicy(DynamicPolicy):
 
     name = "elastic"
 
+    def batch_time(self, ns, lat) -> float:
+        return lat.elastic_batch_time(ns)
+
+    def service_clock(self, ns, clock):
+        comp = clock.elastic_times(ns)            # sorted ascending order
+        order = np.argsort(ns, kind="stable")
+        offsets = np.empty(len(ns))
+        offsets[order] = comp
+        return float(comp.max()), offsets
+
+    def scan_lane(self):
+        return (True, self.b_max)
+
+    def analytic_delay(self, lam, dist, lat) -> Optional[float]:
+        from repro_torch.core.bulk import elastic_batching_bound
+        if self.b_max is not None:
+            return None
+        return elastic_batching_bound(dist if self.n_max is None
+                                      else dist.clip(self.n_max),
+                                      lat, lam)["wait_bound"]
+
 
 @register
 class FixedPolicy(BatchPolicy):
@@ -139,17 +407,59 @@ class FixedPolicy(BatchPolicy):
     present (paper §IV-C, Eqs 24-25)."""
 
     name = "fixed"
+    fast_kernel = "fixed_cummax"
+    analytic_kind = "approx"     # Eq 25 treats H^[b] as deterministic
 
-    def __init__(self, b: int = 4, n_max: Optional[int] = None):
-        super().__init__(n_max)
+    def __init__(self, b: int = 4, n_max: Optional[int] = None,
+                 predictor=None):
+        super().__init__(n_max, predictor)
         self.b = b
 
-    def formation(self, arrivals, tokens):
+    def sample_workload(self, lam, dist, num_requests, seed) -> Workload:
+        return super().sample_workload(
+            lam, dist, (num_requests // self.b) * self.b, seed)
+
+    def formation(self, arrivals, tokens, dist=None):
         return _FixedFormation(arrivals, self.b)
 
     def schedule_length(self, n: int) -> int:
         return (n // self.b) * self.b
 
+    def batch_time(self, ns, lat) -> float:
+        return float(lat.batch_time(len(ns), ns.max()))
 
-__all__ = ["BatchPolicy", "DynamicPolicy", "ElasticPolicy", "FixedPolicy",
-           "REGISTRY", "get_policy", "register"]
+    def analytic_delay(self, lam, dist, lat) -> float:
+        from repro_torch.core.bulk import mdb1_wait_exact
+        d = dist if self.n_max is None else dist.clip(self.n_max)
+        h = float(lat.mean_batch_time(d, self.b))
+        return mdb1_wait_exact(lam, h, self.b)
+
+
+@register
+class ContinuousPolicy(BatchPolicy):
+    """Iteration-level (Orca/vLLM-style) batching — beyond paper.  ``slots``
+    decode streams; a freed slot refills immediately; admission and refill
+    at ``chunk`` boundaries, mirroring the engine's fused decode loop."""
+
+    name = "continuous"
+    oracle_kind = "continuous"
+    fast_kernel = None            # virtual-timeline loop IS the simulator
+
+    def __init__(self, slots: int = 16, n_max: Optional[int] = None,
+                 chunk: int = 1, predictor=None):
+        super().__init__(n_max, predictor)
+        assert chunk >= 1
+        self.slots = slots
+        self.chunk = chunk
+
+    def scheduler(self, clock):
+        from repro_torch.serving.scheduler import ContinuousBatchScheduler
+        return ContinuousBatchScheduler(clock, slots=self.slots,
+                                        n_max=self.n_max, chunk=self.chunk)
+
+
+__all__ = [
+    "BatchPolicy", "ContinuousPolicy", "DynamicPolicy", "ElasticPolicy",
+    "FCFSPolicy", "FixedPolicy", "REGISTRY", "Workload", "default_policies",
+    "get_policy", "policy_from_spec", "register", "single_from_batch",
+]

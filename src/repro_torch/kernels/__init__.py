@@ -41,15 +41,21 @@ SOURCES = {
     "gather_rows": _PKG / "compaction" / "csrc" / "gather_rows.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "fused_rmsnorm": _PKG / "rmsnorm" / "csrc" / "fused_rmsnorm.cu",
+    # the port's own kernels: the simulators' per-request recursions
+    "batch_scan": _PKG / "batch_scan" / "csrc" / "batch_scan.cu",
+    "impatience_scan": _PKG / "impatience_scan" / "csrc" / "impatience_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# flags for one source only, after NVCC_FLAGS: the redesigned kernels report
-# their registers, shared memory and spills (ptxas -v) into the build log
+# flags for one source only, after NVCC_FLAGS: the redesigned kernels and
+# the simulator scans report their registers, shared memory and spills
+# (ptxas -v) into the build log
 EXTRA_FLAGS = {
     "ragged_decode_attention": ("-Xptxas=-v",),
     "flash_attention": ("-Xptxas=-v",),
+    "batch_scan": ("-Xptxas=-v",),
+    "impatience_scan": ("-Xptxas=-v",),
 }
 
 LAUNCHES: Dict[str, int] = collections.Counter()

@@ -1,9 +1,16 @@
 from repro_torch.serving.continuous import (
     ContinuousResult, serve_continuous, splice_cache)
 from repro_torch.serving.engine import Engine, EngineConfig
+from repro_torch.serving.metrics import summarize
 from repro_torch.serving.scheduler import (
-    EngineClock, ScheduleResult, run_engine_schedule)
+    ContinuousBatchScheduler, DynamicBatchScheduler, ElasticBatchScheduler,
+    EngineClock, FCFSScheduler, FixedBatchScheduler, ModelClock,
+    PolicyScheduler, ScheduleResult, run_continuous_virtual,
+    run_engine_schedule, run_schedule)
 
-__all__ = ["ContinuousResult", "Engine", "EngineConfig", "EngineClock",
-           "ScheduleResult", "run_engine_schedule", "serve_continuous",
-           "splice_cache"]
+__all__ = ["ContinuousBatchScheduler", "ContinuousResult",
+           "DynamicBatchScheduler", "ElasticBatchScheduler", "Engine",
+           "EngineClock", "EngineConfig", "FCFSScheduler",
+           "FixedBatchScheduler", "ModelClock", "PolicyScheduler",
+           "ScheduleResult", "run_continuous_virtual", "run_engine_schedule",
+           "run_schedule", "serve_continuous", "splice_cache", "summarize"]

@@ -7,7 +7,8 @@ file imports no JAX, so it runs on a machine that has only the port:
 
 Tolerances: 2e-5 in fp32; in bf16 4e-3 plus 8e-3 relative, one bf16 ulp
 of the output (both sides compute in fp32 and differ only in the final
-rounding); the gather and the fused norm's residual sum are bit-equal."""
+rounding); the gather, the fused norm's residual sum and the simulators'
+float64 scans (S1, S2) are bit-equal."""
 
 import numpy as np
 import pytest
@@ -469,3 +470,128 @@ def test_sampling_bits_equal_on_cpu_and_cuda(cuda):
     toks = {d: _sample_tokens(keys[d], logits.to(d), 1.0, None)[0].cpu()
             for d in keys}
     assert torch.equal(toks["cpu"], toks[cuda])
+
+
+# ----------------------------------------------------------------------------
+# The simulators' scans (S1 batch_scan, S2 impatience_scan): float64, equal
+# bit for bit to their plain versions (no tolerance: every product and sum
+# is rounded on its own in both)
+# ----------------------------------------------------------------------------
+
+def _scan_inputs(lanes, n, seed):
+    """Arrivals [n, lanes] with the first at t=0 and runs of equal arrival
+    times (ties decide ``a <= t_cur``), and integer token counts."""
+    rng = np.random.default_rng(seed)
+    lam = np.geomspace(0.05, 2.0, lanes)
+    gaps = rng.exponential(1.0, (n, lanes)) / lam
+    gaps[0] = 0.0
+    gaps[rng.random(n) < 0.05] = 0.0
+    arr = np.cumsum(gaps, axis=0)
+    tok = rng.integers(1, 1001, (n, lanes)).astype(np.float64)
+    return arr, tok
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 3, 64])
+@pytest.mark.parametrize("capped", [False, True])
+def test_batch_scan_kernel_bit_equal_to_plain(cuda, lanes, capped):
+    from repro_torch.kernels.batch_scan import (
+        NO_CAP, batch_scan, batch_scan_reference)
+    n = 5003                                    # no multiple of 32 or 8
+    arr, tok = _scan_inputs(lanes, n, seed=lanes)
+    elastic = np.arange(lanes) % 2 == 1
+    b_max = np.where(np.arange(lanes) % 3 == 0, NO_CAP, 8.0) if capped \
+        else np.full(lanes, NO_CAP)
+    args = [torch.from_numpy(x).to(cuda) for x in (arr, tok, elastic, b_max)]
+    lat = (0.05, 0.5, 0.0005, 0.02)
+    before = K.LAUNCHES["batch_scan"]
+    starts, closed = batch_scan(*args, *lat)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["batch_scan"] == before + 1
+    assert starts.shape == (n, lanes) and starts.dtype == torch.float64
+    ref_s, ref_c = batch_scan_reference(*args, *lat)
+    assert torch.equal(starts, ref_s) and torch.equal(closed, ref_c)
+    assert bool(closed[0].all())                # the bogus first close
+    cpu_s, cpu_c = batch_scan(*(a.cpu() for a in args), *lat)
+    assert torch.equal(starts.cpu(), cpu_s) and torch.equal(closed.cpu(), cpu_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 3, 64])
+def test_impatience_scan_kernel_bit_equal_to_plain(cuda, lanes):
+    from repro_torch.kernels.impatience_scan import (
+        impatience_scan, impatience_scan_reference)
+    n = 5003
+    rng = np.random.default_rng(lanes)
+    inter = rng.exponential(40.0, (n, lanes))
+    inter[0] = 0.0
+    service = 1.79 + 0.021 * rng.integers(1, 3000, (n, lanes))
+    tau = np.where(np.arange(lanes) % 2 == 0, 30.0, 1e12)  # 1e12: none lost
+    args = [torch.from_numpy(x).to(cuda) for x in (inter, service, tau)]
+    before = K.LAUNCHES["impatience_scan"]
+    waits, lost = impatience_scan(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["impatience_scan"] == before + 1
+    ref_w, ref_l = impatience_scan_reference(*args)
+    assert torch.equal(waits, ref_w) and torch.equal(lost, ref_l)
+    assert not bool(lost[:, 1::2].any())
+    if lanes > 1:
+        assert bool(lost[:, 0].any())
+
+
+@pytest.mark.gpu
+def test_scan_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels.batch_scan import batch_scan
+    from repro_torch.kernels.impatience_scan import impatience_scan
+    a = torch.zeros(40, 2, dtype=torch.float64, device=cuda)  # [n, lanes]
+    cap = torch.full((2,), 8.0, dtype=torch.float64, device=cuda)
+    flags = torch.zeros(2, dtype=torch.bool, device=cuda)
+    lat = (0.05, 0.5, 0.0005, 0.02)
+    with pytest.raises(TypeError):                        # float32
+        batch_scan(a.float(), a.float(), flags, cap, *lat)
+    with pytest.raises(TypeError):
+        impatience_scan(a, a.float(), cap)
+    with pytest.raises(ValueError):                       # shapes
+        batch_scan(a, a[:39], flags, cap, *lat)
+    with pytest.raises(ValueError):
+        impatience_scan(a, a, cap[:1])
+    with pytest.raises(ValueError):                       # CPU + CUDA
+        batch_scan(a, a.cpu(), flags, cap, *lat)
+    with pytest.raises(ValueError):
+        impatience_scan(a, a, cap.cpu())
+
+
+@pytest.mark.gpu
+def test_fast_simulators_on_the_card_equal_the_oracle(cuda):
+    """``core.fastsim`` through S1 and S2 on the card against the NumPy
+    oracle and the CPU run of the same entry point."""
+    from repro_torch.core import fastsim, simulate
+    from repro_torch.core.distributions import LogNormalTokens, UniformTokens
+    from repro_torch.core.latency_model import (
+        PAPER_A100_LLAMA2_7B, BatchLatencyModel)
+    from repro_torch.core.policies import (
+        DynamicPolicy, ElasticPolicy, FCFSPolicy)
+    uni, ln = UniformTokens(1000), LogNormalTokens(7.0, 0.7)
+    lat = BatchLatencyModel(0.05, 0.5, 0.0005, 0.02)
+    for pol, lam, dist, law in (
+            (DynamicPolicy(), 0.4, uni, lat),
+            (ElasticPolicy(b_max=8), 0.6, uni, lat),
+            (FCFSPolicy(tau=30.0), 1 / 40, ln, PAPER_A100_LLAMA2_7B),
+            (FCFSPolicy(tau=120.0, n_max=1600), 1 / 40, ln,
+             PAPER_A100_LLAMA2_7B)):
+        before = dict(K.LAUNCHES)
+        gpu = fastsim.simulate_policy_fast(pol, lam, dist, law,
+                                           num_requests=6000, seed=1)
+        name = "impatience_scan" if pol.name == "fcfs" else "batch_scan"
+        assert K.LAUNCHES[name] == before.get(name, 0) + 1
+        ora = simulate.simulate_policy(pol, lam, dist, law, num_requests=6000,
+                                       seed=1)
+        assert np.array_equal(gpu["waits"], ora["waits"]), pol
+    pols = {"dyn": DynamicPolicy(), "ela8": ElasticPolicy(b_max=8)}
+    before = K.LAUNCHES["batch_scan"]
+    gpu = fastsim.sweep(pols, [0.1, 0.5, 0.9], uni, lat, num_requests=6000)
+    assert K.LAUNCHES["batch_scan"] == before + 1      # six lanes, one launch
+    ora = simulate.simulate_policy_sweep([0.1, 0.5, 0.9], uni, lat, pols,
+                                         num_requests=6000)
+    for name in pols:
+        assert np.array_equal(gpu[name], ora[name]), name

@@ -32,7 +32,9 @@ def test_port_files_found():
                 "core/bulk.py", "core/policy_opt.py", "core/impatience.py",
                 "core/mg1.py", "core/latency_model.py",
                 "core/distributions.py", "kernels/flash_attention/ops.py",
-                "kernels/rmsnorm/ops.py"):
+                "kernels/rmsnorm/ops.py", "core/simulate.py",
+                "core/fastsim.py", "kernels/batch_scan/ops.py",
+                "kernels/impatience_scan/ops.py"):
         assert port / rel in PORT_FILES, rel
 
 
@@ -41,7 +43,7 @@ def test_every_kernel_source_is_registered():
     launch counter that ``reset_launches`` zeroes."""
     from repro_torch import kernels as K
     sources = sorted((ROOT / "src" / "repro_torch" / "kernels").rglob("*.cu"))
-    assert sorted(K.SOURCES.values()) == sources and len(sources) == 4
+    assert sorted(K.SOURCES.values()) == sources and len(sources) == 6
     K.reset_launches()
     assert {K.LAUNCHES[name] for name in K.SOURCES} == {0}
 
