@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the six hand-written kernels from
+  1. build the nine hand-written kernels from
      ``src/repro_torch/kernels/*/csrc`` with nvcc into ``build/kernels/``,
      one nvcc per source, all started together, and print the registers,
      shared memory and spills ptxas reports for the two attention kernels
-     and the two simulator scans;
+     and the five simulator kernels;
   2. hold each serving kernel against its plain PyTorch version on the card, at the
      shapes qwen2.5-3b serving gives it, and time kernel, plain version,
      one PyTorch library call and the bound (K3 also as TFLOP/s and share
@@ -19,8 +19,10 @@ Phases (any failure raises and the script exits non-zero):
      draw the same noise bits, and the token agreement is printed;
   4. serve qwen2.5-3b at full width (random bf16 weights from a seed)
      through ``run_engine_schedule`` with elastic, then dynamic batching
-     (every bucket that runs replays a graph), and profile one decode chunk
-     at bucket 16 as a graph replay and through the eager loop;
+     (every bucket that runs replays a graph), then multi-bin (4 bins),
+     WAIT (k=8) and SRPT, each capped at the engine's 16 slots, and
+     profile one decode chunk at bucket 16 as a graph replay and through
+     the eager loop;
   6. serve the same request stream with continuous batching
      (``serve_continuous``, 16 slots, chunk 32) on phase 4's engine;
   5. run the adaptive-control serving launcher
@@ -30,11 +32,15 @@ Phases (any failure raises and the script exits non-zero):
      not, as 64 lanes of one ``batch_scan`` launch each; fixed b=4, 8 by
      the closed form) and the Fig 4 FCFS cells (``impatience_scan``), then
      the four scan policies once more on k1..k4 fitted from phase 4's
-     engine (ROADMAP M4; a fitted slope below 0 is held at 0); hold every
-     lane of the counted scans, at full length, bit for bit to their plain
-     versions on the card and four lanes of the Fig 5 launch to the NumPy
-     oracle, print every lane's mean wait beside the paper's analytic
-     delay, and time both scans against their bytes bound.
+     engine (ROADMAP M4; a fitted slope below 0 is held at 0), and the
+     reference benchmark's heavy-tail grid (dynamic capped at 32, 16 and
+     not, elastic: S1 lanes; multi-bin with equal-mass and optimised
+     edges: S3; WAIT k=16: S4; SRPT b=16: S5); hold every lane of the
+     counted launches, at full length, bit for bit to their plain
+     versions on the card, four lanes of the Fig 5 launch and every S3-S5
+     lane to the NumPy oracle, assert the benchmark's relations at λ = 1,
+     print every lane's mean wait beside the paper's analytic delay or
+     envelope, and time the kernels against their bytes bound.
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after it.
 
@@ -487,18 +493,16 @@ class ClippedLogNormal:
         return np.clip(x, 1, self.hi).astype(np.int64)
 
 
-def serve(engine, policy_name, reqs):
+def serve(engine, policy_name, reqs, policy):
     import torch
     from repro_torch import kernels as K
-    from repro_torch.core.policies import get_policy
     from repro_torch.serving import run_engine_schedule
     n0 = len(engine.step_log)
     syncs0, checked0 = engine.host_syncs, engine.sync_checked
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = run_engine_schedule(get_policy(policy_name, b_max=engine.ecfg.max_batch),
-                              engine, reqs)
+    res = run_engine_schedule(policy, engine, reqs)
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     log_ = engine.step_log[n0:]
@@ -515,7 +519,8 @@ def serve(engine, policy_name, reqs):
         len(chunks) + len(captures) + len(compacts), \
         "a chunk or compaction ran outside the sync-error mode"
     assert len(res.batch_sizes) >= 2 and sum(res.batch_sizes) == len(reqs)
-    assert launches["ragged_decode_attention"] > 0
+    for name in ("ragged_decode_attention", "flash_attention", "fused_rmsnorm"):
+        assert launches[name] > 0, f"{name} never ran under {policy_name}"
     per_bucket = {}
     for e in chunks:
         acc = per_bucket.setdefault(e["batch"], [0, 0.0, 0, 0, 0, 0.0])
@@ -531,7 +536,7 @@ def serve(engine, policy_name, reqs):
                    "replay_ms_per_step": 1e3 * v[5] / max(v[4], 1)}
                for b, v in sorted(per_bucket.items())}
     pre_ms = [1e3 * e["seconds"] for e in prefills]
-    log(f"{policy_name}: batch sizes {res.batch_sizes}, mean wait "
+    log(f"{policy_name} {policy}: batch sizes {res.batch_sizes}, mean wait "
         f"{res.waits.mean():.3f} s, makespan {res.makespan:.2f} s "
         f"(wall {wall:.2f} s), prefills {len(prefills)} "
         f"({', '.join(f'{m:.1f}' for m in pre_ms)} ms), chunks {len(chunks)} "
@@ -545,7 +550,7 @@ def serve(engine, policy_name, reqs):
             f"{v['ms_per_step']:.2f} ms/step, {v['tokens_per_s']:.1f} tokens/s; "
             f"{v['replays']} replayed chunks at {v['replay_ms_per_step']:.2f} "
             f"ms/step")
-    return launches, buckets
+    return launches, buckets, wall
 
 
 def decode_ms(chunks):
@@ -661,7 +666,10 @@ def profile_decode(engine, reqs, steps=8):
 
 def serve_full(engine, reqs):
     import torch
+    from repro_torch.core.policies import (
+        MultiBinPolicy, SRPTPolicy, WaitPolicy, get_policy)
     cfg = engine.cfg
+    cap = engine.ecfg.max_batch   # with no cap a batch can outgrow the engine
     targets = [r.target_output_tokens for r in reqs]
     log(f"serving {len(reqs)} requests: prompts "
         f"{min(len(r.prompt_tokens) for r in reqs)}-"
@@ -670,16 +678,22 @@ def serve_full(engine, reqs):
     # warm the path (cuBLAS handles, allocator) outside the counted runs
     engine.generate([r.prompt_tokens for r in reqs[:2]], [3, 2], elastic=True)
     torch.cuda.reset_peak_memory_stats()
-    totals, replayed, ran = {}, set(), set()
-    for name in ("elastic", "dynamic"):
-        launches, buckets = serve(engine, name, reqs)
+    totals, replayed, ran, walls = {}, set(), set(), {}
+    for name, pol in (("elastic", get_policy("elastic", b_max=cap)),
+                      ("dynamic", get_policy("dynamic", b_max=cap)),
+                      ("multibin", MultiBinPolicy(num_bins=4, b_max=cap)),
+                      ("wait", WaitPolicy(k=8, b_max=cap)),
+                      ("srpt", SRPTPolicy(b_max=cap))):
+        launches, buckets, walls[name] = serve(engine, name, reqs, pol)
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
         if name == "elastic":
             assert launches["gather_rows"] > 0, "no fused compaction ran"
-        ran |= set(buckets)
-        replayed |= {b for b, v in buckets.items() if v["replays"]}
+        if name in ("elastic", "dynamic"):
+            ran |= set(buckets)
+            replayed |= {b for b, v in buckets.items() if v["replays"]}
     assert ran == replayed, f"buckets {sorted(ran - replayed)} never replayed"
+    log(f"schedule walls: {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}")
     assert engine.sample_fallbacks == 0, "non-finite logits"
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"({len(engine._graphs)} decode graphs)")
@@ -786,6 +800,7 @@ def serve_launcher(dev):
 # ----------------------------------------------------------------------------
 
 SIM_N = 150_000           # requests a lane (Figs 5 and 6b, the fitted law)
+HT_N, HT_SEED = 60_000, 15   # the reference benchmark's heavy-tail grid
 FIG4_N = 200_000          # requests a Fig 4 cell
 
 
@@ -861,23 +876,26 @@ def fit_engine_latency(cal):
     return lat
 
 
-def _sim_grid(name, dist, lat, lams, policies, dev):
+def _sim_grid(name, dist, lat, lams, policies, dev, n=SIM_N, seed=0):
     """One λ grid through ``sweep``; its scan lanes run in one S1 launch,
-    whose inputs and outputs ``scan_out`` hands back."""
+    whose inputs and outputs ``scan_out`` hands back, and each batch-event
+    cell in a launch of its own, handed back under ``cells``."""
     from repro_torch.core.fastsim import sweep
     scan = {}
     t0 = time.perf_counter()
-    waits = sweep(policies, lams, dist, lat, num_requests=SIM_N, device=dev,
-                  scan_out=scan)
+    waits = sweep(policies, lams, dist, lat, num_requests=n, seed=seed,
+                  device=dev, scan_out=scan)
     wall = time.perf_counter() - t0
     return {"name": name, "dist": dist, "lat": lat, "lams": lams,
-            "waits": waits, "wall": wall, "scan": scan}
+            "waits": waits, "wall": wall, "scan": scan, "n": n,
+            "seed": seed, "policies": policies}
 
 
 def _print_grid(g, policies):
     log(f"{g['name']}: {len(g['lams'])} λ from {g['lams'][0]:.4f} to "
         f"{g['lams'][-1]:.4f}/s, {len(g['scan']['lanes'])} scan lanes of "
-        f"{SIM_N} requests in one batch_scan launch, sweep wall "
+        f"{g['n']} requests in one batch_scan launch and "
+        f"{len(g['scan']['cells'])} cells launched one by one, sweep wall "
         f"{g['wall']:.2f} s; mean wait simulated / analytic (s):")
     for name, pol in policies.items():
         pairs = []
@@ -921,6 +939,74 @@ def check_batch_scan(g, dev):
     return lanes, n, ms, plain_ms, bnd
 
 
+# the batch-event kernels S3-S5: (the reference loop each replaces, bytes a
+# lane-request: each input read once, each output written once)
+EVENT_KERNELS = {
+    "multibin_scan": ("src/repro/core/fastsim.py:476 (_multibin_loop, a "
+                      "lax.while_loop; no Pallas kernel)", 8 + 8 + 8 + 8 + 1),
+    "wait_scan": ("src/repro/core/fastsim.py:580 (_wait_loop, a "
+                  "lax.while_loop; no Pallas kernel)", 8 + 8 + 8 + 1),
+    "srpt_scan": ("src/repro/core/fastsim.py:654 (_srpt_core, a "
+                  "lax.while_loop; no Pallas kernel)", 8 + 8 + 8 + 8 + 1),
+}
+
+
+def check_event_cells(g, dev):
+    """Every S3-S5 cell of the grid's counted launches, at full length:
+    its starts and batch heads against the plain version on the card on
+    the same inputs, and its waits and mean batch against the NumPy oracle
+    (host CPU); then each kernel timed by CUDA events on the same inputs.
+    Returns the kernels' JSON entries (the λ = 1 cell's times)."""
+    import importlib
+    import torch
+    from repro_torch.core.simulate import no_warmup, simulate_policy
+    by_kernel = {}
+    for (name, li), cell in sorted(g["scan"]["cells"].items()):
+        kern, args = cell["kernel"], cell["args"]
+        mod = importlib.import_module(f"repro_torch.kernels.{kern}")
+        fn, ref = getattr(mod, kern), getattr(mod, f"{kern}_reference")
+        starts, first = cell["out"]
+        (ref_s, ref_f), plain_ms = wall_ms(lambda: ref(*args))
+        assert torch.equal(starts, ref_s) and torch.equal(first, ref_f), \
+            f"{kern} differs from its plain version at {name}, λ index {li}"
+        lam, pol = g["lams"][li], g["policies"][name]
+        c0 = time.process_time()
+        with no_warmup():
+            ora = simulate_policy(pol, lam, g["dist"], g["lat"],
+                                  num_requests=g["n"], seed=g["seed"])
+        cpu_s = time.process_time() - c0
+        arr = args[0][:, 0].cpu().numpy()
+        nb = int(first.sum())
+        assert np.array_equal(starts[:, 0].cpu().numpy() - arr,
+                              ora["waits"]), f"{name} λ={lam}: oracle differs"
+        assert g["n"] / nb == ora["mean_batch"], (name, lam)
+        ms = event_ms(lambda: fn(*args))
+        n = g["n"]
+        _, nbytes = EVENT_KERNELS[kern]
+        bnd = bound_ms(nbytes * n, 0, "float64")
+        log(f"{kern} {name} λ={lam}: {nb} batches (mean {n / nb:.3f}); "
+            f"{ms:.3f} ms by CUDA events ({1e6 * ms / n:.1f} ns a request), "
+            f"bound {bnd:.5f} ms (bytes, {nbytes * n / 1e6:.2f} MB; "
+            f"{100 * bnd / ms:.3f}% of it); plain {plain_ms:.1f} ms; starts "
+            f"and batch heads equal the plain version's, waits and mean "
+            f"batch equal the oracle's (oracle {cpu_s:.2f} s of host CPU)")
+        by_kernel.setdefault(kern, []).append(
+            {"cell": f"{name} λ={lam}", "batches": nb, "ms": ms,
+             "ns_per_request": 1e6 * ms / n, "plain_ms": plain_ms,
+             "bound_ms": bnd})
+    out = []
+    for kern, rows in by_kernel.items():
+        last = rows[-1]               # the λ = 1 cell of the last policy
+        out.append({"name": kern, "route": "cuda",
+                    "source": f"src/repro_torch/kernels/{kern}/csrc/{kern}.cu",
+                    "replaces": EVENT_KERNELS[kern][0],
+                    "shape": [g["n"], 1], "max_abs_err": 0.0,
+                    "ms": last["ms"], "plain_ms": last["plain_ms"],
+                    "bound_ms": last["bound_ms"], "bound_by": "bytes",
+                    "library_ms": None, "cells": rows})
+    return out
+
+
 def run_simulators(dev, cal):
     import torch
     from repro_torch import kernels as K
@@ -929,8 +1015,10 @@ def run_simulators(dev, cal):
     from repro_torch.core.fastsim import simulate_policy_fast
     from repro_torch.core.latency_model import (
         PAPER_A100_LLAMA2_7B, BatchLatencyModel)
+    from repro_torch.core.bulk import optimize_bin_edges
     from repro_torch.core.policies import (
-        DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy)
+        DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy, MultiBinPolicy,
+        SRPTPolicy, WaitPolicy)
     from repro_torch.core.simulate import _warm, no_warmup, simulate_policy
     from repro_torch.kernels.impatience_scan import (
         impatience_scan, impatience_scan_reference)
@@ -949,8 +1037,17 @@ def run_simulators(dev, cal):
     mu16 = float(lat_fit.service_rate(uni, 16)[0])
     fcfs_cells = [(n_max, tau) for n_max in (None, 1600)
                   for tau in (30.0, 120.0, None)]
+    # the reference benchmark's heavy-tail grid
+    # (benchmarks/bench_batching_policies.py, multi-bin and PR 3 parts)
+    ht_edges = tuple(float(e) for e in optimize_bin_edges(ln, lat6, 1.0,
+                                                          num_bins=4))
+    ht_pols = {"dyn": DynamicPolicy(), "dyn_b32": DynamicPolicy(b_max=32),
+               "dyn_b16": DynamicPolicy(b_max=16), "ela": ElasticPolicy(),
+               "multibin4": MultiBinPolicy(num_bins=4),
+               "multibin4_opt": MultiBinPolicy(edges=ht_edges),
+               "wait_k16": WaitPolicy(k=16), "srpt_b16": SRPTPolicy(b_max=16)}
 
-    # the main path, counted: three sweeps and the Fig 4 cells
+    # the main path, counted: four sweeps and the Fig 4 cells
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -961,6 +1058,10 @@ def run_simulators(dev, cal):
                      np.geomspace(0.05, 0.9 * sat6, 16), pols, dev)
     fit = _sim_grid(f"fitted law (λ 10%-90% of mu[16] = {mu16:.4f}/s)", uni,
                     lat_fit, np.linspace(0.1, 0.9, 9) * mu16, scan_pols, dev)
+    heavy = _sim_grid(f"heavy tail (lognormal(7, 0.7), Fig 6b constants, "
+                      f"{HT_N} requests, seed {HT_SEED}; multibin4_opt "
+                      f"edges {ht_edges})", ln, lat6, [0.5, 1.0], ht_pols,
+                      dev, n=HT_N, seed=HT_SEED)
     fig4 = {}
     for n_max, tau in fcfs_cells:
         fig4[n_max, tau] = simulate_policy_fast(
@@ -969,12 +1070,25 @@ def run_simulators(dev, cal):
     torch.cuda.synchronize()
     main_wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    assert launches["batch_scan"] == 3 and launches["impatience_scan"] == 4, \
-        launches
-    log(f"simulators: main path {main_wall:.2f} s wall, launches {launches}")
+    assert launches == {**launches, "batch_scan": 4, "impatience_scan": 4,
+                        "multibin_scan": 4, "wait_scan": 2,
+                        "srpt_scan": 2}, launches
+    log(f"simulators: main path {main_wall:.2f} s wall (the heavy-tail "
+        f"sweep {heavy['wall']:.2f} s), launches {launches}")
     for g in (fig5, fig6):
         _print_grid(g, pols)
     _print_grid(fit, scan_pols)
+    _print_grid(heavy, ht_pols)
+    # the reference benchmark's own relations at λ = 1
+    hw = {name: heavy["waits"][name][1] for name in ht_pols}
+    assert hw["srpt_b16"] < 0.1 * hw["dyn_b16"], hw
+    assert hw["multibin4"] < 0.1 * hw["dyn"], hw
+    assert hw["multibin4"] < 0.1 * hw["dyn_b32"], hw
+    assert hw["multibin4_opt"] < 1.02 * hw["multibin4"], hw
+    log(f"heavy tail at λ = 1: srpt_b16 {hw['srpt_b16']:.3f} < 0.1 x dyn_b16 "
+        f"{hw['dyn_b16']:.3f}; multibin4 {hw['multibin4']:.3f} < 0.1 x dyn "
+        f"{hw['dyn']:.3f} and 0.1 x dyn_b32 {hw['dyn_b32']:.3f}; "
+        f"multibin4_opt {hw['multibin4_opt']:.3f} < 1.02 x multibin4")
     for (n_max, tau), r in fig4.items():
         pol = FCFSPolicy(n_max=n_max, tau=tau)
         a = pol.analytic_delay(1 / 40, ln, PAPER_A100_LLAMA2_7B)
@@ -1011,7 +1125,7 @@ def run_simulators(dev, cal):
 
     # S1: every lane of the three counted launches against the plain
     # version on the card, at full length
-    rows = [check_batch_scan(g, dev) for g in (fig5, fig6, fit)]
+    rows = [check_batch_scan(g, dev) for g in (fig5, fig6, fit, heavy)]
     lanes, n, ms, plain_ms, bnd = rows[0]
     s1 = {"name": "batch_scan", "route": "cuda",
           "source": "src/repro_torch/kernels/batch_scan/csrc/batch_scan.cu",
@@ -1063,7 +1177,7 @@ def run_simulators(dev, cal):
           "shape": [FIG4_N, lanes], "max_abs_err": 0.0, "ms": ms,
           "ms_one_lane": ms1, "plain_ms": plain_ms, "bound_ms": bnd,
           "bound_by": "bytes", "library_ms": None}
-    return launches, [s1, s2]
+    return launches, [s1, s2] + check_event_cells(heavy, dev)
 
 
 def main() -> int:
@@ -1097,7 +1211,7 @@ def main() -> int:
     log(f"build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, parallel)")
     for name in ("flash_attention", "ragged_decode_attention", "batch_scan",
-                 "impatience_scan"):
+                 "impatience_scan", "multibin_scan", "wait_scan", "srpt_scan"):
         for line in ptxas_report(K.build_log(name)):
             log(f"ptxas {name}: {line}")
 
@@ -1121,7 +1235,9 @@ def main() -> int:
     reqs = make_request_stream(32, 4.0, ClippedLogNormal(np.log(96.0), 0.8, 512),
                                vocab=cfg.vocab_size, prompt_len_range=(16, 257),
                                seed=0)
+    t0 = time.perf_counter()
     paths = {"serving schedule": serve_full(engine, reqs)}
+    log(f"phase 4 (serving schedule) took {time.perf_counter() - t0:.1f} s")
     cal = engine.calibration_log()          # phase 4's measurements (M4)
     paths["continuous"] = serve_cont(engine, reqs)
     del engine

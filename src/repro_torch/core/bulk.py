@@ -15,12 +15,17 @@ copy of the part of ``repro.core.bulk`` the control plane reaches.
   completion time k1 b + k2 + k3*sum(n_i) + k4*max(n_i), again linearized.
 * Multi-bin batching (Guldogan et al. 2024): the delay envelope and the
   load-dependent bin boundaries.
+* WAIT threshold admission (Dai et al. 2025) and SRPT-like
+  shortest-first batching: holding + clearing and size-interval
+  envelopes.
 
-The WAIT, SRPT, tandem, breakdown and session forms wait for the
-simulators and the layers they model (ROADMAP.md M6b, M7).
+The tandem, breakdown and session forms wait for the layers they model
+(ROADMAP.md M7).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 from scipy import stats as st
@@ -223,6 +228,67 @@ def service_rate_curve(dist: TokenDistribution, lat: BatchLatencyModel,
 
 
 # ----------------------------------------------------------------------------
+# WAIT threshold admission (Dai et al. 2025): holding + clearing envelope
+# ----------------------------------------------------------------------------
+
+def _mean_capped_gamma(m: int, lam: float, cap: Optional[float]) -> float:
+    """E[min(X, cap)] for X ~ Gamma(m, scale=1/lam) (the time until the
+    m-th subsequent Poisson arrival); m=0 -> 0.  Uses the identity
+    x·f_m(x) = (m/λ)·f_{m+1}(x):  E[X·1{X<=c}] = (m/λ)·F_{m+1}(c)."""
+    if m == 0:
+        return 0.0
+    if cap is None:
+        return m / lam
+    below = float(st.gamma(a=m, scale=1.0 / lam).cdf(cap))
+    mass = float(st.gamma(a=m + 1, scale=1.0 / lam).cdf(cap))
+    return (m / lam) * mass + cap * (1.0 - below)
+
+
+def wait_bound(dist: TokenDistribution, lat: BatchLatencyModel, lam: float,
+               k: int, timeout: Optional[float] = None) -> dict:
+    """Mean-delay envelope for WAIT threshold admission (hold batch
+    formation until ``k`` requests are buffered or the head has waited
+    ``timeout``; then serve everything arrived, no batch cap) — the
+    M/D^k/1-like holding view with a timer cap:
+
+    * **Holding arm.**  Couple each request to the group of ``k``
+      consecutive arrivals it triggers with: the request in position j
+      (from the group head) is held at most until the group's trigger —
+      ``min(sum of its k-1-j subsequent interarrivals, timeout)`` — even
+      when the server is busy (a busy server only replaces holding with
+      queueing, which the second arm pays for).  Under Poisson arrivals
+      the positional hold is E[min(Gamma(k-1-j, 1/λ), timeout)], averaged
+      over j; without a timer it telescopes to (k-1)/(2λ), the mean
+      residual of the deterministic-count trigger.
+
+    * **Clearing arm.**  Once triggered, WAIT serves ALL arrived requests
+      — the serve-all-waiting discipline whose backlog is dominated by
+      Inoue's Eq-16 bound on the same (α, β) linear envelope dynamic
+      batching uses (holding only *coalesces* work into larger, more
+      amortized batches; it never adds work).
+
+    The sum of the arms is an envelope (coupling) argument like
+    ``multibin_bound``'s, not a closed form — Dai et al. prove throughput
+    optimality, not a delay formula — and the reference's
+    ``tests/test_policies.py`` validates it for dominance and
+    non-vacuousness against the simulator (``WaitPolicy.analytic_kind ==
+    'bound'``).  Stability is the dynamic-batching condition λ·α < 1
+    (holding does not change the drift)."""
+    assert k >= 1
+    holds = [_mean_capped_gamma(k - 1 - j, lam, timeout) for j in range(k)]
+    hold = float(np.mean(holds))
+    clearing = dynamic_batching_bound(dist, lat, lam)
+    return {
+        "wait_bound": hold + clearing["wait_bound"],
+        "hold_arm": hold,
+        "clearing_arm": clearing["wait_bound"],
+        "alpha": clearing["alpha"],
+        "beta": clearing["beta"],
+        "stable": clearing["stable"],
+    }
+
+
+# ----------------------------------------------------------------------------
 # Multi-bin batching (Guldogan et al. 2024): per-bin envelopes, delay bound,
 # load-dependent boundary optimization
 # ----------------------------------------------------------------------------
@@ -379,3 +445,78 @@ def optimize_bin_edges(dist: TokenDistribution, lat: BatchLatencyModel,
         if not improved:
             break
     return edges
+
+
+# ----------------------------------------------------------------------------
+# SRPT-like shortest-predicted-first batching: size-interval envelope
+# ----------------------------------------------------------------------------
+
+def srpt_bound(dist: TokenDistribution, lat: BatchLatencyModel, lam: float,
+               b_max: Optional[int], num_classes: int = 8) -> dict:
+    """Mean-delay envelope for capped shortest-predicted-first batching
+    (:class:`~repro_torch.core.policies.SRPTPolicy` under oracle
+    ordering), via the size-interval decomposition classic SRPT analysis uses
+    (Harchol-Balter), adapted to batched non-preemptive service:
+
+    * **Class arm.**  Split the token support into ``num_classes``
+      equal-mass classes with upper edges ``e_1 < ... < e_J``.  While a
+      class-j request waits, shortest-first formation only starts batches
+      of shorter-or-equal requests, so its backlog is the system restricted
+      to classes <= j: Poisson ``lam_j = lam * F(e_j)`` with every member
+      padded to ``e_j``.  With the cap ``b``, clearing a backlogged room
+      amortizes the per-batch overhead over at most ``b`` members, so the
+      per-request envelope is ``alpha'_j = k1 + k3 e_j + (k2 + k4 e_j)/b``
+      with per-batch overhead ``beta_j = k2 + k4 e_j``, and Inoue's Eq-16
+      bound applies to that (alpha'_j, beta_j) system.  The arm is the
+      class-probability mixture of the per-class bounds.
+
+    * **Residual arm.**  Formation never preempts a running batch, so an
+      arrival can additionally find a batch of LONGER requests in service
+      — at most one, ever (every batch formed after it arrives is
+      shorter-or-equal or includes it).  The stationary residual of that
+      batch is bounded by ``rho * H(b, e_J) / 2`` with ``rho = min(1,
+      lam * alpha'_J)`` the amortized-utilization envelope.
+
+    Like :func:`wait_bound` and :func:`multibin_bound` this is an envelope
+    (coupling) argument, not a closed form — no exact mean-delay result is
+    known for batched SRPT — and the reference's ``tests/test_policies.py``
+    validates dominance and non-vacuousness against the simulator across loads.
+    With ``b_max=None`` membership degenerates to dynamic batching (the
+    policy serves every waiting request; order inside a padded batch is
+    irrelevant) and the exact dynamic envelope is returned instead.
+    Stability is the top class's ``lam * alpha'_J < 1``."""
+    if b_max is None:
+        d = dynamic_batching_bound(dist, lat, lam)
+        return {
+            "wait_bound": d["wait_bound"],
+            "class_arm": d["wait_bound"],
+            "residual_arm": 0.0,
+            "edges": [float(dist.max_tokens)],
+            "stable": d["stable"],
+        }
+    assert b_max >= 1
+    J = num_classes
+    k1, k2, k3, k4 = lat.k1, lat.k2, lat.k3, lat.k4
+    edges = sorted({int(np.searchsorted(dist.cdf, j / J))
+                    for j in range(1, J)} | {int(dist.max_tokens)})
+    class_arm, prev_f = 0.0, 0.0
+    for e in edges:
+        f = float(dist.cdf[e])
+        p, prev_f = f - prev_f, f
+        if p <= 0.0:
+            continue
+        beta = k2 + k4 * e
+        alpha_p = k1 + k3 * e + beta / b_max
+        class_arm += p * inoue_bound(lam * f, alpha_p, beta)
+    e_top = edges[-1]
+    beta_top = k2 + k4 * e_top
+    alpha_top = k1 + k3 * e_top + beta_top / b_max
+    rho = min(1.0, lam * alpha_top)
+    residual = rho * float(lat.batch_time(b_max, e_top)) / 2.0
+    return {
+        "wait_bound": float(class_arm + residual),
+        "class_arm": float(class_arm),
+        "residual_arm": float(residual),
+        "edges": [float(e) for e in edges],
+        "stable": lam * alpha_top < 1.0,
+    }

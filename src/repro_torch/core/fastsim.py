@@ -18,10 +18,15 @@ oracle, as in the reference.
   * ``"fixed_cummax"`` closed form: the free-time recursion
     F_k = max(F_{k-1}, A_k) + H_k telescopes to a running maximum (host
     NumPy, as in the reference).
+  * ``"multibin"``, ``"wait"``, ``"srpt"``   the batch-event disciplines,
+    one step per batch: kernels S3 (``kernels/multibin_scan``), S4
+    (``kernels/wait_scan``) and S5 (``kernels/srpt_scan``), one thread per
+    lane.  The host supplies each request's bin (S3) or the rank order of a
+    stable argsort of the lengths (S5).
 
 ``sweep(policies, lam_grid, ...)`` stacks every (λ, policy) cell whose
 policy rides the batching scan as a lane of ONE S1 launch; the other
-policies dispatch through ``KERNELS`` per cell.
+policies dispatch through ``KERNELS`` per cell, as the reference does.
 
 Every entry point takes ``device``: None runs on the card and raises
 without one; ``"cpu"`` runs the kernels' plain PyTorch versions (the CPU
@@ -31,9 +36,8 @@ samples its workload through the policy's ``sample_workload``, the same
 rng call order as the oracle and the reference, so equal seeds give equal
 trajectories, bit for bit.
 
-Not ported yet: the multi-bin, WAIT and SRPT batch-event loops,
-``sweep_noise`` and the tandem loop (ROADMAP.md M6b); fault traces,
-traffic, sessions and memory budgets (M7); ``lane_scan=`` (M9).
+Not ported yet: ``sweep_noise`` (ROADMAP.md M7a), the tandem loop, fault
+traces, traffic, sessions and memory budgets (M7); ``lane_scan=`` (M9).
 """
 
 from __future__ import annotations
@@ -53,6 +57,9 @@ from repro_torch.core.simulate import (
 from repro_torch.kernels import resolve_device
 from repro_torch.kernels.batch_scan import NO_CAP, batch_scan
 from repro_torch.kernels.impatience_scan import impatience_scan
+from repro_torch.kernels.multibin_scan import multibin_scan
+from repro_torch.kernels.srpt_scan import srpt_scan
+from repro_torch.kernels.wait_scan import wait_scan
 
 KERNELS: Dict[str, Callable] = {}
 
@@ -69,15 +76,37 @@ def _f64(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float64), device=device)
 
 
+def _i64(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+
+def _launch(launch_out, kernel_name, fn, *args):
+    """Run the scan wrapper ``fn(*args)``; a ``launch_out`` dict is filled
+    with the kernel's name, its arguments and its outputs (the tensors as
+    they were passed and returned), for a caller that checks the kernel."""
+    out = fn(*args)
+    if launch_out is not None:
+        launch_out.update(kernel=kernel_name, args=args, out=out)
+    return out
+
+
+def _law(lat):
+    """The batch law's constants, as the scan wrappers take them."""
+    return lat.k1, lat.k2, lat.k3, lat.k4
+
+
 def simulate_policy_fast(policy: BatchPolicy, lam: float,
                          dist: Optional[TokenDistribution], lat,
                          num_requests: int = 200_000, seed: int = 0,
                          workload=None, fault_trace=None, traffic=None,
-                         sessions=None, memory=None, device=None) -> dict:
+                         sessions=None, memory=None, device=None,
+                         launch_out: Optional[dict] = None) -> dict:
     """Fast twin of :func:`repro_torch.core.simulate.simulate_policy`:
     dispatch to the policy's kernel, or run the oracle when the policy has
     none (``fast_kernel=None``).  ``workload`` overrides the policy's own
-    sampling, exactly like the oracle's parameter."""
+    sampling, exactly like the oracle's parameter.  A ``launch_out`` dict
+    is filled with the one kernel launch's inputs and outputs, where the
+    policy's path launches a scan kernel (see :func:`_launch`)."""
     check_no_m7_layers(fault_trace=fault_trace, traffic=traffic,
                        sessions=sessions, memory=memory)
     device = resolve_device(device)
@@ -88,7 +117,8 @@ def simulate_policy_fast(policy: BatchPolicy, lam: float,
                                num_requests=num_requests, seed=seed,
                                workload=workload)
     return KERNELS[policy.fast_kernel](policy, lam, dist, lat, num_requests,
-                                       seed, workload=workload, device=device)
+                                       seed, workload=workload, device=device,
+                                       launch_out=launch_out)
 
 
 # ----------------------------------------------------------------------------
@@ -97,7 +127,7 @@ def simulate_policy_fast(policy: BatchPolicy, lam: float,
 
 @kernel("mg1")
 def _mg1_kernel(policy, lam, dist, lat, num_requests, seed, workload=None,
-                *, device) -> dict:
+                *, device, launch_out=None) -> dict:
     if policy.tau is None:
         # the reference tau=None path is already a closed-form vectorized
         # Lindley recursion — it IS the fast path.
@@ -107,9 +137,10 @@ def _mg1_kernel(policy, lam, dist, lat, num_requests, seed, workload=None,
     wl = workload if workload is not None else \
         policy.sample_workload(lam, dist, num_requests, seed)
     service = np.asarray(lat.service_time(wl.tokens), np.float64)
-    waits, lost = impatience_scan(_f64(wl.inter, device)[:, None],
-                                  _f64(service, device)[:, None],
-                                  _f64([policy.tau], device))
+    waits, lost = _launch(launch_out, "impatience_scan", impatience_scan,
+                          _f64(wl.inter, device)[:, None],
+                          _f64(service, device)[:, None],
+                          _f64([policy.tau], device))
     waits_w = _warm(waits[:, 0].cpu().numpy())
     lost_w = _warm(lost[:, 0].cpu().numpy())
     served = waits_w[~lost_w]
@@ -149,26 +180,27 @@ def _batch_lane_stats(starts, closed, arrivals):
     }
 
 
-def _scan_lanes(arr, tok, lanes, lat, device):
+def _scan_lanes(arr, tok, lanes, lat, device, launch_out=None):
     """Kernel S1 over stacked lanes: arr, tok [n, lanes] numpy, lanes
     minor; ``lanes`` a list of (elastic, b_max).  Returns (starts, closed)
     as [n, lanes] numpy."""
     elastic = torch.tensor([bool(e) for e, _ in lanes], device=device)
     b_max = _f64([NO_CAP if bm is None else float(bm) for _, bm in lanes],
                  device)
-    starts, closed = batch_scan(_f64(arr, device), _f64(tok, device),
-                                elastic, b_max, lat.k1, lat.k2, lat.k3,
-                                lat.k4)
+    starts, closed = _launch(launch_out, "batch_scan", batch_scan,
+                             _f64(arr, device), _f64(tok, device), elastic,
+                             b_max, *_law(lat))
     return starts.cpu().numpy(), closed.cpu().numpy()
 
 
 @kernel("batch_scan")
 def _batch_scan_kernel(policy, lam, dist, lat, num_requests, seed,
-                       workload=None, *, device) -> dict:
+                       workload=None, *, device, launch_out=None) -> dict:
     wl = workload if workload is not None else \
         policy.sample_workload(lam, dist, num_requests, seed)
     starts, closed = _scan_lanes(wl.arrivals[:, None], wl.tokens[:, None],
-                                 [policy.scan_lane()], lat, device)
+                                 [policy.scan_lane()], lat, device,
+                                 launch_out)
     return _batch_lane_stats(starts[:, 0], closed[:, 0], wl.arrivals)
 
 
@@ -193,7 +225,7 @@ def simulate_dynamic_batching_fast(lam: float, dist: TokenDistribution,
 
 @kernel("fixed_cummax")
 def _fixed_kernel(policy, lam, dist, lat, num_requests, seed,
-                  workload=None, *, device) -> dict:
+                  workload=None, *, device, launch_out=None) -> dict:
     if "batch_time" in vars(policy):
         # an instance-level batch_time override cannot be vectorized:
         # the reference runs its oracle loop here, and so does the port
@@ -243,6 +275,67 @@ def simulate_fixed_batching_fast(lam: float, b: int,
 
 
 # ----------------------------------------------------------------------------
+# Batch-event disciplines (kernels S3-S5): one kernel step per batch
+# ----------------------------------------------------------------------------
+
+def _cap(b_max: Optional[int]) -> int:
+    """A policy's batch cap as the kernels take it: 0 is none, as the
+    oracle's ``if self.b_max:`` reads None and 0 alike."""
+    return int(b_max) if b_max else 0
+
+
+def _event_lane(policy, lam, dist, num_requests, seed, workload, device):
+    wl = workload if workload is not None else \
+        policy.sample_workload(lam, dist, num_requests, seed)
+    return wl, _f64(wl.arrivals, device)[:, None], \
+        _f64(wl.tokens, device)[:, None]
+
+
+def _event_stats(out, arrivals) -> dict:
+    starts, first = out
+    return _batch_lane_stats(starts[:, 0].cpu().numpy(),
+                             first[:, 0].cpu().numpy(), arrivals)
+
+
+@kernel("multibin")
+def _multibin_kernel(policy, lam, dist, lat, num_requests, seed,
+                     workload=None, *, device, launch_out=None) -> dict:
+    wl, arr, tok = _event_lane(policy, lam, dist, num_requests, seed,
+                               workload, device)
+    bins = _i64(policy.bin_of(wl.tokens, dist), device)[:, None]
+    out = _launch(launch_out, "multibin_scan", multibin_scan, arr, tok, bins,
+                  policy.num_bins, _i64([_cap(policy.b_max)], device),
+                  *_law(lat))
+    return _event_stats(out, wl.arrivals)
+
+
+@kernel("wait")
+def _wait_kernel(policy, lam, dist, lat, num_requests, seed, workload=None,
+                 *, device, launch_out=None) -> dict:
+    wl, arr, tok = _event_lane(policy, lam, dist, num_requests, seed,
+                               workload, device)
+    timeout = np.inf if policy.timeout is None else policy.timeout
+    out = _launch(launch_out, "wait_scan", wait_scan, arr, tok,
+                  _i64([policy.k], device), _f64([timeout], device),
+                  _i64([_cap(policy.b_max)], device), *_law(lat))
+    return _event_stats(out, wl.arrivals)
+
+
+@kernel("srpt")
+def _srpt_kernel(policy, lam, dist, lat, num_requests, seed, workload=None,
+                 *, device, launch_out=None) -> dict:
+    wl, arr, tok = _event_lane(policy, lam, dist, num_requests, seed,
+                               workload, device)
+    # the host's share (the reference's _srpt_rank_arrays): rank order of
+    # (length, arrival index) by a stable argsort; the kernel builds its
+    # segment tree over the arrivals itself
+    order = _i64(np.argsort(wl.tokens, kind="stable"), device)[:, None]
+    out = _launch(launch_out, "srpt_scan", srpt_scan, arr, tok, order,
+                  _i64([_cap(policy.b_max)], device), *_law(lat))
+    return _event_stats(out, wl.arrivals)
+
+
+# ----------------------------------------------------------------------------
 # Uniform sweep: one S1 launch for every batch_scan lane, kernels for the rest
 # ----------------------------------------------------------------------------
 
@@ -284,7 +377,9 @@ def sweep(policies: dict, lam_grid, dist, lat,
     ``KERNELS`` per (λ, policy) cell (the oracle when it has no kernel).
     A ``scan_out`` dict is filled with that launch's ``lanes``, its inputs
     ``arr``, ``tok`` and outputs ``starts``, ``closed`` ([n, lanes] numpy),
-    for a caller that checks the kernel."""
+    and under ``cells`` with each per-cell kernel launch, {(name, lam
+    index): ``launch_out``} (see :func:`simulate_policy_fast`), for a caller
+    that checks the kernels."""
     device = resolve_device(device)
     lam_grid = list(lam_grid)
     insts = _instances(policies)
@@ -292,14 +387,20 @@ def sweep(policies: dict, lam_grid, dist, lat,
                                        seed)
     laned = {name for name, *_ in lanes}
     out = {name: [None] * len(lam_grid) for name in insts}
+    cells = {}
     for name, pol in insts.items():
         if name in laned:
             continue
         for li, lam in enumerate(lam_grid):
+            cell = {} if scan_out is not None else None
             r = simulate_policy_fast(pol, lam, dist, lat,
                                      num_requests=num_requests, seed=seed,
-                                     device=device)
+                                     device=device, launch_out=cell)
             out[name][li] = r["mean_wait"]
+            if cell:
+                cells[name, li] = cell
+    if scan_out is not None:
+        scan_out["cells"] = cells
     if lanes:
         starts, closed = _scan_lanes(arr, tok, [(e, b) for *_, e, b in lanes],
                                      lat, device)

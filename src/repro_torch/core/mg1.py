@@ -50,3 +50,9 @@ def mg1_wait(dist: TokenDistribution, lat: LatencyModel, lam: float,
     scv = (es2 - es ** 2) / max(es ** 2, 1e-300)
     return MG1Result(lam=lam, n_max=n_max, es=es, es2=es2, rho=rho,
                      wait=wait, sojourn=wait + es, stable=rho < 1.0, scv=scv)
+
+
+def wait_curve(dist: TokenDistribution, lat: LatencyModel, lam: float,
+               n_max_grid) -> np.ndarray:
+    """E[W] as a function of the max-token limit (paper Fig 4a)."""
+    return np.array([mg1_wait(dist, lat, lam, int(n)).wait for n in n_max_grid])

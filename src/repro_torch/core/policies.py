@@ -1,6 +1,8 @@
 """The batching-policy core: a copy of ``repro.core.policies`` for the
 paper's disciplines (M/G/1 FCFS with clipping and impatience; dynamic,
-elastic and fixed batching) and iteration-level continuous batching.
+elastic and fixed batching), the batch-event disciplines beyond the paper
+(multi-bin, WAIT threshold admission, SRPT-like shortest-first) and
+iteration-level continuous batching.
 
 Each discipline is defined once for every layer:
 
@@ -21,15 +23,15 @@ Each discipline is defined once for every layer:
 
 Consumers dispatch structurally: ``simulate_policy`` on ``oracle_kind``,
 ``fastsim`` on ``fast_kernel``.  Not ported yet, and raising
-``NotImplementedError``: length predictors (ROADMAP.md M7), the tandem
-``stage_split`` (the memory part of M7), and the multi-bin, WAIT and SRPT
-disciplines (M6b).
+``NotImplementedError``: length predictors (ROADMAP.md M7; multi-bin and
+SRPT run on oracle ordering, the true lengths after clipping) and the
+tandem ``stage_split`` (the memory part of M7).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Type
+from typing import Dict, List, Optional, Sequence, Type
 
 import numpy as np
 
@@ -121,14 +123,135 @@ class _FixedFormation:
         self.head -= k
 
 
+class _MultiBinFormation:
+    """Per-bin FIFO queues, one shared server.  When the server frees it
+    serves min(waiting, b_max) requests from the non-empty bin whose head
+    arrived earliest (FCFS across bins); an idle server starts the next
+    arrival alone, exactly like dynamic batching."""
+
+    def __init__(self, arrivals: np.ndarray, bin_of: np.ndarray,
+                 num_bins: int, b_max: Optional[int]):
+        self.b_max = b_max
+        # per-bin request-index lists (arrival order is preserved because
+        # the global stream is already sorted by arrival)
+        self.members = [np.nonzero(bin_of == j)[0] for j in range(num_bins)]
+        self.arr = [arrivals[m] for m in self.members]
+        self.heads = [0] * num_bins
+        self._last_bin = -1
+
+    def next_batch(self, t_free: float):
+        a_min, j_min = np.inf, -1
+        for j, h in enumerate(self.heads):
+            if h < len(self.arr[j]) and self.arr[j][h] < a_min:
+                a_min, j_min = float(self.arr[j][h]), j
+        if j_min < 0:
+            return None
+        h = self.heads[j_min]
+        if a_min >= t_free:
+            start, hi = a_min, h + 1
+        else:
+            start = t_free
+            hi = int(np.searchsorted(self.arr[j_min], t_free, side="right"))
+            if self.b_max:
+                hi = min(hi, h + self.b_max)
+        self.heads[j_min] = hi
+        self._last_bin = j_min
+        return start, self.members[j_min][h:hi]
+
+    def rewind(self, k: int):
+        self.heads[self._last_bin] -= k
+
+
+class _WaitFormation:
+    """WAIT-style threshold admission (Dai et al. 2025): hold batch
+    formation until at least ``k`` requests are buffered or the head
+    request has waited ``timeout`` seconds; then serve everything that has
+    arrived by the start instant (cap ``b_max``).  Fewer than ``k``
+    requests remaining in the stream are flushed once the last of them has
+    arrived (or the timer fires), so the tail of a finite workload is
+    never stranded."""
+
+    def __init__(self, arrivals: np.ndarray, k: int,
+                 timeout: Optional[float], b_max: Optional[int]):
+        self.arrivals = arrivals
+        self.k = k
+        self.timeout = timeout
+        self.b_max = b_max
+        self.head = 0
+
+    def next_batch(self, t_free: float):
+        arr, head = self.arrivals, self.head
+        n = len(arr)
+        if head >= n:
+            return None
+        trigger = float(arr[min(head + self.k - 1, n - 1)])
+        if self.timeout is not None:
+            trigger = min(trigger, float(arr[head]) + self.timeout)
+        start = max(t_free, trigger)
+        hi = int(np.searchsorted(arr, start, side="right"))
+        if self.b_max:
+            hi = min(hi, head + self.b_max)
+        self.head = hi
+        return start, np.arange(head, hi)
+
+    def rewind(self, k: int):
+        self.head -= k
+
+
+class _SRPTFormation:
+    """SRPT-like shortest-predicted-first selection: the waiting room is
+    ordered by (predicted token count, arrival order) and batch formation
+    takes the ``b_max`` shortest waiting requests — preempting FCFS order
+    at formation time (admitted batches are never preempted).  An idle
+    server starts the earliest next arrival, exactly like dynamic
+    batching."""
+
+    def __init__(self, arrivals: np.ndarray, predicted: np.ndarray,
+                 b_max: Optional[int]):
+        self.arrivals = arrivals
+        self.predicted = predicted      # ordering key ONLY (never service)
+        self.b_max = b_max
+        self.head = 0
+        self.heap: List = []
+        self._last_pops: List = []
+
+    def _admit(self, t: float):
+        import heapq
+        arr, tok, n = self.arrivals, self.predicted, len(self.arrivals)
+        while self.head < n and arr[self.head] <= t:
+            heapq.heappush(self.heap, (float(tok[self.head]), self.head))
+            self.head += 1
+
+    def next_batch(self, t_free: float):
+        import heapq
+        self._admit(t_free)
+        if not self.heap:
+            if self.head >= len(self.arrivals):
+                return None
+            start = float(self.arrivals[self.head])
+            self._admit(start)
+            cap = 1                       # idle server: next arrival alone
+        else:
+            start = t_free
+            cap = self.b_max if self.b_max else len(self.heap)
+        take = min(cap, len(self.heap))
+        pops = [heapq.heappop(self.heap) for _ in range(take)]
+        self._last_pops = pops
+        return start, np.array([p[1] for p in pops])
+
+    def rewind(self, k: int):
+        import heapq
+        # deferred members keep their (predicted, arrival) heap key, so
+        # they compete on equal terms at the next trigger
+        for p in self._last_pops[len(self._last_pops) - k:]:
+            heapq.heappush(self.heap, p)
+
+
 # ----------------------------------------------------------------------------
 # BatchPolicy protocol + registry
 # ----------------------------------------------------------------------------
 
 REGISTRY: Dict[str, Type["BatchPolicy"]] = {}
-
-# the reference's batch-event disciplines, not ported yet
-_M6B = ("multibin", "wait", "srpt")
 
 
 def register(cls: Type["BatchPolicy"]) -> Type["BatchPolicy"]:
@@ -137,11 +260,6 @@ def register(cls: Type["BatchPolicy"]) -> Type["BatchPolicy"]:
 
 
 def get_policy(name: str, **kwargs) -> "BatchPolicy":
-    if name not in REGISTRY:
-        item = "M6b" if name in _M6B else "queue 1"
-        raise NotImplementedError(
-            f"policy {name!r} is not ported yet (ported: "
-            f"{', '.join(sorted(REGISTRY))}); see ROADMAP.md {item}")
     return REGISTRY[name](**kwargs)
 
 
@@ -149,23 +267,25 @@ def policy_from_spec(spec: dict) -> "BatchPolicy":
     """Legacy ``{"kind": ..., **params}`` spec dicts -> policy instance."""
     spec = dict(spec)
     kind = spec.pop("kind")
-    if kind in _M6B:
-        return get_policy(kind, **spec)
     if kind not in REGISTRY:
         raise ValueError(kind)
     return REGISTRY[kind](**spec)
 
 
-def default_policies(b: int = 4,
-                     b_max: Optional[int] = 8) -> Dict[str, "BatchPolicy"]:
-    """One representative instance per ported discipline: the reference's
-    set without multi-bin, WAIT and SRPT (ROADMAP.md M6b)."""
+def default_policies(b: int = 4, b_max: Optional[int] = 8,
+                     num_bins: int = 4, wait_k: int = 8,
+                     srpt_b: int = 8) -> Dict[str, "BatchPolicy"]:
+    """One representative instance per registered discipline — the set the
+    cross-layer agreement tests and the registry-driven benchmarks iterate."""
     return {
         "fcfs": FCFSPolicy(),
         "dynamic": DynamicPolicy(),
         f"dynamic_b{b_max}": DynamicPolicy(b_max=b_max),
         "elastic": ElasticPolicy(),
         f"fixed_b{b}": FixedPolicy(b=b),
+        f"multibin_{num_bins}": MultiBinPolicy(num_bins=num_bins),
+        f"wait_k{wait_k}": WaitPolicy(k=wait_k),
+        f"srpt_b{srpt_b}": SRPTPolicy(b_max=srpt_b),
         "continuous": ContinuousPolicy(slots=16),
     }
 
@@ -436,6 +556,189 @@ class FixedPolicy(BatchPolicy):
 
 
 @register
+class MultiBinPolicy(BatchPolicy):
+    """Multi-bin batching (Guldogan et al. 2024): requests are routed to
+    bins by output length (the true length after clipping: predictors are
+    ROADMAP.md M7); within a bin, dynamic batching with
+    padded decode; the server picks the non-empty bin whose head request
+    arrived earliest.  Because bin members have similar lengths, the
+    H[b, max] padding waste shrinks, buying throughput at high load.
+
+    ``edges``: ascending upper token boundaries (last bin open-ended).
+    ``edges=None``: equal-probability-mass boundaries are derived from the
+    workload's token distribution at run time (the paper's suggestion)."""
+
+    name = "multibin"
+    fast_kernel = "multibin"
+    analytic_kind = "bound"       # two-arm envelope, see bulk.multibin_bound
+
+    def __init__(self, num_bins: int = 4,
+                 edges: Optional[Sequence[float]] = None,
+                 n_max: Optional[int] = None,
+                 b_max: Optional[int] = None,
+                 predictor=None,
+                 bound_quantile: float = 1.0):
+        super().__init__(n_max, predictor)
+        self.num_bins = int(num_bins if edges is None else len(edges) + 1)
+        self.edges = None if edges is None else tuple(float(e) for e in edges)
+        self.b_max = b_max
+        self.bound_quantile = float(bound_quantile)
+        if b_max is not None:
+            # both bound arms assume serve-all-waiting within the picked
+            # bin; a batch cap lowers throughput, so neither arm dominates
+            # the capped system
+            self.analytic_kind = None
+        elif bound_quantile < 1.0:
+            # the quantile-envelope round arm ignores the top (1-q) tail of
+            # the padding support: finite on heavy tails, but no longer a
+            # strict bound
+            self.analytic_kind = "approx"
+
+    def bin_edges(self, dist: Optional[TokenDistribution],
+                  tokens: Optional[np.ndarray] = None) -> np.ndarray:
+        """Boundaries actually used: explicit ``edges``; else equal-mass
+        quantiles of ``dist`` (after clipping); else — on the scheduler
+        layer, where only observed lengths exist — empirical quantiles of
+        ``tokens``."""
+        qs = np.arange(1, self.num_bins) / self.num_bins
+        if self.edges is not None:
+            return np.asarray(self.edges, np.float64)
+        if dist is not None:
+            d = dist if self.n_max is None else dist.clip(self.n_max)
+            return np.asarray([np.searchsorted(d.cdf, q) for q in qs],
+                              np.float64)
+        assert tokens is not None, "multibin needs edges, a dist, or tokens"
+        return np.quantile(np.asarray(tokens, np.float64), qs)
+
+    def bin_of(self, tokens: np.ndarray,
+               dist: Optional[TokenDistribution] = None) -> np.ndarray:
+        return np.searchsorted(self.bin_edges(dist, tokens), tokens,
+                               side="left")
+
+    def formation(self, arrivals, tokens, dist=None):
+        return _MultiBinFormation(arrivals, self.bin_of(tokens, dist),
+                                  self.num_bins, self.b_max)
+
+    def batch_time(self, ns, lat) -> float:
+        return float(lat.batch_time(len(ns), ns.max()))
+
+    def analytic_delay(self, lam, dist, lat) -> Optional[float]:
+        from repro_torch.core.bulk import multibin_bound
+        if self.b_max is not None:
+            return None
+        d = dist if self.n_max is None else dist.clip(self.n_max)
+        return multibin_bound(d, lat, lam, self.bin_edges(d),
+                              quantile=self.bound_quantile)["wait_bound"]
+
+    @classmethod
+    def optimized(cls, lam: float, dist: TokenDistribution, lat,
+                  num_bins: int = 4, **kwargs) -> "MultiBinPolicy":
+        """Load-dependent boundaries (Guldogan et al. 2024) instead of the
+        default equal-probability-mass quantiles; see
+        :func:`repro_torch.core.bulk.optimize_bin_edges`."""
+        from repro_torch.core.bulk import optimize_bin_edges
+        edges = optimize_bin_edges(dist, lat, lam, num_bins=num_bins)
+        return cls(edges=tuple(edges), **kwargs)
+
+
+@register
+class WaitPolicy(BatchPolicy):
+    """WAIT-style threshold admission (Dai et al. 2025): hold batch
+    formation until at least ``k`` requests are buffered or the head
+    request has waited ``timeout`` seconds, then serve everything that has
+    arrived (cap ``b_max``) with padded decode.  Holding trades queueing
+    delay at low load for throughput at high load: formed batches amortize
+    the per-batch overhead ``k1*b + k2`` and the padded decode over at
+    least ``k`` requests, which is the mechanism behind the policy's
+    heavy-traffic throughput optimality in Dai et al.  ``timeout=None`` is
+    the pure threshold rule (the end of a finite stream still flushes the
+    last ``< k`` stragglers).  No closed-form mean delay is known (Dai et
+    al. prove throughput optimality, not a delay formula), but the
+    M/D^k/1-like holding + clearing envelope
+    :func:`repro_torch.core.bulk.wait_bound` (positional trigger hold, timer-capped, plus Inoue's
+    serve-all-waiting arm) upper-bounds it — ``analytic_kind='bound'``
+    whenever the serve-all assumption holds (``b_max=None``)."""
+
+    name = "wait"
+    fast_kernel = "wait"
+    analytic_kind = "bound"       # holding + clearing envelope (bulk.wait_bound)
+
+    def __init__(self, k: int = 8, timeout: Optional[float] = None,
+                 n_max: Optional[int] = None, b_max: Optional[int] = None,
+                 predictor=None):
+        super().__init__(n_max, predictor)
+        assert k >= 1
+        self.k = int(k)
+        self.timeout = timeout
+        self.b_max = b_max
+        if b_max is not None:
+            # the clearing arm assumes serve-ALL-arrived at the trigger; a
+            # batch cap lowers throughput, so the envelope no longer
+            # dominates the capped system
+            self.analytic_kind = None
+
+    def formation(self, arrivals, tokens, dist=None):
+        # membership is arrival-count/timer-driven: prediction-insensitive
+        return _WaitFormation(arrivals, self.k, self.timeout, self.b_max)
+
+    def batch_time(self, ns, lat) -> float:
+        return float(lat.batch_time(len(ns), ns.max()))
+
+    def analytic_delay(self, lam, dist, lat) -> Optional[float]:
+        from repro_torch.core.bulk import wait_bound
+        if self.b_max is not None:
+            return None
+        return wait_bound(dist if self.n_max is None
+                          else dist.clip(self.n_max),
+                          lat, lam, self.k, self.timeout)["wait_bound"]
+
+
+@register
+class SRPTPolicy(BatchPolicy):
+    """SRPT-like shortest-predicted-first batching: the waiting room is
+    ordered by predicted output length and batch formation takes the
+    ``b_max`` shortest waiting requests (padded decode), preempting FCFS
+    order at formation time — running batches are never preempted, which
+    is what a serving engine can actually implement.  Short replies stop
+    queueing behind long ones AND the selected batch is length-homogeneous,
+    so the ``H[b, max]`` padding waste shrinks like multi-bin batching's.
+
+    The ordering key is the predicted output length; the port has the
+    oracle only — the true sampled token count, after ``n_max`` clipping
+    (length predictors are ROADMAP.md M7).  The service law always uses
+    the true lengths.  With ``b_max=None`` every
+    waiting request is served, and membership degenerates to dynamic
+    batching (order inside a padded batch is irrelevant) — so the
+    discipline defaults to a finite cap.  No EXACT mean-delay formula is
+    known for batched SRPT (classic SRPT analysis is per-request
+    preemptive), but a size-interval envelope upper-bounds it:
+    :func:`repro_torch.core.bulk.srpt_bound` treats the shortest-first
+    room as priority classes by length quantile and pads each class's
+    clearing time to its own upper edge — ``analytic_kind='bound'`` under
+    oracle ordering."""
+
+    name = "srpt"
+    fast_kernel = "srpt"
+    analytic_kind = "bound"       # size-interval envelope (bulk.srpt_bound)
+
+    def __init__(self, b_max: Optional[int] = 8,
+                 n_max: Optional[int] = None, predictor=None):
+        super().__init__(n_max, predictor)
+        self.b_max = b_max
+
+    def formation(self, arrivals, tokens, dist=None):
+        return _SRPTFormation(arrivals, tokens, self.b_max)
+
+    def batch_time(self, ns, lat) -> float:
+        return float(lat.batch_time(len(ns), ns.max()))
+
+    def analytic_delay(self, lam, dist, lat) -> Optional[float]:
+        from repro_torch.core.bulk import srpt_bound
+        d = dist if self.n_max is None else dist.clip(self.n_max)
+        return srpt_bound(d, lat, lam, self.b_max)["wait_bound"]
+
+
+@register
 class ContinuousPolicy(BatchPolicy):
     """Iteration-level (Orca/vLLM-style) batching — beyond paper.  ``slots``
     decode streams; a freed slot refills immediately; admission and refill
@@ -460,6 +763,7 @@ class ContinuousPolicy(BatchPolicy):
 
 __all__ = [
     "BatchPolicy", "ContinuousPolicy", "DynamicPolicy", "ElasticPolicy",
-    "FCFSPolicy", "FixedPolicy", "REGISTRY", "Workload", "default_policies",
-    "get_policy", "policy_from_spec", "register", "single_from_batch",
+    "FCFSPolicy", "FixedPolicy", "MultiBinPolicy", "REGISTRY", "SRPTPolicy",
+    "WaitPolicy", "Workload", "default_policies", "get_policy",
+    "policy_from_spec", "register", "single_from_batch",
 ]

@@ -8,7 +8,9 @@ drive a policy on a sampled workload:
   * ``_oracle_mg1``        single-server Lindley / workload recursion
     (FCFS with optional deterministic impatience tau; paper Figs 4a-4c)
   * ``_oracle_batches``    the batch-formation loop shared by dynamic,
-    fixed and elastic batching (paper Figs 5-6)
+    fixed and elastic batching (paper Figs 5-6) and by the batch-event
+    disciplines multi-bin, WAIT and SRPT (each policy's ``formation``
+    encodes its trigger and members)
   * ``_oracle_continuous`` iteration-level slot refill on a virtual clock
     (beyond paper; mirrors the engine's fused chunked decode)
 
@@ -16,7 +18,7 @@ drive a policy on a sampled workload:
 Waits are queueing delays (arrival -> service start), matching the paper.
 
 These loops are host NumPy and favour obviousness over speed: they are
-the oracle that :mod:`repro_torch.core.fastsim` (kernels S1 and S2 on the
+the oracle that :mod:`repro_torch.core.fastsim` (kernels S1-S5 on the
 card) is held to, trajectory for trajectory.  Fault traces, traffic
 models, sessions and KV-memory budgets raise ``NotImplementedError``
 (ROADMAP.md M7).
@@ -149,7 +151,8 @@ def _oracle_mg1(policy, wl: Workload, lat, dist) -> dict:
 
 
 # ----------------------------------------------------------------------------
-# Generic batch-formation loop (dynamic / fixed / elastic)
+# Generic batch-formation loop (dynamic / fixed / elastic / multi-bin /
+# WAIT / SRPT)
 # ----------------------------------------------------------------------------
 
 @oracle("batches")

@@ -41,9 +41,13 @@ SOURCES = {
     "gather_rows": _PKG / "compaction" / "csrc" / "gather_rows.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "fused_rmsnorm": _PKG / "rmsnorm" / "csrc" / "fused_rmsnorm.cu",
-    # the port's own kernels: the simulators' per-request recursions
+    # the port's own kernels: the simulators' per-request recursions (S1,
+    # S2) and batch-event loops (S3-S5)
     "batch_scan": _PKG / "batch_scan" / "csrc" / "batch_scan.cu",
     "impatience_scan": _PKG / "impatience_scan" / "csrc" / "impatience_scan.cu",
+    "multibin_scan": _PKG / "multibin_scan" / "csrc" / "multibin_scan.cu",
+    "wait_scan": _PKG / "wait_scan" / "csrc" / "wait_scan.cu",
+    "srpt_scan": _PKG / "srpt_scan" / "csrc" / "srpt_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,6 +60,9 @@ EXTRA_FLAGS = {
     "flash_attention": ("-Xptxas=-v",),
     "batch_scan": ("-Xptxas=-v",),
     "impatience_scan": ("-Xptxas=-v",),
+    "multibin_scan": ("-Xptxas=-v",),
+    "wait_scan": ("-Xptxas=-v",),
+    "srpt_scan": ("-Xptxas=-v",),
 }
 
 LAUNCHES: Dict[str, int] = collections.Counter()

@@ -17,6 +17,9 @@ scheduler classes are one-line bindings:
   DynamicBatchScheduler    DynamicPolicy   (paper §IV-A/B)
   FixedBatchScheduler      FixedPolicy     (paper §IV-C)
   ElasticBatchScheduler    ElasticPolicy   (paper §IV-D, Eq 26)
+  MultiBinBatchScheduler   MultiBinPolicy  [Guldogan et al. 2024]
+  WaitBatchScheduler       WaitPolicy      [Dai et al. 2025]
+  SRPTBatchScheduler       SRPTPolicy      shortest-first formation
   ContinuousBatchScheduler iteration-level refill [beyond paper; Orca-style]
 
 ``run_engine_schedule`` executes a policy's batches on the engine.
@@ -32,7 +35,7 @@ import numpy as np
 from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
 from repro_torch.core.policies import (
     BatchPolicy, DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy,
-    not_ported)
+    MultiBinPolicy, SRPTPolicy, WaitPolicy, not_ported)
 from repro_torch.data.pipeline import Request
 
 
@@ -169,6 +172,40 @@ class ElasticBatchScheduler(PolicyScheduler):
 
     def __init__(self, clock, n_max=None, b_max: Optional[int] = None):
         super().__init__(ElasticPolicy(n_max=n_max, b_max=b_max), clock)
+
+
+class MultiBinBatchScheduler(PolicyScheduler):
+    """Multi-bin batching (Guldogan et al. 2024): per-bin dynamic batching
+    keyed by output length (the clipped target; with neither ``edges`` nor
+    a distribution, the edges are empirical quantiles of the targets); one
+    shared server picks the bin whose head request arrived earliest."""
+
+    def __init__(self, clock, num_bins: int = 4, edges=None, n_max=None,
+                 b_max: Optional[int] = None, predictor=None):
+        super().__init__(MultiBinPolicy(num_bins=num_bins, edges=edges,
+                                        n_max=n_max, b_max=b_max,
+                                        predictor=predictor), clock)
+
+
+class WaitBatchScheduler(PolicyScheduler):
+    """WAIT threshold admission (Dai et al. 2025): hold batch formation
+    until k requests are buffered or the head has waited ``timeout``."""
+
+    def __init__(self, clock, k: int = 8, timeout: Optional[float] = None,
+                 n_max=None, b_max: Optional[int] = None):
+        super().__init__(WaitPolicy(k=k, timeout=timeout, n_max=n_max,
+                                    b_max=b_max), clock)
+
+
+class SRPTBatchScheduler(PolicyScheduler):
+    """SRPT-like shortest-first batch formation: the ``b_max`` waiting
+    requests with the shortest lengths (the clipped targets) form the next
+    batch."""
+
+    def __init__(self, clock, b_max: Optional[int] = 8, n_max=None,
+                 predictor=None):
+        super().__init__(SRPTPolicy(b_max=b_max, n_max=n_max,
+                                    predictor=predictor), clock)
 
 
 # ----------------------------------------------------------------------------

@@ -160,7 +160,11 @@ def test_request_stream_equals_reference(corr):
 @pytest.mark.parametrize("name,kw", [("dynamic", {"b_max": 4}),
                                      ("elastic", {"b_max": 4}),
                                      ("fixed", {"b": 2}),
-                                     ("dynamic", {"b_max": 2})])
+                                     ("dynamic", {"b_max": 2}),
+                                     ("multibin", {"num_bins": 2,
+                                                   "b_max": 4}),
+                                     ("wait", {"k": 3, "b_max": 4}),
+                                     ("srpt", {"b_max": 4})])
 def test_run_engine_schedule_equals_reference(cfgs, jax_engines, monkeypatch,
                                               name, kw):
     for mod in (jax_engine_mod, torch_engine_mod):
@@ -186,4 +190,4 @@ def test_schedule_refuses_unported_options(cfgs, jax_engines):
     with pytest.raises(NotImplementedError):
         run_engine_schedule(get_policy("dynamic"), eng, [], memory=100)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_policy("multibin")
+        get_policy("srpt", predictor="oracle")

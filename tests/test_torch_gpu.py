@@ -8,7 +8,7 @@ file imports no JAX, so it runs on a machine that has only the port:
 Tolerances: 2e-5 in fp32; in bf16 4e-3 plus 8e-3 relative, one bf16 ulp
 of the output (both sides compute in fp32 and differ only in the final
 rounding); the gather, the fused norm's residual sum and the simulators'
-float64 scans (S1, S2) are bit-equal."""
+float64 scans and batch-event loops (S1-S5) are bit-equal."""
 
 import numpy as np
 import pytest
@@ -595,3 +595,146 @@ def test_fast_simulators_on_the_card_equal_the_oracle(cuda):
                                          num_requests=6000)
     for name in pols:
         assert np.array_equal(gpu[name], ora[name]), name
+
+
+# ----------------------------------------------------------------------------
+# The batch-event loops (S3 multibin_scan, S4 wait_scan, S5 srpt_scan):
+# float64, equal bit for bit to their plain versions on edge cases
+# ----------------------------------------------------------------------------
+
+EVENT_LAT = (0.05, 0.5, 2e-4, 0.002)
+
+
+def _event_inputs(n, lanes, seed, tie_every=0):
+    """Sorted arrivals [n, lanes] from t=0, at loads from idle to
+    saturated, with runs of equal arrival times when ``tie_every`` > 0, and
+    integer token counts with repeats (ties in SRPT's rank order)."""
+    rng = np.random.default_rng(seed)
+    lam = np.geomspace(0.05, 3.0, lanes)
+    gaps = rng.exponential(1.0, (n, lanes)) / lam
+    gaps[0] = 0.0
+    if tie_every:
+        gaps[::tie_every] = 0.0
+    arr = np.cumsum(gaps, axis=0)
+    tok = rng.integers(1, 40, (n, lanes)).astype(np.float64) * 50.0
+    return arr, tok
+
+
+def _event_case(kernel, case, n, lanes, dev):
+    """(wrapper, plain version, args on ``dev``) of one edge case."""
+    from repro_torch.kernels.multibin_scan import (
+        multibin_scan, multibin_scan_reference)
+    from repro_torch.kernels.srpt_scan import srpt_scan, srpt_scan_reference
+    from repro_torch.kernels.wait_scan import wait_scan, wait_scan_reference
+    arr, tok = _event_inputs(n, lanes, seed=n + lanes,
+                             tie_every=3 if case == "ties" else 0)
+    cap = {"b_max_1": 1, "ties": 4}.get(case, 8)
+    b_max = np.where(np.arange(lanes) % 2 == 0, cap, 0)     # 0: no cap
+
+    def i64(x):
+        return torch.from_numpy(np.asarray(x, np.int64)).to(dev)
+
+    def f64(x):
+        return torch.from_numpy(np.asarray(x, np.float64)).to(dev)
+
+    if kernel == "multibin_scan":
+        edges = {"one_bin": [1e9, 2e9, 3e9],      # every request in bin 0
+                 "empty_bin": [600.0, 600.5, 1200.0]}.get(  # bin 1 empty
+                     case, [500.0, 1000.0, 1500.0])
+        bins = np.searchsorted(edges, tok, side="left")
+        return multibin_scan, multibin_scan_reference, (
+            f64(arr), f64(tok), i64(bins), 4, i64(b_max))
+    if kernel == "wait_scan":
+        timeout = {"timeout_0": 0.0}.get(case, 3.0)
+        timeouts = np.where(np.arange(lanes) % 3 == 2, np.inf, timeout)
+        return wait_scan, wait_scan_reference, (
+            f64(arr), f64(tok), i64(np.full(lanes, 5)), f64(timeouts),
+            i64(b_max))
+    order = np.argsort(tok, axis=0, kind="stable")
+    return srpt_scan, srpt_scan_reference, (
+        f64(arr), f64(tok), i64(order), i64(b_max))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["multibin_scan", "wait_scan",
+                                    "srpt_scan"])
+@pytest.mark.parametrize("case,n,lanes", [
+    ("plain", 4001, 5), ("ties", 3001, 3), ("b_max_1", 2001, 2),
+    ("n_1", 1, 3), ("one_bin", 2001, 2), ("empty_bin", 2001, 3),
+    ("timeout_0", 2001, 3)])
+def test_event_kernels_bit_equal_to_plain(cuda, kernel, case, n, lanes):
+    fn, ref, args = _event_case(kernel, case, n, lanes, cuda)
+    before = K.LAUNCHES[kernel]
+    starts, first = fn(*args, *EVENT_LAT)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[kernel] == before + 1
+    assert starts.shape == (n, lanes) and starts.dtype == torch.float64
+    assert first.dtype == torch.bool
+    ref_s, ref_f = ref(*args, *EVENT_LAT)
+    assert torch.equal(starts, ref_s) and torch.equal(first, ref_f)
+    assert bool(first[0].all())          # request 0 heads the first batch
+    arr = args[0]
+    assert bool((starts >= arr).all())
+    cpu = fn(*(a.cpu() if torch.is_tensor(a) else a for a in args),
+             *EVENT_LAT)
+    assert torch.equal(starts.cpu(), cpu[0]) and torch.equal(first.cpu(),
+                                                             cpu[1])
+
+
+@pytest.mark.gpu
+def test_event_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels.multibin_scan import multibin_scan
+    from repro_torch.kernels.srpt_scan import srpt_scan
+    from repro_torch.kernels.wait_scan import wait_scan
+    a = torch.zeros(40, 2, dtype=torch.float64, device=cuda)
+    i = torch.zeros(40, 2, dtype=torch.int64, device=cuda)
+    cap = torch.full((2,), 8, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        multibin_scan(a.float(), a, i, 4, cap, *EVENT_LAT)
+    with pytest.raises(ValueError):                     # bins out of range
+        multibin_scan(a, a, i + 4, 4, cap, *EVENT_LAT)
+    with pytest.raises(ValueError):
+        srpt_scan(a, a, i - 1, cap, *EVENT_LAT)
+    with pytest.raises(ValueError):                     # CPU + CUDA
+        wait_scan(a, a, cap, a[0].cpu(), cap, *EVENT_LAT)
+    with pytest.raises(ValueError):
+        srpt_scan(a, a[:39], i, cap, *EVENT_LAT)
+
+
+@pytest.mark.gpu
+def test_event_simulators_on_the_card_equal_the_oracle(cuda):
+    """``core.fastsim`` through S3-S5 on the card against the NumPy oracle,
+    and ``sweep`` handing back each cell's launch."""
+    from repro_torch.core import fastsim, simulate
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import (
+        MultiBinPolicy, SRPTPolicy, WaitPolicy)
+    ln = LogNormalTokens(7.0, 0.7)
+    lat = BatchLatencyModel(*EVENT_LAT)
+    pols = {"mb": MultiBinPolicy(num_bins=4), "mb8": MultiBinPolicy(b_max=8),
+            "wait": WaitPolicy(k=16), "wait_t": WaitPolicy(k=4, timeout=1.0),
+            "srpt": SRPTPolicy(b_max=16), "srpt1": SRPTPolicy(b_max=1)}
+    for pol in pols.values():
+        for lam in (0.3, 1.0):
+            name = {"multibin": "multibin_scan", "wait": "wait_scan",
+                    "srpt": "srpt_scan"}[pol.name]
+            before = K.LAUNCHES[name]
+            with simulate.no_warmup():
+                gpu = fastsim.simulate_policy_fast(pol, lam, ln, lat,
+                                                   num_requests=6000, seed=2)
+                ora = simulate.simulate_policy(pol, lam, ln, lat,
+                                               num_requests=6000, seed=2)
+            assert K.LAUNCHES[name] == before + 1
+            assert np.array_equal(gpu["waits"], ora["waits"]), (pol, lam)
+            assert gpu["mean_batch"] == ora["mean_batch"], (pol, lam)
+    got = {}
+    gpu = fastsim.sweep(pols, [0.3, 1.0], ln, lat, num_requests=6000,
+                        scan_out=got)
+    ora = simulate.simulate_policy_sweep([0.3, 1.0], ln, lat, pols,
+                                         num_requests=6000)
+    assert sorted(got["cells"]) == sorted((p, li) for p in pols
+                                          for li in (0, 1))
+    for name in pols:
+        assert np.array_equal(gpu[name], ora[name]), name
+

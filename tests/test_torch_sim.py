@@ -351,13 +351,14 @@ def test_continuous_virtual_equals_reference(slots, chunk, n_max):
 # ----------------------------------------------------------------------------
 
 def test_registry_and_unported_parts_raise():
-    assert set(t_pol.default_policies()) == set(j_pol.default_policies()) - {
-        "multibin_4", "wait_k8", "srpt_b8"}
+    assert set(t_pol.default_policies()) == set(j_pol.default_policies())
+    assert set(t_pol.REGISTRY) == set(j_pol.REGISTRY)
     for name in ("multibin", "wait", "srpt"):
-        with pytest.raises(NotImplementedError, match="M6b"):
-            t_pol.get_policy(name)
-        with pytest.raises(NotImplementedError, match="M6b"):
-            t_pol.policy_from_spec({"kind": name})
+        assert repr(t_pol.get_policy(name)) == repr(j_pol.get_policy(name))
+        assert repr(t_pol.policy_from_spec({"kind": name, "b_max": 4})) == \
+            repr(j_pol.policy_from_spec({"kind": name, "b_max": 4}))
+        with pytest.raises(NotImplementedError, match="M7"):
+            t_pol.get_policy(name, predictor="oracle")
     with pytest.raises(ValueError):
         t_pol.policy_from_spec({"kind": "nope"})
     assert repr(t_pol.policy_from_spec({"kind": "elastic", "b_max": 8})) == \

@@ -1,5 +1,6 @@
 """The port's fast simulators on the CPU: kernels S1 (``batch_scan``) and
-S2 (``impatience_scan``) through their plain PyTorch versions, and
+S2 (``impatience_scan``) through their plain PyTorch versions (the
+batch-event kernels S3-S5 in ``test_torch_batchevent.py``), and
 ``core.fastsim`` with ``device="cpu"``, against the JAX package's compiled
 scans (``repro.core.fastsim``) and against both NumPy oracles.
 
@@ -47,6 +48,9 @@ from repro_torch.core import policies as t_pol  # noqa: E402
 from repro_torch.core import simulate as t_sim  # noqa: E402
 from repro_torch.kernels.batch_scan import NO_CAP, batch_scan  # noqa: E402
 from repro_torch.kernels.impatience_scan import impatience_scan  # noqa: E402
+from repro_torch.kernels.multibin_scan import multibin_scan  # noqa: E402
+from repro_torch.kernels.srpt_scan import srpt_scan  # noqa: E402
+from repro_torch.kernels.wait_scan import wait_scan  # noqa: E402
 
 LAT = dict(k1=0.05, k2=0.5, k3=0.0005, k4=0.02)
 FIXED_TOL = 1e-9
@@ -156,14 +160,25 @@ def test_impatience_scan_plain_equals_reference_scan(x64):
     assert tl[0].any() and not tl[2].any()
 
 
-@pytest.mark.parametrize("fn", ["batch_scan", "impatience_scan"])
+@pytest.mark.parametrize("fn", ["batch_scan", "impatience_scan",
+                                "multibin_scan", "wait_scan", "srpt_scan"])
 def test_scan_wrappers_refuse_bad_inputs(fn):
     a = torch.zeros(40, 3, dtype=torch.float64)      # [n, lanes]
     lanes = torch.zeros(3, dtype=torch.float64)
     flags = torch.zeros(3, dtype=torch.bool)
-    call = {"batch_scan": lambda x, y, z: batch_scan(x, y, flags, z,
-                                                     *LAT.values()),
-            "impatience_scan": impatience_scan}[fn]
+    k = tuple(LAT.values())
+
+    def rank(x):                                     # [n, lanes] int64
+        return torch.zeros(x.shape, dtype=torch.int64)
+
+    call = {"batch_scan": lambda x, y, z: batch_scan(x, y, flags, z, *k),
+            "impatience_scan": impatience_scan,
+            "multibin_scan": lambda x, y, z: multibin_scan(
+                x, y, rank(x), 4, z.long(), *k),
+            "wait_scan": lambda x, y, z: wait_scan(x, y, z.long() + 1, z,
+                                                   z.long(), *k),
+            "srpt_scan": lambda x, y, z: srpt_scan(x, y, rank(x), z.long(),
+                                                   *k)}[fn]
     with pytest.raises(TypeError):
         call(a.float(), a, lanes)
     with pytest.raises(ValueError):
@@ -172,6 +187,14 @@ def test_scan_wrappers_refuse_bad_inputs(fn):
         call(a, a, lanes[:2])
     w, f = call(a[:0], a[:0], lanes)
     assert w.shape == (0, 3) and f.shape == (0, 3)
+    if fn == "multibin_scan":                        # bins outside [0, 4)
+        with pytest.raises(ValueError):
+            multibin_scan(a, a, rank(a) + 4, 4, lanes.long(), *k)
+        with pytest.raises(ValueError):
+            multibin_scan(a, a, rank(a), 65, lanes.long(), *k)
+    if fn == "srpt_scan":                            # order outside [0, n)
+        with pytest.raises(ValueError):
+            srpt_scan(a, a, rank(a) - 1, lanes.long(), *k)
 
 
 # ----------------------------------------------------------------------------
