@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the nine hand-written kernels from
+  1. build the ten hand-written kernels from
      ``src/repro_torch/kernels/*/csrc`` with nvcc into ``build/kernels/``,
      one nvcc per source, all started together, and print the registers,
      shared memory and spills ptxas reports for the two attention kernels
-     and the five simulator kernels;
+     and the six simulator kernels;
   2. hold each serving kernel against its plain PyTorch version on the card, at the
      shapes qwen2.5-3b serving gives it, and time kernel, plain version,
      one PyTorch library call and the bound (K3 also as TFLOP/s and share
@@ -25,6 +25,11 @@ Phases (any failure raises and the script exits non-zero):
      the eager loop;
   6. serve the same request stream with continuous batching
      (``serve_continuous``, 16 slots, chunk 32) on phase 4's engine;
+  8a. serve phase 4's stream, made again under MMPP traffic, through two
+     routed fleets of R = 2 replicas on phase 4's engine
+     (``run_fleet_schedule``): least_work + SRPT with a noisy length
+     predictor, and jsq + elastic; each fleet's split must equal
+     ``FleetScheduler``'s on a ``ModelClock``;
   5. run the adaptive-control serving launcher
      (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width;
   7. run the paper's simulators (``repro_torch.core.fastsim``) on the card:
@@ -40,7 +45,15 @@ Phases (any failure raises and the script exits non-zero):
      versions on the card, four lanes of the Fig 5 launch and every S3-S5
      lane to the NumPy oracle, assert the benchmark's relations at λ = 1,
      print every lane's mean wait beside the paper's analytic delay or
-     envelope, and time the kernels against their bytes bound.
+     envelope, and time the kernels against their bytes bound;
+  8b. run the reference benchmarks' fleet, predictor and fault grids on
+     the card (``fleet.sweep``, ``simulate_fleet_fast``, ``sweep_noise``
+     with its SRPT cells as one ``srpt_scan`` launch,
+     ``simulate_fleet_faulty(fast=True)``), the backlog routers on
+     ``backlog_scan`` (S6); assert the benchmarks' relations, print each
+     figure beside ``benchmarks/BENCH_simulators.json``, hold every S6
+     launch at full length to its plain version on the card and to the
+     NumPy recursion, and time S6 against its bytes bound.
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after it.
 
@@ -493,7 +506,11 @@ class ClippedLogNormal:
         return np.clip(x, 1, self.hi).astype(np.int64)
 
 
-def serve(engine, policy_name, reqs, policy):
+def serve(engine, policy_name, reqs, policy, schedule=None):
+    """Serve ``reqs`` with ``policy`` through ``run_engine_schedule``, or
+    through ``schedule()`` (a fleet), counting the kernels' launches, and
+    assert the engine's host-sync and graph ledgers.  Returns (launches,
+    per-bucket decode figures, wall seconds, the schedule's result)."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.serving import run_engine_schedule
@@ -502,7 +519,7 @@ def serve(engine, policy_name, reqs, policy):
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = run_engine_schedule(policy, engine, reqs)
+    res = schedule() if schedule else run_engine_schedule(policy, engine, reqs)
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     log_ = engine.step_log[n0:]
@@ -550,7 +567,7 @@ def serve(engine, policy_name, reqs, policy):
             f"{v['ms_per_step']:.2f} ms/step, {v['tokens_per_s']:.1f} tokens/s; "
             f"{v['replays']} replayed chunks at {v['replay_ms_per_step']:.2f} "
             f"ms/step")
-    return launches, buckets, wall
+    return launches, buckets, wall, res
 
 
 def decode_ms(chunks):
@@ -684,7 +701,7 @@ def serve_full(engine, reqs):
                       ("multibin", MultiBinPolicy(num_bins=4, b_max=cap)),
                       ("wait", WaitPolicy(k=8, b_max=cap)),
                       ("srpt", SRPTPolicy(b_max=cap))):
-        launches, buckets, walls[name] = serve(engine, name, reqs, pol)
+        launches, buckets, walls[name], _ = serve(engine, name, reqs, pol)
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
         if name == "elastic":
@@ -752,6 +769,59 @@ def serve_cont(engine, reqs):
         f"completion mean {np.mean(res.completion):.3f} s, max "
         f"{np.max(res.completion):.3f} s; launches {launches}")
     return launches
+
+
+# ----------------------------------------------------------------------------
+# Phase 8a: the fleet serving path
+# ----------------------------------------------------------------------------
+
+# the serving launcher's priors for the latency laws (launch/serve.py)
+PRIOR_SINGLE = dict(a=5e-3, c=0.05)
+PRIOR_BATCH = dict(k1=5e-3, k2=5e-2, k3=1e-4, k4=5e-3)
+
+
+def serve_fleet(engine, reqs):
+    """Two routed fleets of R = 2 replicas sharing phase 4's engine, on
+    phase 4's stream made again under MMPP traffic: least_work in front of
+    SRPT with a noisy length predictor, jsq in front of elastic.  Each
+    must serve every request once, split the stream as ``FleetScheduler``
+    does on a ``ModelClock``, and keep phase 4's ledgers."""
+    from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
+    from repro_torch.core.policies import ElasticPolicy, SRPTPolicy
+    from repro_torch.core.predictors import LogNormalNoisePredictor
+    from repro_torch.serving import (
+        FleetScheduler, ModelClock, run_fleet_schedule, summarize_fleet)
+    single, batch = LatencyModel(**PRIOR_SINGLE), BatchLatencyModel(**PRIOR_BATCH)
+    clock = ModelClock(single, batch)
+    cap = engine.ecfg.max_batch
+    totals, walls = {}, {}
+    for name, router, pol in (
+            ("least_work+srpt", "least_work",
+             SRPTPolicy(b_max=cap, predictor=LogNormalNoisePredictor(0.5))),
+            ("jsq+elastic", "jsq", ElasticPolicy(b_max=cap))):
+        launches, buckets, walls[name], res = serve(
+            engine, f"fleet {name}", reqs, pol,
+            schedule=lambda: run_fleet_schedule(router, pol, engine, reqs,
+                                                R=2, lat=single))
+        assert all(v["replays"] for v in buckets.values()), \
+            f"{name}: a bucket that ran never replayed a graph"
+        virtual = FleetScheduler(router, pol, clock, 2).run(reqs)
+        assert np.array_equal(res.replica_of, virtual.replica_of), \
+            f"{name}: the engine fleet split the stream differently"
+        assert not res.lost.any() and sorted(set(res.replica_of)) == [0, 1]
+        if name == "jsq+elastic":
+            assert launches["gather_rows"] > 0, "no fused compaction ran"
+        s = summarize_fleet(res)
+        per = [(p["requests"], p["mean_wait"], p["p95_wait"])
+               for p in s["per_replica"]]
+        log(f"fleet {name}: replica requests {s['replica_requests']}, mean "
+            f"wait {s['mean_wait']:.3f} s, p95 {s['p95_wait']:.3f} s; per "
+            f"replica (requests after warmup, mean, p95 wait s) "
+            f"{[(n, round(m, 3), round(q, 3)) for n, m, q in per]}")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    log(f"fleet walls: {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}")
+    return totals
 
 
 # ----------------------------------------------------------------------------
@@ -1180,7 +1250,272 @@ def run_simulators(dev, cal):
     return launches, [s1, s2] + check_event_cells(heavy, dev)
 
 
+# ----------------------------------------------------------------------------
+# Phase 8b: the fleet, predictor and fault simulators
+# ----------------------------------------------------------------------------
+
+FLEET_N, FLEET_SEED = 40_000, 3      # benchmarks/bench_fleet.py
+NOISE_N, NOISE_SEED = 30_000, 15     # benchmarks/bench_predictors.py
+FAULT_N, FAULT_SEED = 5_000, 3       # benchmarks/bench_faults.py
+S6_REPLACES = ("src/repro/core/fastsim.py:1076 (_backlog_scan) and :1112 "
+               "(_masked_backlog_scan), lax.scans; no Pallas kernel")
+
+
+def reference_record():
+    """The reference's CPU benchmark record (the JAX package on the CPU; the
+    shapes to reproduce, not speeds)."""
+    path = ROOT / "benchmarks" / "BENCH_simulators.json"
+    rec = json.loads(path.read_text())
+    return rec["pr4_predictors"], rec["pr5_fleet"], rec["pr6_faults"]
+
+
+def check_backlog_launches(launches, dev):
+    """Every S6 launch of the counted path, at full length: its ids against
+    the plain version on the card (the launches of one shape and mask kind
+    stacked as lanes of one plain call) and against the NumPy recursion on
+    the host; then each launch timed by CUDA events on its own inputs.
+    ``launches``: {label: the launch_out dict}.  Returns the JSON entry."""
+    import torch
+    from repro_torch.core.fleet import (
+        _backlog_assign_np, _masked_backlog_assign_np)
+    from repro_torch.kernels.backlog_scan import (
+        backlog_scan, backlog_scan_reference)
+    groups = {}
+    for label, lo in launches.items():
+        arr, work, R, *up = lo["args"]
+        groups.setdefault((R, arr.shape[0], bool(up)), []).append(label)
+    plain_s = 0.0
+    for (R, n, masked), labels in groups.items():
+        cat = [torch.cat([launches[x]["args"][i] for x in labels], dim=-1)
+               for i in ((0, 1, 3) if masked else (0, 1))]
+        ref, ms = wall_ms(lambda: backlog_scan_reference(
+            cat[0], cat[1], R, cat[2] if masked else None))
+        plain_s += ms / 1e3
+        for j, label in enumerate(labels):
+            lo = launches[label]
+            out = lo["out"]
+            assert torch.equal(out[:, 0], ref[:, j]), \
+                f"S6 {label}: kernel differs from its plain version"
+            a, w = (lo["args"][i][:, 0].cpu().numpy() for i in (0, 1))
+            host = (_masked_backlog_assign_np(
+                a, w, R, lo["args"][3][:, :, 0].cpu().numpy().astype(bool))
+                if masked else _backlog_assign_np(a, w, R))
+            assert np.array_equal(out[:, 0].cpu().numpy(), host), \
+                f"S6 {label}: kernel differs from the NumPy recursion"
+    log(f"S6: all {len(launches)} counted launches' ids equal the plain "
+        f"version on the card ({len(groups)} stacked calls, {plain_s:.1f} s) "
+        f"and the NumPy recursion on the host, at full length")
+    rows = {}
+    for label, lo in launches.items():
+        arr, work, R, *up = lo["args"]
+        n = arr.shape[0]
+        ms = event_ms(lambda: backlog_scan(*lo["args"]), iters=5)
+        nbytes = n * (8 + 8 + 8) + (n * R if up else 0)
+        bnd = bound_ms(nbytes, 0, "float64")
+        rows[label] = dict(R=R, n=n, masked=bool(up), ms=ms,
+                           ns_per_request=1e6 * ms / n, bound_ms=bnd)
+        log(f"S6 backlog_scan {label}: R={R}{' masked' if up else ''}, "
+            f"[{n}, 1]: {ms:.3f} ms by CUDA events "
+            f"({1e6 * ms / n:.1f} ns a request), bound {bnd:.5f} ms (bytes, "
+            f"{nbytes / 1e6:.2f} MB; {100 * bnd / ms:.4f}% of it)")
+    timed = "routers least_work"
+    lo = launches[timed]
+    _, plain_ms = wall_ms(lambda: backlog_scan_reference(*lo["args"]))
+    return {"name": "backlog_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/backlog_scan/csrc/"
+                      "backlog_scan.cu",
+            "replaces": S6_REPLACES, "shape": [rows[timed]["n"], 1],
+            "max_abs_err": 0.0, "ms": rows[timed]["ms"], "plain_ms": plain_ms,
+            "bound_ms": rows[timed]["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "launch_rows": rows}
+
+
+def run_fleet_sims(dev):
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core.bulk import breakdown_wait
+    from repro_torch.core.distributions import LogNormalTokens, UniformTokens
+    from repro_torch.core.fastsim import (
+        simulate_fleet_fast, simulate_policy_fast, sweep_noise)
+    from repro_torch.core.faults import CrashRepair, simulate_fleet_faulty
+    from repro_torch.core.fleet import (
+        LeastWorkRouter, default_routers, fleet_analytic_delay,
+        mgr_whitt_wait, route_oracle, sweep)
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import (
+        DynamicPolicy, FCFSPolicy, MultiBinPolicy, SRPTPolicy, WaitPolicy,
+        single_from_batch)
+    from repro_torch.core.predictors import LogNormalNoisePredictor
+    from repro_torch.kernels.srpt_scan import srpt_scan, srpt_scan_reference
+    r4, r5, r6 = reference_record()
+    uni, ln = UniformTokens(1000), LogNormalTokens(7.0, 0.7)
+    lat5 = BatchLatencyModel(0.05, 0.5, 0.0005, 0.02)
+    ht = BatchLatencyModel(0.05, 0.5, 2e-4, 0.002)
+    s6, fleet_kw = {}, dict(num_requests=FLEET_N, seed=FLEET_SEED, device=dev)
+    noise_lams, sigmas = [0.6, 1.0], [0.0, 0.25, 0.5, 1.0, 1.5]
+    crash_cells = [(400.0, 5.0), (200.0, 10.0), (100.0, 15.0), (60.0, 20.0)]
+
+    def noise_factory(make):
+        return lambda s: make(LogNormalNoisePredictor(s))
+
+    # the main path, counted
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # (a) the replica-count scaling curve (jsq, capped dynamic replicas)
+    got = {}
+    scal = sweep([1, 2, 4, 8], [0.8], "jsq", DynamicPolicy(b_max=8), uni,
+                 lat5, launch_out=got, **fleet_kw)["mean_wait"][:, 0]
+    s6.update({f"scaling R={R}": lo for (R, _), lo in got.items()})
+    # (b) jsq + FCFS against the QNA approximation and the pooled floor
+    got = {}
+    fcfs_sim = simulate_fleet_fast("jsq", FCFSPolicy(), 0.25, 3, uni, lat5,
+                                   launch_out=got, **fleet_kw)["mean_wait"]
+    s6["jsq+fcfs"] = got
+    # (c) every default router at the heavy-tail point, then least_work's
+    # predictor noise
+    routers = {}
+    for name, router in default_routers().items():
+        got = {}
+        routers[name] = simulate_fleet_fast(router, SRPTPolicy(b_max=16), 1.6,
+                                            4, ln, ht, launch_out=got,
+                                            **fleet_kw)
+        if got:
+            s6[f"routers {name}"] = got
+    noise = {}
+    for sg in [0.0, 0.5, 1.0, 2.0]:
+        got = {}
+        noise[sg] = simulate_fleet_fast(
+            LeastWorkRouter(predictor=LogNormalNoisePredictor(sg)),
+            SRPTPolicy(b_max=16), 1.6, 4, ln, ht, launch_out=got,
+            **fleet_kw)["mean_wait"]
+        s6[f"least_work sigma={sg}"] = got
+    # (d) the (lambda, sigma) plane: SRPT as one S5 launch of 10 lanes,
+    # multi-bin and WAIT a cell at a time
+    s5_before = K.LAUNCHES["srpt_scan"]
+    s5 = {}
+    t_noise = time.perf_counter()
+    grids = {"srpt_b16": sweep_noise(
+        noise_factory(lambda p: SRPTPolicy(b_max=16, predictor=p)),
+        noise_lams, sigmas, ln, ht, num_requests=NOISE_N, seed=NOISE_SEED,
+        device=dev, launch_out=s5)["mean_wait"]}
+    t_noise = time.perf_counter() - t_noise
+    assert K.LAUNCHES["srpt_scan"] == s5_before + 1, "SRPT cells not one launch"
+    for name, make in (("multibin4", lambda p: MultiBinPolicy(
+            num_bins=4, predictor=p)),
+            ("wait_k16", lambda p: WaitPolicy(k=16, predictor=p))):
+        grids[name] = sweep_noise(noise_factory(make), noise_lams, sigmas, ln,
+                                  ht, num_requests=NOISE_N, seed=NOISE_SEED,
+                                  device=dev)["mean_wait"]
+    # (e) crash faults on a least_work fleet, masked S6
+    crash = {}
+    for mtbf, mttr in crash_cells:
+        got = {}
+        crash[mtbf, mttr] = simulate_fleet_faulty(
+            "least_work", DynamicPolicy(16), 4.0, 3, ln, lat5,
+            CrashRepair(mtbf=mtbf, mttr=mttr), num_requests=FAULT_N,
+            seed=FAULT_SEED, fast=True, device=dev, launch_out=got)
+        s6[f"crash {mtbf:g}/{mttr:g}"] = got
+    torch.cuda.synchronize()
+    main_wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    assert launches["backlog_scan"] == len(s6) == 14, (launches, sorted(s6))
+    log(f"fleet simulators: main path {main_wall:.2f} s wall (the SRPT noise "
+        f"plane {t_noise:.2f} s), launches {launches}")
+
+    # the relations, each figure beside the reference's CPU record
+    log(f"(a) jsq + dynamic b8, uniform, lambda 0.8, {FLEET_N} requests: mean "
+        f"wait by R " + ", ".join(
+            f"R={R} {w:.3f} (ref {r5['scaling_mean_wait'][str(R)]:.3f})"
+            for R, w in zip([1, 2, 4, 8], scal)))
+    assert (np.diff(scal) < 0).all(), f"delay must fall with R: {scal}"
+    single = single_from_batch(lat5)
+    es, es2 = single.moments(uni, None)
+    floor = mgr_whitt_wait(0.25, 3, es, es2)
+    qna = fleet_analytic_delay("jsq", FCFSPolicy(), 0.25, 3, uni, lat5)
+    rc = r5["jsq_fcfs_analytic_cell"]
+    log(f"(b) jsq + FCFS, lambda 0.25, R=3: sim {fcfs_sim:.3f} (ref "
+        f"{rc['sim']:.3f}), QNA {qna:.3f} (ref {rc['qna_approx']:.3f}), "
+        f"pooled M/G/R floor {floor:.3f} (ref {rc['mgr_pooled_floor']:.3f})")
+    assert floor < fcfs_sim
+    rw = {k: v["mean_wait"] for k, v in routers.items()}
+    log(f"(c) SRPT b16 replicas, lognormal(7, 0.7), lambda 1.6, R=4: " +
+        ", ".join(f"{k} {v:.4f} (ref {r5['router_mean_wait_ht'][k]:.4f})"
+                  for k, v in rw.items()))
+    assert rw["least_work"] < min(v for k, v in rw.items()
+                                  if k != "least_work"), rw
+    log("    least_work with lognormal_noise(sigma): " + ", ".join(
+        f"{sg} {w:.4f} (ref {rv:.4f})" for (sg, w), rv in zip(
+            noise.items(), r5["least_work_noise"]["mean_wait"])))
+    assert noise[0.0] == rw["least_work"], (noise[0.0], rw["least_work"])
+    ref_n = re.search(r"(\d+) requests", r4["workload"]).group(1)
+    for name, g in grids.items():
+        ref = r4[f"{name}_mean_wait"]
+        for li, lam in enumerate(noise_lams):
+            log(f"(d) {name} lambda {lam}: mean wait by sigma {sigmas}: "
+                f"{[round(float(x), 3) for x in g[li]]} (ref at {ref_n} "
+                f"requests: "
+                f"{[round(x, 3) for x in ref[li]]})")
+    for (mtbf, mttr), res in crash.items():
+        assert (res["n_served"] + res["shed"] + res["failed"]
+                + res["unserved"] == res["n_arrived"]), (mtbf, mttr)
+        env = breakdown_wait(ln, lat5, 4.0, mtbf, mttr, R=3,
+                             policy=DynamicPolicy(16))
+        ref = next(c for c in r6["crash_grid"] if c["mtbf"] == mtbf)
+        log(f"(e) crash mtbf {mtbf:g} mttr {mttr:g}: mean wait "
+            f"{res['mean_wait']:.4f} (ref {ref['mean_wait']:.4f}), p99 "
+            f"{res['p99_wait']:.4f}, retries {res['retries']} (ref "
+            f"{ref['retries']}), failed {res['failed']}, served "
+            f"{res['n_served']}/{res['n_arrived']}; breakdown_wait envelope "
+            f"{env['wait']:.4f} (ref {ref['envelope_wait']:.4f})")
+    log(f"reference record sizes: {r4['workload']}; {r5['workload']}; "
+        f"{r6['workload']}")
+
+    # equality checks, outside the counted path
+    for label in ("scaling R=4", "routers jsq", "routers least_work"):
+        if label.startswith("scaling"):
+            ora = route_oracle("jsq", DynamicPolicy(b_max=8), 0.8, 4, uni,
+                               lat5, num_requests=FLEET_N, seed=FLEET_SEED)
+            fast = simulate_fleet_fast("jsq", DynamicPolicy(b_max=8), 0.8, 4,
+                                       uni, lat5, **fleet_kw)
+            assert fast["mean_wait"] == scal[2]
+        else:
+            name = label.split()[1]
+            ora = route_oracle(name, SRPTPolicy(b_max=16), 1.6, 4, ln, ht,
+                               num_requests=FLEET_N, seed=FLEET_SEED)
+            fast = routers[name]
+        assert np.array_equal(ora["replica_of"], fast["replica_of"]), label
+        for a, b in zip(ora["per_replica"], fast["per_replica"]):
+            assert np.array_equal(a["waits"], b["waits"]), label
+        assert ora["mean_wait"] == fast["mean_wait"], label
+        log(f"oracle check {label}: the route_oracle's split and every "
+            f"replica's waits equal the card's")
+    for name, make in (("srpt_b16", lambda: SRPTPolicy(b_max=16)),
+                       ("multibin4", lambda: MultiBinPolicy(num_bins=4))):
+        for li, lam in enumerate(noise_lams):
+            ref = simulate_policy_fast(make(), lam, ln, ht,
+                                       num_requests=NOISE_N, seed=NOISE_SEED,
+                                       device=dev)["mean_wait"]
+            assert grids[name][li, 0] == ref, (name, lam)
+    log("(d) the sigma = 0 columns equal simulate_policy_fast with the "
+        "oracle policy exactly (srpt_b16, multibin4)")
+    (ref_s, ref_f), plain_ms = wall_ms(lambda: srpt_scan_reference(
+        *s5["args"]))
+    starts, first = s5["out"]
+    assert torch.equal(starts, ref_s) and torch.equal(first, ref_f), \
+        "S5 (sweep_noise) differs from its plain version"
+    ms = event_ms(lambda: srpt_scan(*s5["args"]))
+    n, lanes = starts.shape
+    log(f"S5 srpt_scan, sweep_noise's one launch of {lanes} lanes x {n}: "
+        f"{ms:.3f} ms by CUDA events ({1e6 * ms / (n * lanes):.1f} ns a "
+        f"lane-request), all lanes equal the plain version's at full length "
+        f"(plain {plain_ms:.1f} ms)")
+    noise_s5 = {"lanes": lanes, "n": n, "ms": ms, "plain_ms": plain_ms}
+    return launches, check_backlog_launches(s6, dev), noise_s5
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -1211,7 +1546,8 @@ def main() -> int:
     log(f"build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, parallel)")
     for name in ("flash_attention", "ragged_decode_attention", "batch_scan",
-                 "impatience_scan", "multibin_scan", "wait_scan", "srpt_scan"):
+                 "impatience_scan", "multibin_scan", "wait_scan", "srpt_scan",
+                 "backlog_scan"):
         for line in ptxas_report(K.build_log(name)):
             log(f"ptxas {name}: {line}")
 
@@ -1240,6 +1576,14 @@ def main() -> int:
     log(f"phase 4 (serving schedule) took {time.perf_counter() - t0:.1f} s")
     cal = engine.calibration_log()          # phase 4's measurements (M4)
     paths["continuous"] = serve_cont(engine, reqs)
+    from repro_torch.core.traffic import MMPPTraffic
+    fleet_reqs = make_request_stream(
+        32, 4.0, ClippedLogNormal(np.log(96.0), 0.8, 512), vocab=cfg.vocab_size,
+        prompt_len_range=(16, 257), seed=0,
+        traffic=MMPPTraffic(rates=(0.5, 2.0), mean_dwell=(200.0, 100.0)))
+    t0 = time.perf_counter()
+    paths["fleet serving"] = serve_fleet(engine, fleet_reqs)
+    log(f"phase 8a (fleet serving) took {time.perf_counter() - t0:.1f} s")
     del engine
     torch.cuda.empty_cache()
     paths["launcher"] = serve_launcher(dev)
@@ -1247,11 +1591,18 @@ def main() -> int:
     paths["simulators"], sim_kernels = run_simulators(dev, cal)
     log(f"phase 7 (simulators) took {time.perf_counter() - t0:.1f} s")
     kernels += sim_kernels
+    t0 = time.perf_counter()
+    paths["fleet simulators"], s6, noise_s5 = run_fleet_sims(dev)
+    log(f"phase 8b (fleet simulators) took {time.perf_counter() - t0:.1f} s")
+    kernels.append(s6)
+    next(k for k in kernels if k["name"] == "srpt_scan")["sweep_noise"] = \
+        noise_s5
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
         assert k["launches"] > 0, f"{k['name']} never ran on a path"
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

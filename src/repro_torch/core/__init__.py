@@ -10,5 +10,14 @@
 #                  and the multi-bin, WAIT and SRPT envelopes
 #   policies       every serving discipline, defined once for every layer
 #   simulate       the NumPy event-loop oracle validating every formula (paper SV)
-#   fastsim        the simulators on the card: kernels S1-S5
+#   fastsim        the simulators on the card: kernels S1-S5, and the fleet's
+#                  backlog routing on kernel S6
+#   predictors     length predictors (oracle / noise models / learned head /
+#                  prompt features) driving SRPT ordering, multi-bin routing
+#                  and least_work fleet dispatch
+#   traffic        modulated (non-stationary) arrival processes as time warps
+#   faults         replica crash / slowdown / drop models, masked routing and
+#                  the fault-injected fleet simulation
+#   fleet          routing across parallel batched replicas (router registry,
+#                  M/G/R transfer, QNA split approximation)
 #   control        adaptive control plane wiring analytics into the engine

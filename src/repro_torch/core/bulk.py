@@ -18,9 +18,11 @@ copy of the part of ``repro.core.bulk`` the control plane reaches.
 * WAIT threshold admission (Dai et al. 2025) and SRPT-like
   shortest-first batching: holding + clearing and size-interval
   envelopes.
+* Server breakdowns (``breakdown_wait``): M/G/1 with interruptions, the
+  analytic transfer for the crash fault model.
 
-The tandem, breakdown and session forms wait for the layers they model
-(ROADMAP.md M7).
+The tandem and session forms wait for the layers they model (ROADMAP.md
+M7d, M7c).
 """
 
 from __future__ import annotations
@@ -520,3 +522,59 @@ def srpt_bound(dist: TokenDistribution, lat: BatchLatencyModel, lam: float,
         "edges": [float(e) for e in edges],
         "stable": lam * alpha_top < 1.0,
     }
+
+
+# ----------------------------------------------------------------------------
+# Server breakdowns (beyond paper; M/G/1 with interruptions)
+# ----------------------------------------------------------------------------
+
+def breakdown_wait(dist: TokenDistribution, lat, lam: float,
+                   mtbf: float, mttr: float, R: int = 1,
+                   policy=None) -> dict:
+    """Mean queueing delay on a breaking server — the analytic transfer
+    for the ``crash`` fault model (:mod:`repro_torch.core.faults`) under
+    preemptive-resume semantics (``lose_work=False``) on a random-split
+    fleet of R replicas (each replica = the single-server model at λ/R,
+    the superposition argument).
+
+    ``policy=None`` (FCFS): the classic M/G/1-with-breakdowns
+    completion-time decomposition (Gaver 1962).  With exponential
+    up-times (rate ξ = 1/mtbf) and exponential repairs (mean r = mttr),
+    a job of service S has completion time C = S + sum of repairs begun
+    during it:
+
+        E[C]  = (1 + ξ r) E[S] = E[S] / a,      a = mtbf / (mtbf + mttr)
+        E[C²] = (1 + ξ r)² E[S²] + 2 ξ r² E[S]
+
+    and the wait is Pollaczek–Khinchine on the C-moments plus the
+    residual repair an arrival finds in progress (PASTA, memoryless):
+
+        E[W] = λ E[C²] / (2 (1 − λ E[C])) + (1 − a) r
+
+    ``policy`` set (a bulk/batched BatchPolicy): the **envelope arm** —
+    the availability-discounted effective-λ transfer
+    (:func:`repro_torch.core.faults.effective_lambda`): the policy's own
+    ``analytic_delay`` at λ/(R·a), time-dilated back by 1/a, plus the
+    same residual-repair term."""
+    assert mtbf > 0 and mttr > 0 and R >= 1
+    a = mtbf / (mtbf + mttr)
+    xi, r = 1.0 / mtbf, mttr
+    lam_r = lam / R
+    out = {"availability": a, "lam_eff": lam_r / a, "R": R}
+    if policy is None:
+        from repro_torch.core.policies import single_from_batch
+        single = lat if not isinstance(lat, BatchLatencyModel) \
+            else single_from_batch(lat)
+        es, es2 = single.moments(dist, None)
+        ec = (1.0 + xi * r) * es
+        ec2 = (1.0 + xi * r) ** 2 * es2 + 2.0 * xi * r * r * es
+        out.update(kind="exact", stable=lam_r * ec < 1.0,
+                   wait=float(pollaczek_khinchine(lam_r, ec, ec2)
+                              + (1.0 - a) * r))
+        return out
+    base = policy.analytic_delay(lam_r / a, dist, lat)
+    out.update(kind="envelope",
+               stable=base is not None and np.isfinite(base),
+               wait=None if base is None
+               else float(base / a + (1.0 - a) * r))
+    return out

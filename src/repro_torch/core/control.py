@@ -1,5 +1,5 @@
 """Adaptive control plane: a copy of ``repro.core.control``'s
-``AdaptiveController`` for one replica with no KV budget.
+``AdaptiveController`` with no KV budget.
 
 ``AdaptiveController`` watches the live request stream (arrival times,
 completed output-token counts), maintains an empirical output-token
@@ -18,16 +18,24 @@ configuration from the paper's models:
   * ``bin_edges`` — load-dependent multi-bin boundaries
                  (:func:`repro_torch.core.bulk.optimize_bin_edges`) whenever
                  the recommended policy is 'multibin'
-  * ``predictor`` — the length predictor that should feed 'multibin'
-                 ('oracle', the only one ported)
+  * ``predictor`` — which length predictor
+                 (:mod:`repro_torch.core.predictors` registry name) should
+                 feed the recommended policy's length-based routing; set
+                 whenever the policy or router consumes predicted lengths
+                 ('multibin', 'least_work'), None otherwise
+  * ``replicas`` / ``router`` — the fleet axis
+                 (:mod:`repro_torch.core.fleet`): the smallest replica
+                 count keeping per-replica batched utilization under
+                 ``replica_target_util`` (``fleet.recommend_replicas``),
+                 and the router to put in front of it — 'least_work' for
+                 heavy tails, 'jsq' otherwise; enabled by
+                 ``max_replicas > 1``, and discounted by the availability
+                 learned from ``observe_episode``
 
 The serving loop polls ``recommendation()`` between batches; hysteresis
-avoids thrashing.  The fleet axis (``max_replicas > 1``), the KV-memory
-axis (``memory``), learned length predictors, fault episodes and the
-closed-loop ``simulate_controlled`` need the fleet, memory, predictor and
-simulator layers, which are not ported yet (ROADMAP.md M6, M7): those
-arguments raise ``NotImplementedError``, and a recommendation keeps the
-reference's one-replica values (``replicas=1``, ``availability=1.0``).
+avoids thrashing.  The KV-memory axis (``memory``) is not ported yet
+(ROADMAP.md M7d) and raises ``NotImplementedError``; the closed-loop
+``simulate_controlled`` is M7e.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from collections import deque
 from typing import Optional
 
 from repro_torch.core.bulk import optimal_fixed_batch, optimize_bin_edges
+from repro_torch.core.policies import not_ported
 from repro_torch.core.distributions import EmpiricalTokens, TokenDistribution
 from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
 from repro_torch.core.policy_opt import (
@@ -77,16 +86,16 @@ class AdaptiveController:
                  num_bins: int = 4, length_predictor: str = "oracle",
                  max_replicas: int = 1, replica_target_util: float = 0.7,
                  memory=None):
-        if length_predictor != "oracle":
-            raise NotImplementedError(
-                f"length predictor {length_predictor!r}: only 'oracle' is "
-                "ported (ROADMAP.md M7)")
-        if max_replicas != 1:
-            raise NotImplementedError(
-                "max_replicas > 1 needs the fleet layer (ROADMAP.md M7)")
         if memory is not None:
-            raise NotImplementedError(
-                "a KV-memory budget needs the memory layer (ROADMAP.md M7)")
+            not_ported("the controller's KV-memory axis", "M7d (KV memory)")
+        # which length predictor backs length-based routing; validated
+        # against the registry so recommendations stay actionable
+        from repro_torch.core.predictors import PREDICTORS
+        if length_predictor not in PREDICTORS:
+            raise ValueError(f"length predictor {length_predictor!r} not in "
+                             f"{sorted(PREDICTORS)}")
+        if max_replicas < 1:
+            raise ValueError(f"max_replicas must be >= 1, got {max_replicas}")
         if not 0.0 < replica_target_util < 1.0:
             raise ValueError(f"replica_target_util must be in (0, 1), got "
                              f"{replica_target_util}")
@@ -101,9 +110,11 @@ class AdaptiveController:
         self.b_search = b_search
         self.num_bins = num_bins
         self.length_predictor = length_predictor
+        self.max_replicas = int(max_replicas)
         self.replica_target_util = float(replica_target_util)
         self._tokens = deque(maxlen=window)
         self._arrivals = deque(maxlen=window)
+        self._episodes = deque(maxlen=window)   # (up_seconds, down_seconds)
         self._last: Optional[Recommendation] = None
 
     # ---------------- stream ingestion ----------------
@@ -113,16 +124,33 @@ class AdaptiveController:
     def observe_completion(self, output_tokens: int):
         self._tokens.append(int(output_tokens))
 
+    def observe_episode(self, up_seconds: float, down_seconds: float):
+        """One replica failure/repair renewal cycle: ``up_seconds`` of
+        service followed by ``down_seconds`` of repair."""
+        self._episodes.append((float(up_seconds), float(down_seconds)))
+
+    def availability_hat(self) -> float:
+        """Empirical availability MTBF/(MTBF+MTTR); 1.0 before any
+        observed failure (the fault-free prior)."""
+        if not self._episodes:
+            return 1.0
+        up = sum(u for u, _ in self._episodes)
+        down = sum(d for _, d in self._episodes)
+        return up / max(up + down, 1e-12)
+
     def shed_probability(self, lam: float, dist) -> float:
-        """Admission drop probability keeping the one replica under
+        """Admission drop probability keeping the AVAILABLE fleet under
         ``replica_target_util``: per-request marginal work is the elastic
-        envelope slope alpha = k1 + k3*E[N], so
-        p = max(0, 1 - target/(lam*alpha))."""
+        envelope slope alpha = k1 + k3*E[N] (the same capacity law as
+        ``fleet.recommend_replicas``), each of the ``max_replicas``
+        replicas contributes ``availability_hat()`` of a server, so shed
+        p = max(0, 1 - a*R*target/(lam*alpha))."""
         if lam <= 0 or dist is None:
             return 0.0
         alpha = self.batch_lat.k1 + self.batch_lat.k3 * dist.mean()
-        return float(max(0.0, 1.0 - self.replica_target_util
-                         / max(lam * alpha, 1e-12)))
+        cap = (self.availability_hat() * self.max_replicas
+               * self.replica_target_util)
+        return float(max(0.0, 1.0 - cap / max(lam * alpha, 1e-12)))
 
     def lam_hat(self) -> float:
         if len(self._arrivals) < 2:
@@ -168,15 +196,38 @@ class AdaptiveController:
                 # tail: route by predicted length instead (bin_edges below)
                 policy = "multibin"
 
+        # fleet axis (repro_torch.core.fleet): smallest replica count
+        # keeping per-replica batched utilization under target; a heavy
+        # tail wants length-aware dispatch (predicted-work balancing), a
+        # light tail only needs burst balancing
+        replicas, router = 1, None
+        avail = self.availability_hat()
+        if self.max_replicas > 1:
+            from repro_torch.core.fleet import ROUTERS, recommend_replicas
+            # availability-discounted effective-lambda transfer
+            # (faults.effective_lambda): a replica that is up a fraction
+            # `avail` of the time sizes like load lam/avail
+            replicas = recommend_replicas(
+                lam / max(avail, 1e-12), clipped, self.batch_lat,
+                target_util=self.replica_target_util,
+                max_replicas=self.max_replicas)
+            if replicas > 1:
+                router = "least_work" if heavy else "jsq"
+                assert router in ROUTERS, router
+
         rec = Recommendation(
             n_max=n_max, b_max=b_max, policy=policy, heavy_tailed=heavy,
-            lam_hat=lam, shed_prob=self.shed_probability(lam, clipped),
+            lam_hat=lam, replicas=replicas, router=router,
+            availability=avail,
+            shed_prob=self.shed_probability(lam, clipped),
             details={"scv": scv, "objective": ch.objective,
                      "expected_wait": ch.wait, "loss_frac": ch.loss_frac,
                      "b_mem": None, "memory_binding": False},
-            # multibin routes on predicted length: name the predictor that
-            # should feed it
-            predictor=self.length_predictor if policy == "multibin" else None)
+            # multibin and least_work route on predicted length: name the
+            # predictor that should feed them
+            predictor=(self.length_predictor
+                       if policy == "multibin" or router == "least_work"
+                       else None))
         # hysteresis: ignore <10% n_max moves (bin_edges revert alongside,
         # so the recommendation stays internally consistent)
         if (not force and self._last is not None

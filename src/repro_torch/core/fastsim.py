@@ -22,11 +22,23 @@ oracle, as in the reference.
     one step per batch: kernels S3 (``kernels/multibin_scan``), S4
     (``kernels/wait_scan``) and S5 (``kernels/srpt_scan``), one thread per
     lane.  The host supplies each request's bin (S3) or the rank order of a
-    stable argsort of the lengths (S5).
+    stable argsort of the lengths (S5), from the workload's PREDICTED
+    column where it has one; the service law always sees the true tokens.
 
 ``sweep(policies, lam_grid, ...)`` stacks every (λ, policy) cell whose
 policy rides the batching scan as a lane of ONE S1 launch; the other
 policies dispatch through ``KERNELS`` per cell, as the reference does.
+``sweep_noise`` sweeps the (arrival rate, prediction noise) plane: when
+every policy rides SRPT, all its cells are lanes of ONE S5 launch.
+
+The fleet layer (:mod:`repro_torch.core.fleet`) rides the same kernels:
+the state-dependent routers' backlog recursion is kernel S6
+(``kernels/backlog_scan``, ``backlog_route`` and its availability-masked
+twin ``masked_backlog_route``), and ``simulate_fleet_fast`` is the fleet
+twin of the oracle's ``fleet.route_oracle``.  Fault traces and traffic
+models wrap the unchanged kernels on the host: the traffic warp before a
+kernel sees the workload, the fault trace's operational-time transform
+around it (``simulate._with_fault_trace``).
 
 Every entry point takes ``device``: None runs on the card and raises
 without one; ``"cpu"`` runs the kernels' plain PyTorch versions (the CPU
@@ -36,8 +48,9 @@ samples its workload through the policy's ``sample_workload``, the same
 rng call order as the oracle and the reference, so equal seeds give equal
 trajectories, bit for bit.
 
-Not ported yet: ``sweep_noise`` (ROADMAP.md M7a), the tandem loop, fault
-traces, traffic, sessions and memory budgets (M7); ``lane_scan=`` (M9).
+Not ported yet: sessions (ROADMAP.md M7c), memory budgets and the tandem
+loop (M7d), ``run_controlled`` (M7e), ``lane_scan=`` and ``srpt_loop=``
+(M9).
 """
 
 from __future__ import annotations
@@ -51,10 +64,12 @@ from repro_torch.core.distributions import TokenDistribution
 from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
 from repro_torch.core.policies import (
     BatchPolicy, DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy,
-    policy_from_spec, single_from_batch)
+    not_ported, policy_from_spec, single_from_batch)
 from repro_torch.core.simulate import (
-    _warm, check_no_m7_layers, simulate_fixed_batching, simulate_policy)
+    _warm, _with_fault_trace, check_no_m7_layers, simulate_fixed_batching,
+    simulate_policy)
 from repro_torch.kernels import resolve_device
+from repro_torch.kernels.backlog_scan import backlog_scan
 from repro_torch.kernels.batch_scan import NO_CAP, batch_scan
 from repro_torch.kernels.impatience_scan import impatience_scan
 from repro_torch.kernels.multibin_scan import multibin_scan
@@ -106,19 +121,39 @@ def simulate_policy_fast(policy: BatchPolicy, lam: float,
     none (``fast_kernel=None``).  ``workload`` overrides the policy's own
     sampling, exactly like the oracle's parameter.  A ``launch_out`` dict
     is filled with the one kernel launch's inputs and outputs, where the
-    policy's path launches a scan kernel (see :func:`_launch`)."""
-    check_no_m7_layers(fault_trace=fault_trace, traffic=traffic,
-                       sessions=sessions, memory=memory)
+    policy's path launches a scan kernel (see :func:`_launch`).
+
+    ``fault_trace`` injects failure epochs exactly like the oracle: the
+    transform arithmetic is the SAME host code
+    (``simulate._with_fault_trace``), only the inner fault-free run is the
+    kernel.  ``traffic`` warps the arrivals on the host before the kernel
+    sees the workload; a null model never warps."""
+    check_no_m7_layers(sessions=sessions, memory=memory)
     device = resolve_device(device)
     if policy.uses_single_latency and isinstance(lat, BatchLatencyModel):
         lat = single_from_batch(lat)
+    if traffic is not None:
+        from repro_torch.core.traffic import traffic_from_spec, warp_workload
+        tm = traffic_from_spec(traffic)
+        if not tm.is_null:
+            wl = workload if workload is not None else \
+                policy.sample_workload(lam, dist, num_requests, seed)
+            workload = warp_workload(wl, tm, seed)
     if policy.fast_kernel is None:
         return simulate_policy(policy, lam, dist, lat,
                                num_requests=num_requests, seed=seed,
-                               workload=workload)
-    return KERNELS[policy.fast_kernel](policy, lam, dist, lat, num_requests,
-                                       seed, workload=workload, device=device,
-                                       launch_out=launch_out)
+                               workload=workload, fault_trace=fault_trace)
+
+    def run(wl):
+        return KERNELS[policy.fast_kernel](
+            policy, lam, dist, lat, num_requests, seed, workload=wl,
+            device=device, launch_out=launch_out)
+
+    if fault_trace is not None and not fault_trace.empty:
+        wl = workload if workload is not None else \
+            policy.sample_workload(lam, dist, num_requests, seed)
+        return _with_fault_trace(run, wl, fault_trace)
+    return run(workload)
 
 
 # ----------------------------------------------------------------------------
@@ -302,7 +337,8 @@ def _multibin_kernel(policy, lam, dist, lat, num_requests, seed,
                      workload=None, *, device, launch_out=None) -> dict:
     wl, arr, tok = _event_lane(policy, lam, dist, num_requests, seed,
                                workload, device)
-    bins = _i64(policy.bin_of(wl.tokens, dist), device)[:, None]
+    # bins key off the predicted lengths; the kernel's padding the true ones
+    bins = _i64(policy.bin_of(wl.predicted_or_true, dist), device)[:, None]
     out = _launch(launch_out, "multibin_scan", multibin_scan, arr, tok, bins,
                   policy.num_bins, _i64([_cap(policy.b_max)], device),
                   *_law(lat))
@@ -327,9 +363,10 @@ def _srpt_kernel(policy, lam, dist, lat, num_requests, seed, workload=None,
     wl, arr, tok = _event_lane(policy, lam, dist, num_requests, seed,
                                workload, device)
     # the host's share (the reference's _srpt_rank_arrays): rank order of
-    # (length, arrival index) by a stable argsort; the kernel builds its
-    # segment tree over the arrivals itself
-    order = _i64(np.argsort(wl.tokens, kind="stable"), device)[:, None]
+    # (predicted length, arrival index) by a stable argsort; the kernel
+    # builds its segment tree over the arrivals itself
+    order = _i64(np.argsort(wl.predicted_or_true, kind="stable"),
+                 device)[:, None]
     out = _launch(launch_out, "srpt_scan", srpt_scan, arr, tok, order,
                   _i64([_cap(policy.b_max)], device), *_law(lat))
     return _event_stats(out, wl.arrivals)
@@ -420,3 +457,130 @@ def simulate_policy_sweep_fast(lam_grid, dist, lat, policies: dict,
     """Drop-in fast twin of simulate_policy_sweep (legacy argument order)."""
     return sweep(policies, lam_grid, dist, lat,
                  num_requests=num_requests, seed=seed, device=device)
+
+
+# ----------------------------------------------------------------------------
+# Noise-robustness sweep over the (arrival rate, prediction error) plane
+# ----------------------------------------------------------------------------
+
+def sweep_noise(policy_factory: Callable[[float], BatchPolicy], lam_grid,
+                sigma_grid, dist, lat, num_requests: int = 50_000,
+                seed: int = 0, srpt_loop: Optional[Callable] = None,
+                device=None, launch_out: Optional[dict] = None) -> dict:
+    """Mean wait over the (λ, σ) grid: how a length-aware policy's win
+    erodes as its predictor degrades.
+
+    ``policy_factory(sigma)`` builds the policy at prediction-noise level
+    ``sigma`` (typically with a
+    :class:`repro_torch.core.predictors.LogNormalNoisePredictor` of that
+    sigma; sigma=0 reproduces the oracle).  The workload stream per λ is
+    identical across the σ row — the predictor rng is salted away from the
+    workload rng — so the columns differ ONLY by prediction quality.
+
+    When every produced policy rides the ``srpt`` kernel, all (λ, σ) cells
+    are lanes of ONE launch of kernel S5 (the reference's
+    ``_srpt_loop_vmapped``); a ``launch_out`` dict is then filled with
+    that launch's inputs and outputs (see :func:`_launch`) and with
+    ``cells``, the (λ index, σ index) of each lane.  Otherwise each cell
+    dispatches through :func:`simulate_policy_fast` on its own.
+    ``srpt_loop`` (the reference's multi-device lane executor) is not
+    ported yet (ROADMAP.md M9).
+
+    Returns ``{"mean_wait": [len(lam_grid), len(sigma_grid)], "lams",
+    "sigmas"}``."""
+    if srpt_loop is not None:
+        not_ported("sweep_noise(srpt_loop=): lanes over a device mesh", "M9")
+    device = resolve_device(device)
+    lam_grid = [float(l) for l in lam_grid]
+    sigma_grid = [float(s) for s in sigma_grid]
+    pols = [policy_factory(s) for s in sigma_grid]
+    out = np.empty((len(lam_grid), len(sigma_grid)))
+    if all(p.fast_kernel == "srpt" for p in pols):
+        b_maxes = {p.b_max for p in pols}
+        if len(b_maxes) != 1:
+            raise ValueError(f"srpt lanes must share one b_max, got "
+                             f"{sorted(b_maxes, key=str)}")
+        cells, wls = [], []
+        for li, lam in enumerate(lam_grid):
+            for si, pol in enumerate(pols):
+                cells.append((li, si))
+                wls.append(pol.sample_workload(lam, dist, num_requests, seed))
+        arr = np.stack([wl.arrivals for wl in wls], axis=1)
+        tok = np.stack([wl.tokens for wl in wls], axis=1)
+        order = np.stack([np.argsort(wl.predicted_or_true, kind="stable")
+                          for wl in wls], axis=1)
+        b_max = _i64([_cap(b_maxes.pop())] * len(cells), device)
+        starts, first = _launch(launch_out, "srpt_scan", srpt_scan,
+                                _f64(arr, device), _f64(tok, device),
+                                _i64(order, device), b_max, *_law(lat))
+        if launch_out is not None:
+            launch_out["cells"] = cells
+        starts, first = starts.cpu().numpy(), first.cpu().numpy()
+        for c, (li, si) in enumerate(cells):
+            out[li, si] = _batch_lane_stats(starts[:, c], first[:, c],
+                                            arr[:, c])["mean_wait"]
+    else:
+        for li, lam in enumerate(lam_grid):
+            for si, pol in enumerate(pols):
+                r = simulate_policy_fast(pol, lam, dist, lat,
+                                         num_requests=num_requests,
+                                         seed=seed, device=device)
+                out[li, si] = r["mean_wait"]
+    return {"mean_wait": out, "lams": np.asarray(lam_grid),
+            "sigmas": np.asarray(sigma_grid)}
+
+
+# ----------------------------------------------------------------------------
+# Fleet layer: backlog routing (kernel S6), then the kernels per replica
+# ----------------------------------------------------------------------------
+
+def backlog_route(arrivals, work, R: int, device=None,
+                  launch_out: Optional[dict] = None) -> np.ndarray:
+    """Kernel twin of ``fleet._backlog_assign_np`` (replica id per
+    request), one lane of kernel S6.  A ``launch_out`` dict is filled with
+    the launch's inputs and output (see :func:`_launch`)."""
+    device = resolve_device(device)
+    arr = _f64(arrivals, device)[:, None]
+    w = _f64(work, device)[:, None]
+    ids = _launch(launch_out, "backlog_scan", backlog_scan, arr, w, int(R))
+    return ids[:, 0].cpu().numpy()
+
+
+def masked_backlog_route(arrivals, work, up, R: int, device=None,
+                         launch_out: Optional[dict] = None) -> np.ndarray:
+    """Kernel twin of ``fleet._masked_backlog_assign_np``: replica id per
+    request under an availability mask ``up`` [n, R] bool (False = down at
+    that arrival), one lane of kernel S6."""
+    device = resolve_device(device)
+    arr = _f64(arrivals, device)[:, None]
+    w = _f64(work, device)[:, None]
+    mask = torch.as_tensor(np.asarray(up, bool).astype(np.uint8),
+                           device=device)[:, :, None]
+    ids = _launch(launch_out, "backlog_scan", backlog_scan, arr, w, int(R),
+                  mask)
+    return ids[:, 0].cpu().numpy()
+
+
+def simulate_fleet_fast(router, policy: BatchPolicy, lam: float, R: int,
+                        dist: Optional[TokenDistribution], lat,
+                        num_requests: int = 100_000, seed: int = 0,
+                        traffic=None, sessions=None, memory=None,
+                        device=None, launch_out: Optional[dict] = None) -> dict:
+    """Fast twin of :func:`repro_torch.core.fleet.route_oracle`: the
+    router's split is identical (state-dependent assignment on kernel S6),
+    and each replica's sub-workload runs through the policy's
+    single-server kernel (the oracle when it has none).  ``traffic``
+    modulates the arrival stream before routing, exactly like the oracle
+    twin's parameter.  A ``launch_out`` dict is filled with the routing
+    launch (see :func:`backlog_route`).  Sessions and memory budgets are
+    not ported yet and raise (ROADMAP.md M7c, M7d)."""
+    from repro_torch.core.fleet import router_from_spec, run_fleet
+    check_no_m7_layers(sessions=sessions, memory=memory)
+    device = resolve_device(device)
+    router = router_from_spec(router)
+    fw = router.fleet_workload(policy, lam, dist, lat, num_requests, seed,
+                               R, fast=True, traffic=traffic, device=device,
+                               launch_out=launch_out)
+    return run_fleet(fw, policy, lat, dist,
+                     lambda pol, wl: simulate_policy_fast(
+                         pol, lam, dist, lat, workload=wl, device=device))

@@ -1,6 +1,6 @@
 """M/G/1 FCFS queueing delay with max-token clipping (paper §III-A, Eqs
 1-5): a copy of ``repro.core.mg1`` without the session feedback form
-(``mg1_feedback_wait`` waits for the sessions port, ROADMAP.md M7).
+(``mg1_feedback_wait`` waits for the sessions port, ROADMAP.md M7c).
 
 The Pollaczek-Khinchine mean waiting time
 

@@ -21,11 +21,14 @@ Each discipline is defined once for every layer:
   * **analytic delay**: ``analytic_delay`` exposes the paper's closed
     forms and bounds (Pollaczek-Khinchine, Inoue Eq 16, M/D^b/1 Eq 25).
 
+Length-aware membership (SRPT's ordering, multi-bin's routing) keys off
+the workload's PREDICTED-length column (:mod:`repro_torch.core.predictors`),
+while clipping and the service law keep the true lengths.
+
 Consumers dispatch structurally: ``simulate_policy`` on ``oracle_kind``,
 ``fastsim`` on ``fast_kernel``.  Not ported yet, and raising
-``NotImplementedError``: length predictors (ROADMAP.md M7; multi-bin and
-SRPT run on oracle ordering, the true lengths after clipping) and the
-tandem ``stage_split`` (the memory part of M7).
+``NotImplementedError``: the tandem ``stage_split`` (ROADMAP.md M7d, KV
+memory).
 """
 
 from __future__ import annotations
@@ -46,11 +49,27 @@ from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
 @dataclasses.dataclass(frozen=True)
 class Workload:
     """Arrivals + (clipped) output-token counts, sampled in a fixed rng
-    order so every layer sees the same trajectory for equal seeds."""
+    order so every layer sees the same trajectory for equal seeds.
+
+    ``predicted`` is the predicted-length column (see
+    :mod:`repro_torch.core.predictors`): policies key membership and
+    ordering off it while clipping and the service law keep the TRUE
+    ``tokens``.  It is drawn from a salted rng stream separate from the
+    workload rng, so arrivals and tokens are bit-identical with or without
+    a predictor; None (no predictor) means "use the true lengths"."""
 
     arrivals: np.ndarray          # absolute arrival times (cumsum of expos)
     tokens: np.ndarray            # float64 output-token counts (clipped)
     inter: Optional[np.ndarray] = None   # inter-arrival times (FCFS oracle)
+    predicted: Optional[np.ndarray] = None   # predictor output (float64)
+    # session id and 1-based turn index per row: None until re-entrant
+    # sessions are ported (ROADMAP.md M7c); the routers read ``session``
+    session: Optional[np.ndarray] = None
+    turn: Optional[np.ndarray] = None
+
+    @property
+    def predicted_or_true(self) -> np.ndarray:
+        return self.tokens if self.predicted is None else self.predicted
 
 
 def single_from_batch(lat: BatchLatencyModel) -> LatencyModel:
@@ -302,6 +321,13 @@ class BatchPolicy:
       uses_single_latency  True -> expects a ``LatencyModel`` (single
                          request); drivers convert a ``BatchLatencyModel``
                          via :func:`single_from_batch`
+
+    ``predictor`` (a :class:`repro_torch.core.predictors.LengthPredictor`,
+    a registry name, or a spec dict) fills the workload's ``predicted``
+    column; None keeps the oracle behavior (predicted == true, zero extra
+    rng calls).  Length-aware policies (SRPT ordering, multi-bin routing)
+    consume the predicted column for MEMBERSHIP only; clipping and the
+    service law always use the true lengths.
     """
 
     name = "base"
@@ -311,9 +337,22 @@ class BatchPolicy:
     uses_single_latency = False
 
     def __init__(self, n_max: Optional[int] = None, predictor=None):
-        if predictor is not None:
-            not_ported("a length predictor", "M7")
         self.n_max = n_max
+        if predictor is not None:
+            from repro_torch.core.predictors import predictor_from_spec
+            predictor = predictor_from_spec(predictor)
+        self.predictor = predictor
+
+    # -------------------- prediction law --------------------
+    def predict_lengths(self, key, tokens: np.ndarray,
+                        prompts=None) -> Optional[np.ndarray]:
+        """The policy's predicted-length column for ``tokens`` (true,
+        already clipped); None when no predictor is configured (oracle
+        semantics).  ``key`` seeds the predictor's salted rng stream:
+        layers that pass the same key see the same predictions."""
+        if self.predictor is None:
+            return None
+        return self.predictor.predict(key, tokens, prompts)
 
     # -------------------- workload law --------------------
     def sample_workload(self, lam: float, dist: Optional[TokenDistribution],
@@ -326,7 +365,8 @@ class BatchPolicy:
             tokens = np.zeros(num_requests)
         if self.n_max is not None:
             tokens = np.minimum(tokens, self.n_max)
-        return Workload(arrivals=arrivals, tokens=tokens)
+        return Workload(arrivals=arrivals, tokens=tokens,
+                        predicted=self.predict_lengths(seed, tokens))
 
     def clip(self, tokens):
         return (np.minimum(tokens, self.n_max) if self.n_max is not None
@@ -334,7 +374,8 @@ class BatchPolicy:
 
     # -------------------- formation (trigger + membership) ------------
     def formation(self, arrivals: np.ndarray, tokens: np.ndarray,
-                  dist: Optional[TokenDistribution] = None):
+                  dist: Optional[TokenDistribution] = None,
+                  predicted: Optional[np.ndarray] = None):
         raise NotImplementedError
 
     def schedule_length(self, n: int) -> int:
@@ -356,7 +397,7 @@ class BatchPolicy:
         return h, np.full(len(ns), h)
 
     def stage_split(self, ns: np.ndarray, lat):
-        not_ported("the prefill/decode tandem split", "M7 (memory)")
+        not_ported("the prefill/decode tandem split", "M7d (KV memory)")
 
     # -------------------- analytics --------------------
     def analytic_delay(self, lam: float, dist: TokenDistribution,
@@ -420,9 +461,10 @@ class FCFSPolicy(BatchPolicy):
         rng = np.random.default_rng(seed)
         inter = rng.exponential(1.0 / lam, num_requests)
         tokens = self.clip(dist.sample(rng, num_requests))
-        return Workload(arrivals=np.cumsum(inter), tokens=tokens, inter=inter)
+        return Workload(arrivals=np.cumsum(inter), tokens=tokens, inter=inter,
+                        predicted=self.predict_lengths(seed, tokens))
 
-    def formation(self, arrivals, tokens, dist=None):
+    def formation(self, arrivals, tokens, dist=None, predicted=None):
         return _DynamicFormation(arrivals, b_max=1)
 
     def batch_time(self, ns, lat) -> float:
@@ -474,7 +516,7 @@ class DynamicPolicy(BatchPolicy):
             # bound for the capped system — no closed form available
             self.analytic_kind = None
 
-    def formation(self, arrivals, tokens, dist=None):
+    def formation(self, arrivals, tokens, dist=None, predicted=None):
         return _DynamicFormation(arrivals, self.b_max)
 
     def batch_time(self, ns, lat) -> float:
@@ -539,7 +581,7 @@ class FixedPolicy(BatchPolicy):
         return super().sample_workload(
             lam, dist, (num_requests // self.b) * self.b, seed)
 
-    def formation(self, arrivals, tokens, dist=None):
+    def formation(self, arrivals, tokens, dist=None, predicted=None):
         return _FixedFormation(arrivals, self.b)
 
     def schedule_length(self, n: int) -> int:
@@ -558,8 +600,7 @@ class FixedPolicy(BatchPolicy):
 @register
 class MultiBinPolicy(BatchPolicy):
     """Multi-bin batching (Guldogan et al. 2024): requests are routed to
-    bins by output length (the true length after clipping: predictors are
-    ROADMAP.md M7); within a bin, dynamic batching with
+    bins by (predicted) output length; within a bin, dynamic batching with
     padded decode; the server picks the non-empty bin whose head request
     arrived earliest.  Because bin members have similar lengths, the
     H[b, max] padding waste shrinks, buying throughput at high load.
@@ -615,8 +656,11 @@ class MultiBinPolicy(BatchPolicy):
         return np.searchsorted(self.bin_edges(dist, tokens), tokens,
                                side="left")
 
-    def formation(self, arrivals, tokens, dist=None):
-        return _MultiBinFormation(arrivals, self.bin_of(tokens, dist),
+    def formation(self, arrivals, tokens, dist=None, predicted=None):
+        # routing keys off the PREDICTED length; the service law (padded
+        # range max in batch_time) stays on the true tokens
+        key = tokens if predicted is None else predicted
+        return _MultiBinFormation(arrivals, self.bin_of(key, dist),
                                   self.num_bins, self.b_max)
 
     def batch_time(self, ns, lat) -> float:
@@ -677,7 +721,7 @@ class WaitPolicy(BatchPolicy):
             # dominates the capped system
             self.analytic_kind = None
 
-    def formation(self, arrivals, tokens, dist=None):
+    def formation(self, arrivals, tokens, dist=None, predicted=None):
         # membership is arrival-count/timer-driven: prediction-insensitive
         return _WaitFormation(arrivals, self.k, self.timeout, self.b_max)
 
@@ -703,10 +747,12 @@ class SRPTPolicy(BatchPolicy):
     queueing behind long ones AND the selected batch is length-homogeneous,
     so the ``H[b, max]`` padding waste shrinks like multi-bin batching's.
 
-    The ordering key is the predicted output length; the port has the
-    oracle only — the true sampled token count, after ``n_max`` clipping
-    (length predictors are ROADMAP.md M7).  The service law always uses
-    the true lengths.  With ``b_max=None`` every
+    The ordering key is the PREDICTED output length: the default (no
+    ``predictor``) is the oracle, the true sampled token count after
+    ``n_max`` clipping, and any :mod:`repro_torch.core.predictors`
+    instance can replace it.  The service law always uses the true
+    lengths: a mispredicted-short request still decodes to its true
+    length and pads the whole batch.  With ``b_max=None`` every
     waiting request is served, and membership degenerates to dynamic
     batching (order inside a padded batch is irrelevant) — so the
     discipline defaults to a finite cap.  No EXACT mean-delay formula is
@@ -715,7 +761,8 @@ class SRPTPolicy(BatchPolicy):
     :func:`repro_torch.core.bulk.srpt_bound` treats the shortest-first
     room as priority classes by length quantile and pads each class's
     clearing time to its own upper edge — ``analytic_kind='bound'`` under
-    oracle ordering."""
+    oracle ordering (a noisy ``predictor`` scrambles the class membership
+    the envelope assumes, so it downgrades to None)."""
 
     name = "srpt"
     fast_kernel = "srpt"
@@ -725,15 +772,23 @@ class SRPTPolicy(BatchPolicy):
                  n_max: Optional[int] = None, predictor=None):
         super().__init__(n_max, predictor)
         self.b_max = b_max
+        if predictor is not None:
+            # the envelope's class decomposition assumes true-length
+            # ordering; misprediction leaks long requests into short
+            # classes and the bound no longer dominates
+            self.analytic_kind = None
 
-    def formation(self, arrivals, tokens, dist=None):
-        return _SRPTFormation(arrivals, tokens, self.b_max)
+    def formation(self, arrivals, tokens, dist=None, predicted=None):
+        key = tokens if predicted is None else predicted
+        return _SRPTFormation(arrivals, key, self.b_max)
 
     def batch_time(self, ns, lat) -> float:
         return float(lat.batch_time(len(ns), ns.max()))
 
     def analytic_delay(self, lam, dist, lat) -> Optional[float]:
         from repro_torch.core.bulk import srpt_bound
+        if self.predictor is not None:
+            return None
         d = dist if self.n_max is None else dist.clip(self.n_max)
         return srpt_bound(d, lat, lam, self.b_max)["wait_bound"]
 

@@ -19,9 +19,11 @@ Waits are queueing delays (arrival -> service start), matching the paper.
 
 These loops are host NumPy and favour obviousness over speed: they are
 the oracle that :mod:`repro_torch.core.fastsim` (kernels S1-S5 on the
-card) is held to, trajectory for trajectory.  Fault traces, traffic
-models, sessions and KV-memory budgets raise ``NotImplementedError``
-(ROADMAP.md M7).
+card) is held to, trajectory for trajectory.  Fault traces (the
+operational-time transform of :mod:`repro_torch.core.faults`) and traffic
+models (:mod:`repro_torch.core.traffic`) wrap the loops unchanged;
+sessions and KV-memory budgets raise ``NotImplementedError`` (ROADMAP.md
+M7c, M7d).
 """
 
 from __future__ import annotations
@@ -62,12 +64,14 @@ def _warm(arr, frac=0.1):
     return np.asarray(arr[k:])
 
 
-def check_no_m7_layers(**layers):
-    """Raise for a fault trace, traffic model, session model or memory
-    budget: the layers that wrap the event loops are not ported yet."""
-    given = [name for name, v in layers.items() if v is not None]
-    if given:
-        not_ported(", ".join(given), "M7")
+def check_no_m7_layers(sessions=None, memory=None):
+    """Raise for a session model or a memory budget: those layers around
+    the event loops are not ported yet."""
+    if sessions is not None:
+        not_ported("sessions (re-entrant turns)", "M7c (sessions)")
+    if memory is not None:
+        not_ported("a KV-memory budget (the prefill/decode tandem)",
+                   "M7d (KV memory)")
 
 
 ORACLES: Dict[str, Callable] = {}
@@ -92,14 +96,61 @@ def simulate_policy(policy: BatchPolicy, lam: float,
     single-service policy is converted via ``single_from_batch``).
 
     ``workload`` overrides the policy's own sampling (``lam``,
-    ``num_requests`` and ``seed`` are then ignored)."""
-    check_no_m7_layers(fault_trace=fault_trace, traffic=traffic,
-                       sessions=sessions, memory=memory)
+    ``num_requests`` and ``seed`` are then ignored): the fleet layer
+    (:mod:`repro_torch.core.fleet`) runs each routed sub-stream through
+    the unchanged loops this way.
+
+    ``fault_trace`` (a :class:`repro_torch.core.faults.ReplicaTrace`)
+    injects failure epochs by the operational-time transform: arrivals
+    are mapped onto the server's cumulative-capacity clock, the UNCHANGED
+    loop runs in operational time, and service starts are mapped back to
+    wall-clock (a work-conserving queue on a breaking server,
+    preemptive-resume).
+
+    ``traffic`` (a :mod:`repro_torch.core.traffic` model, name or spec)
+    warps the sampled arrivals through the model's time-rescaling
+    transform; a null model leaves the trajectory bit-identical."""
+    check_no_m7_layers(sessions=sessions, memory=memory)
     if policy.uses_single_latency and isinstance(lat, BatchLatencyModel):
         lat = single_from_batch(lat)
     wl = workload if workload is not None else \
         policy.sample_workload(lam, dist, num_requests, seed)
-    return ORACLES[policy.oracle_kind](policy, wl, lat, dist)
+    if traffic is not None:
+        from repro_torch.core.traffic import warp_workload
+        wl = warp_workload(wl, traffic, seed)
+
+    def run(w):
+        return ORACLES[policy.oracle_kind](policy, w, lat, dist)
+
+    if fault_trace is not None and not fault_trace.empty:
+        return _with_fault_trace(run, wl, fault_trace)
+    return run(wl)
+
+
+def _with_fault_trace(run, wl: Workload, trace) -> dict:
+    """The breakdown wrapper shared by the oracle and the fast path: run
+    the fault-free simulator on the operational-time workload, then map
+    the service starts back through the trace's inverse transform.  Works
+    with or without warmup trimming (trimmed waits align to the stream
+    tail)."""
+    op_arr = trace.op_time(wl.arrivals)
+    op_wl = Workload(arrivals=op_arr, tokens=wl.tokens,
+                     inter=np.diff(op_arr, prepend=0.0),
+                     predicted=wl.predicted)
+    res = run(op_wl)
+    op_waits = np.asarray(res["waits"], np.float64)
+    off = len(wl.arrivals) - len(op_waits)          # warmup offset
+    start_wall = trace.wall_time(op_arr[off:] + op_waits)
+    waits = start_wall - np.asarray(wl.arrivals)[off:]
+    out = dict(res)
+    out.update({
+        "waits": waits,
+        "mean_wait": float(waits.mean()) if waits.size else 0.0,
+        "p95_wait": float(np.percentile(waits, 95)) if waits.size else 0.0,
+    })
+    if "mean_wait_served" in res:
+        out["mean_wait_served"] = out["mean_wait"]
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -158,7 +209,9 @@ def _oracle_mg1(policy, wl: Workload, lat, dist) -> dict:
 @oracle("batches")
 def _oracle_batches(policy, wl: Workload, lat, dist) -> dict:
     arr, tok = wl.arrivals, wl.tokens
-    fs = policy.formation(arr, tok, dist)
+    # membership and ordering see the predicted column; batch_time below
+    # sees the TRUE tokens
+    fs = policy.formation(arr, tok, dist, predicted=wl.predicted)
     waits = np.empty(len(arr))
     batch_sizes = []
     t_free = 0.0

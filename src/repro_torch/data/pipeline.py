@@ -1,13 +1,16 @@
 """Poisson request workloads for serving: a copy of the reference
 package's ``Request`` and ``make_request_stream`` (``repro.data.pipeline``)
-without the traffic and session expansions.  The rng call order is the
-reference's, so equal seeds and an equal ``dist`` give equal streams."""
+with modulated traffic and without the session expansion (ROADMAP.md M7c).
+The rng call order is the reference's, so equal seeds and an equal
+``dist`` give equal streams."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+
+from repro_torch.core.policies import not_ported
 
 
 @dataclasses.dataclass
@@ -41,15 +44,28 @@ def correlated_prompt_len(out_tokens: float, corr: float,
 
 def make_request_stream(num: int, lam: float, dist, vocab: int,
                         prompt_len_range=(8, 64), seed: int = 0,
-                        prompt_len_corr: float = 0.0):
+                        prompt_len_corr: float = 0.0, traffic=None,
+                        sessions=None):
     """Poisson arrivals + iid output-token requirements (the paper's model).
 
     ``dist`` is any object with ``sample(rng, size)`` returning token
     counts.  ``prompt_len_corr=0`` keeps prompt lengths uniform in
     ``prompt_len_range`` and independent of the output requirement;
-    ``prompt_len_corr>0`` draws them from :func:`correlated_prompt_len`."""
+    ``prompt_len_corr>0`` draws them from :func:`correlated_prompt_len`.
+
+    ``traffic`` (a :mod:`repro_torch.core.traffic` model, registry name or
+    spec) modulates the arrival RATE: the stationary arrivals are drawn in
+    the exact historical rng call order, then pushed through the model's
+    time-rescaling warp, so tokens and prompts are bit-identical with
+    modulation on or off.  ``sessions`` (multi-turn expansion) is not
+    ported yet and raises."""
+    if sessions is not None:
+        not_ported("the multi-turn session expansion", "M7c (sessions)")
     rng = np.random.default_rng(seed)
     arrivals = np.cumsum(rng.exponential(1.0 / lam, num))
+    if traffic is not None:
+        from repro_torch.core.traffic import traffic_from_spec
+        arrivals = traffic_from_spec(traffic).warp(arrivals, seed)
     outs = dist.sample(rng, num)
     reqs = []
     for i in range(num):

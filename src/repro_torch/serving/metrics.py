@@ -1,7 +1,8 @@
 """Serving metrics: a copy of ``repro.serving.metrics``.  The paper's
 evaluation axis is latency (queueing delay, loss fraction); we add standard
 serving percentiles.  The fault, memory and session blocks read attributes
-that only the M7 layers set; a result without them skips them."""
+that only the resilience (ROADMAP.md M7b), memory (M7d) and session (M7c)
+layers set; a result without them skips them."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Virtual-timeline schedulers and the engine layer: a copy of
-``repro.serving.scheduler`` without length predictors, memory budgets and
-sessions (ROADMAP.md M7; each raises ``NotImplementedError``).
+``repro.serving.scheduler`` without memory budgets (ROADMAP.md M7d) and
+sessions (M7c); each raises ``NotImplementedError``.
 
 A :class:`~repro_torch.core.policies.BatchPolicy` bound to a clock walks
 the virtual timeline: the next batch starts at max(server_free, trigger),
@@ -23,6 +23,14 @@ scheduler classes are one-line bindings:
   ContinuousBatchScheduler iteration-level refill [beyond paper; Orca-style]
 
 ``run_engine_schedule`` executes a policy's batches on the engine.
+
+Both the adapter and ``run_engine_schedule`` accept a length predictor
+(:mod:`repro_torch.core.predictors`): batch membership and ordering are
+driven by PREDICTED output lengths while clipping and service use the
+true ones, the convention of the simulator layers.  Resolution goes
+through the one shared :func:`repro_torch.core.predictors.
+resolve_predictions`; the fleet layer (:mod:`repro_torch.serving.router`)
+reuses it and drives R of these schedulers behind a routing policy.
 """
 
 from __future__ import annotations
@@ -81,6 +89,18 @@ class EngineClock:
         return res["completion_seconds"], res["batch_seconds"]
 
 
+def _request_predictions(policy: BatchPolicy, predictor, predict_seed: int,
+                         ns: np.ndarray, reqs: List[Request]):
+    """Predicted-length column for a request list: a thin prompt-plumbing
+    wrapper over the one shared resolver
+    (:func:`repro_torch.core.predictors.resolve_predictions`), used by
+    ``PolicyScheduler``, ``run_engine_schedule`` and the fleet layer
+    alike."""
+    from repro_torch.core.predictors import resolve_predictions
+    prompts = [r.prompt_tokens for r in reqs[:len(ns)]]
+    return resolve_predictions(policy, predictor, predict_seed, ns, prompts)
+
+
 @dataclasses.dataclass
 class ScheduleResult:
     waits: np.ndarray           # queueing delay per request (paper's E[W])
@@ -95,22 +115,33 @@ class PolicyScheduler:
 
     The policy supplies formation (trigger + members) and per-batch
     completion semantics (``service_clock``); this adapter only walks the
-    virtual timeline and collects waits / end-to-end latencies."""
+    virtual timeline and collects waits / end-to-end latencies.
+
+    ``predictor`` overrides the policy's own length predictor for this
+    scheduler (None keeps it); formation sees the PREDICTED lengths while
+    clipping and the service clock keep the true ``target_output_tokens``.
+    ``predict_seed`` keys the predictor's rng stream.  A KV-memory budget
+    is not ported yet and raises (ROADMAP.md M7d)."""
 
     def __init__(self, policy: BatchPolicy, clock: ModelClock,
-                 predictor=None, memory=None):
-        if predictor is not None:
-            not_ported("a length predictor", "M7")
+                 predictor=None, predict_seed: int = 0, memory=None):
         if memory is not None:
             not_ported("a KV-memory budget (the prefill/decode tandem)",
-                       "M7")
+                       "M7d (KV memory)")
         self.policy = policy
         self.clock = clock
+        if predictor is not None:
+            from repro_torch.core.predictors import predictor_from_spec
+            predictor = predictor_from_spec(predictor)
+        self.predictor = predictor
+        self.predict_seed = predict_seed
 
     def run(self, reqs: List[Request],
             predicted: Optional[np.ndarray] = None) -> ScheduleResult:
-        if predicted is not None:
-            not_ported("a predicted-length column", "M7")
+        """``predicted`` overrides the per-request predicted lengths (the
+        fleet layer passes slices of ONE globally drawn column, so routing
+        and membership see the same predictions); None resolves them from
+        the configured predictor."""
         pol = self.policy
         n = pol.schedule_length(len(reqs))
         arr = np.array([r.arrival for r in reqs[:n]])
@@ -121,7 +152,11 @@ class PolicyScheduler:
         e2e = np.zeros(n)
         lost = np.zeros(n, bool)
         sizes = []
-        fs = pol.formation(arr, ns)
+        if predicted is None:
+            predicted = _request_predictions(
+                pol, self.predictor, self.predict_seed, ns, reqs)
+        fs = pol.formation(arr, ns, predicted=(
+            None if predicted is None else predicted[:n]))
         t_free = 0.0
         while (nb := fs.next_batch(t_free)) is not None:
             start, idx = nb
@@ -139,7 +174,7 @@ class PolicyScheduler:
 
     def run_sessions(self, reqs: List[Request], predicted=None,
                      prefix_discount: float = 0.0) -> ScheduleResult:
-        not_ported("the session-aware timeline", "M7")
+        not_ported("the session-aware timeline", "M7c (sessions)")
 
 
 class FCFSScheduler(PolicyScheduler):
@@ -176,8 +211,8 @@ class ElasticBatchScheduler(PolicyScheduler):
 
 class MultiBinBatchScheduler(PolicyScheduler):
     """Multi-bin batching (Guldogan et al. 2024): per-bin dynamic batching
-    keyed by output length (the clipped target; with neither ``edges`` nor
-    a distribution, the edges are empirical quantiles of the targets); one
+    keyed by (predicted) output length (with neither ``edges`` nor a
+    distribution, the edges are empirical quantiles of the key); one
     shared server picks the bin whose head request arrived earliest."""
 
     def __init__(self, clock, num_bins: int = 4, edges=None, n_max=None,
@@ -199,8 +234,8 @@ class WaitBatchScheduler(PolicyScheduler):
 
 class SRPTBatchScheduler(PolicyScheduler):
     """SRPT-like shortest-first batch formation: the ``b_max`` waiting
-    requests with the shortest lengths (the clipped targets) form the next
-    batch."""
+    requests with the shortest predicted lengths (the clipped targets
+    without a predictor) form the next batch."""
 
     def __init__(self, clock, b_max: Optional[int] = 8, n_max=None,
                  predictor=None):
@@ -292,15 +327,23 @@ class ContinuousBatchScheduler:
 # ----------------------------------------------------------------------------
 
 def run_engine_schedule(policy: BatchPolicy, engine, reqs: List[Request],
-                        predictor=None, memory=None) -> ScheduleResult:
+                        predictor=None, predict_seed: int = 0,
+                        predicted: Optional[np.ndarray] = None,
+                        memory=None) -> ScheduleResult:
     """Form batches with ``policy`` on the request stream's virtual arrival
     timeline and execute each batch on the engine (prefill + fused chunked
     decode); batch durations are wall-clock seconds.  Elastic policies run
-    the engine in elastic mode, the others padded.  Length predictors and
-    memory budgets are not ported yet: passing either raises."""
-    if predictor is not None or memory is not None:
-        not_ported("run_engine_schedule: a length predictor or memory "
-                   "budget", "M7")
+    the engine in elastic mode, the others padded.
+
+    ``predictor`` (a :mod:`repro_torch.core.predictors` instance, name, or
+    spec; None keeps ``policy.predictor``) feeds formation's membership
+    and ordering with PREDICTED lengths; the engine still decodes each
+    request to its true ``target_output_tokens``.  ``predicted`` bypasses
+    the resolution with an explicit column (the fleet layer).  Memory
+    budgets are not ported yet and raise (ROADMAP.md M7d)."""
+    if memory is not None:
+        not_ported("run_engine_schedule: a KV-memory budget",
+                   "M7d (KV memory)")
     clock = EngineClock(engine)
     n = policy.schedule_length(len(reqs))
     arr = np.array([r.arrival for r in reqs[:n]])
@@ -310,7 +353,11 @@ def run_engine_schedule(policy: BatchPolicy, engine, reqs: List[Request],
     waits = np.zeros(n)
     e2e = np.zeros(n)
     sizes = []
-    fs = policy.formation(arr, ns)
+    if predicted is None:
+        predicted = _request_predictions(policy, predictor, predict_seed,
+                                         ns, reqs)
+    fs = policy.formation(arr, ns, predicted=(
+        None if predicted is None else predicted[:n]))
     t_free = 0.0
     while (nb := fs.next_batch(t_free)) is not None:
         start, idx = nb

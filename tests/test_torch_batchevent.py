@@ -360,8 +360,11 @@ def test_event_schedulers_equal_reference(cls, kw):
         _same_result(getattr(j_sched, cls)(jc, **kw).run(jreqs),
                      getattr(t_sched, cls)(tc, **kw).run(treqs))
     if cls != "WaitBatchScheduler":
-        with pytest.raises(NotImplementedError, match="M7"):
-            getattr(t_sched, cls)(tc, predictor="oracle", **kw)
+        # with a noisy predictor, membership follows the predictions
+        spec = {"kind": "lognormal_noise", "sigma": 1.0}
+        jreqs, treqs = _streams(lam=0.6)
+        _same_result(getattr(j_sched, cls)(jc, predictor=spec, **kw).run(jreqs),
+                     getattr(t_sched, cls)(tc, predictor=spec, **kw).run(treqs))
 
 
 @pytest.mark.parametrize("name,kw", [("multibin", {"b_max": 4}),

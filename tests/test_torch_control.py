@@ -159,7 +159,11 @@ def test_controller_recommendations_equal_reference(elastic):
 
 def test_controller_parts_not_ported_raise():
     lat = (TLM.LatencyModel(**SINGLE), TLM.BatchLatencyModel(**BATCH))
-    for bad in (dict(max_replicas=2), dict(memory=4096.0),
-                dict(length_predictor="lognormal_noise")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TC.AdaptiveController(*lat, **bad)
+    with pytest.raises(NotImplementedError, match="M7d"):
+        TC.AdaptiveController(*lat, memory=4096.0)
+    with pytest.raises(ValueError, match="not in"):
+        TC.AdaptiveController(*lat, length_predictor="psychic")
+    # the fleet and predictor axes are ported (tests/test_torch_fleet.py)
+    ctl = TC.AdaptiveController(*lat, max_replicas=2,
+                                length_predictor="lognormal_noise")
+    assert ctl.max_replicas == 2 and ctl.availability_hat() == 1.0

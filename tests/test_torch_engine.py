@@ -185,9 +185,9 @@ def test_run_engine_schedule_equals_reference(cfgs, jax_engines, monkeypatch,
 
 def test_schedule_refuses_unported_options(cfgs, jax_engines):
     eng = _port_engine(cfgs, jax_engines)
-    with pytest.raises(NotImplementedError):
-        run_engine_schedule(get_policy("dynamic"), eng, [], predictor="oracle")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md M7d"):
         run_engine_schedule(get_policy("dynamic"), eng, [], memory=100)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_policy("srpt", predictor="oracle")
+    # predictions are ported: an empty stream schedules nothing
+    res = run_engine_schedule(get_policy("srpt", predictor="oracle"), eng, [],
+                              predictor="lognormal_noise")
+    assert res.batch_sizes == [] and res.makespan == 0.0

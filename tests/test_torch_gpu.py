@@ -7,8 +7,9 @@ file imports no JAX, so it runs on a machine that has only the port:
 
 Tolerances: 2e-5 in fp32; in bf16 4e-3 plus 8e-3 relative, one bf16 ulp
 of the output (both sides compute in fp32 and differ only in the final
-rounding); the gather, the fused norm's residual sum and the simulators'
-float64 scans and batch-event loops (S1-S5) are bit-equal."""
+rounding); the gather, the fused norm's residual sum, the simulators'
+float64 scans and batch-event loops (S1-S5) and the fleet's routing scan
+(S6) are bit-equal."""
 
 import numpy as np
 import pytest
@@ -738,3 +739,127 @@ def test_event_simulators_on_the_card_equal_the_oracle(cuda):
     for name in pols:
         assert np.array_equal(gpu[name], ora[name]), name
 
+
+
+# ----------------------------------------------------------------------------
+# The fleet's routing scan (S6) and the fleet simulators on the card
+# ----------------------------------------------------------------------------
+
+def _routing_inputs(n, R, lanes, seed):
+    """[n, lanes] arrivals and work with ties (runs of equal arrivals, zero
+    work, every backlog 0 at t = 0) and an [n, R, lanes] uint8 mask with
+    rows where every replica is down."""
+    rng = np.random.default_rng(seed)
+    arr = np.cumsum(rng.exponential(1.0, (n, lanes)), axis=0)
+    arr[: n // 3] = np.floor(arr[: n // 3])
+    arr[0] = 0.0
+    work = rng.exponential(2.0, (n, lanes))
+    work[::5] = 0.0
+    up = (rng.random((n, R, lanes)) < 0.6).astype(np.uint8)
+    up[::7] = 0
+    return arr, work, up
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 37, 40_000])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 8, 64])
+def test_backlog_scan_kernel_bit_equal_to_plain(cuda, R, n):
+    from repro_torch.kernels.backlog_scan import (
+        backlog_scan, backlog_scan_reference)
+    arr, work, up = (torch.from_numpy(x).to(cuda)
+                     for x in _routing_inputs(n, R, 3, seed=R + n))
+    for mask in (None, up):
+        before = K.LAUNCHES["backlog_scan"]
+        out = backlog_scan(arr, work, R, mask)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["backlog_scan"] == before + (R > 1)
+        assert out.dtype == torch.int64 and out.shape == arr.shape
+        assert torch.equal(out, backlog_scan_reference(arr, work, R, mask))
+        if mask is not None:
+            assert (out[::7] == 0).all()          # every replica down
+
+
+@pytest.mark.gpu
+def test_backlog_scan_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.backlog_scan import MAX_REPLICAS, backlog_scan
+    a = torch.zeros(40, 2, dtype=torch.float64, device=cuda)
+    up = torch.ones(40, 3, 2, dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        backlog_scan(a.float(), a, 3)
+    with pytest.raises(TypeError):
+        backlog_scan(a, a, 3, up.bool())
+    with pytest.raises(ValueError):
+        backlog_scan(a, a, MAX_REPLICAS + 1)
+    with pytest.raises(ValueError):
+        backlog_scan(a, a, 4, up)                 # a mask of 3 columns
+    with pytest.raises(ValueError):
+        backlog_scan(a, a.cpu(), 3)
+
+
+@pytest.mark.gpu
+def test_fleet_simulators_on_the_card_equal_cpu(cuda):
+    """``simulate_fleet_fast`` and the fault-injected fleet on the card
+    (S6, then S1/S5/S2 per replica) equal the same calls with
+    ``device="cpu"`` (the plain versions) on one router x policy grid."""
+    from repro_torch.core import fastsim, faults
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import (
+        DynamicPolicy, FCFSPolicy, SRPTPolicy)
+    ln = LogNormalTokens(7.0, 0.7)
+    lat = BatchLatencyModel(*EVENT_LAT)
+    for router in ("jsq", "least_work", "round_robin",
+                   {"kind": "least_work",
+                    "predictor": {"kind": "lognormal_noise", "sigma": 0.5}}):
+        for pol in (DynamicPolicy(b_max=8), SRPTPolicy(b_max=16),
+                    FCFSPolicy(tau=30.0)):
+            kw = dict(num_requests=4000, seed=3, traffic="mmpp")
+            before = K.LAUNCHES["backlog_scan"]
+            gpu = fastsim.simulate_fleet_fast(router, pol, 1.6, 4, ln, lat,
+                                              **kw)
+            cpu = fastsim.simulate_fleet_fast(router, pol, 1.6, 4, ln, lat,
+                                              device="cpu", **kw)
+            stateful = router != "round_robin"
+            assert K.LAUNCHES["backlog_scan"] == before + stateful
+            assert np.array_equal(gpu["replica_of"], cpu["replica_of"])
+            for a, b in zip(gpu["per_replica"], cpu["per_replica"]):
+                assert np.array_equal(a["waits"], b["waits"]), (router, pol)
+    for key in ("crash", "drop"):
+        kw = dict(num_requests=1500, seed=2, fast=True)
+        gpu = faults.simulate_fleet_faulty("least_work", DynamicPolicy(16),
+                                           4.0, 3, ln, lat, key, **kw)
+        cpu = faults.simulate_fleet_faulty("least_work", DynamicPolicy(16),
+                                           4.0, 3, ln, lat, key,
+                                           device="cpu", **kw)
+        assert np.array_equal(gpu["replica_of"], cpu["replica_of"])
+        assert np.array_equal(gpu["waits"], cpu["waits"])
+        assert gpu["retries"] == cpu["retries"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["srpt", "multibin"])
+def test_sweep_noise_on_the_card_equals_cpu(cuda, policy):
+    from repro_torch.core import fastsim
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import get_policy
+    from repro_torch.core.predictors import LogNormalNoisePredictor
+    ln = LogNormalTokens(7.0, 0.7)
+    lat = BatchLatencyModel(*EVENT_LAT)
+    kw = {"srpt": {"b_max": 16}, "multibin": {"num_bins": 4}}[policy]
+
+    def factory(s):
+        return get_policy(policy, predictor=LogNormalNoisePredictor(s), **kw)
+    args = (factory, [0.6, 1.0], [0.0, 0.5, 1.5], ln, lat)
+    name = policy + "_scan"
+    before = K.LAUNCHES[name]
+    got = {}
+    gpu = fastsim.sweep_noise(*args, num_requests=5000, seed=15,
+                              launch_out=got)
+    cpu = fastsim.sweep_noise(*args, num_requests=5000, seed=15,
+                              device="cpu")
+    assert np.array_equal(gpu["mean_wait"], cpu["mean_wait"])
+    # SRPT: all six cells are lanes of one launch; multi-bin: one a cell
+    assert K.LAUNCHES[name] == before + (1 if policy == "srpt" else 6)
+    if policy == "srpt":
+        assert got["args"][0].shape == (5000, 6)

@@ -357,27 +357,28 @@ def test_registry_and_unported_parts_raise():
         assert repr(t_pol.get_policy(name)) == repr(j_pol.get_policy(name))
         assert repr(t_pol.policy_from_spec({"kind": name, "b_max": 4})) == \
             repr(j_pol.policy_from_spec({"kind": name, "b_max": 4}))
-        with pytest.raises(NotImplementedError, match="M7"):
-            t_pol.get_policy(name, predictor="oracle")
+        # a predictor is ported: the policy keeps it, as the reference does
+        spec = {"kind": "lognormal_noise", "sigma": 0.5}
+        jp, tp = (m.get_policy(name, predictor=spec) for m in (j_pol, t_pol))
+        assert repr(tp.predictor) == repr(jp.predictor)
+        assert tp.analytic_kind == jp.analytic_kind
     with pytest.raises(ValueError):
         t_pol.policy_from_spec({"kind": "nope"})
     assert repr(t_pol.policy_from_spec({"kind": "elastic", "b_max": 8})) == \
         repr(j_pol.policy_from_spec({"kind": "elastic", "b_max": 8}))
-    with pytest.raises(NotImplementedError, match="M7"):
-        t_pol.DynamicPolicy(predictor="oracle")
-    with pytest.raises(NotImplementedError, match="M7"):
+    assert repr(t_pol.DynamicPolicy(predictor="oracle").predictor) == \
+        repr(j_pol.DynamicPolicy(predictor="oracle").predictor)
+    with pytest.raises(NotImplementedError, match="M7d"):
         t_pol.ElasticPolicy().stage_split(np.ones(3), lats()[1])
     td, tl = dists("uniform")[1], lats()[1]
-    for layer in ("fault_trace", "traffic", "sessions", "memory"):
-        with pytest.raises(NotImplementedError, match="M7"):
+    for layer, item in (("sessions", "M7c"), ("memory", "M7d")):
+        with pytest.raises(NotImplementedError, match=item):
             t_sim.simulate_policy(t_pol.DynamicPolicy(), 0.3, td, tl,
                                   num_requests=100, **{layer: object()})
     tc = _clocks()[1]
-    with pytest.raises(NotImplementedError, match="M7"):
+    with pytest.raises(NotImplementedError, match="M7d"):
         t_sched.PolicyScheduler(t_pol.DynamicPolicy(), tc, memory=1000)
-    with pytest.raises(NotImplementedError, match="M7"):
-        t_sched.PolicyScheduler(t_pol.DynamicPolicy(), tc, predictor="oracle")
-    with pytest.raises(NotImplementedError, match="M7"):
+    with pytest.raises(NotImplementedError, match="M7c"):
         t_sched.PolicyScheduler(t_pol.DynamicPolicy(), tc).run_sessions([])
 
 

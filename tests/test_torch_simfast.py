@@ -415,8 +415,8 @@ def test_fast_entry_points_need_a_gpu_unless_cpu_is_asked(entry,
 def test_fast_path_m7_layers_raise():
     _, td = pair("UniformTokens", 100)
     _, tl = lats()
-    for layer in ("fault_trace", "traffic", "sessions", "memory"):
-        with pytest.raises(NotImplementedError, match="M7"):
+    for layer, item in (("sessions", "M7c"), ("memory", "M7d")):
+        with pytest.raises(NotImplementedError, match=item):
             t_fast.simulate_policy_fast(t_pol.DynamicPolicy(), 0.3, td, tl,
                                         num_requests=100, device="cpu",
                                         **{layer: object()})
