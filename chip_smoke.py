@@ -6,13 +6,14 @@
 Phases (any failure raises and the script exits non-zero):
   1. build the ten hand-written kernels from
      ``src/repro_torch/kernels/*/csrc`` with nvcc into ``build/kernels/``,
-     one nvcc per source, all started together, and print the registers,
-     shared memory and spills ptxas reports for the two attention kernels
-     and the six simulator kernels;
+     one nvcc per source, all started together, and print
+     the registers, shared memory and spills ptxas reports for the two
+     attention kernels, K4 and the six simulator kernels;
   2. hold each serving kernel against its plain PyTorch version on the card, at the
      shapes qwen2.5-3b serving gives it, and time kernel, plain version,
      one PyTorch library call and the bound (K3 also as TFLOP/s and share
-     of the bound; K1 with its split count and grid);
+     of the bound; K1 with its split count and grid; K4 at T = 1, 16, 64
+     and 4096 rows);
   3. check a small fp32 model end to end: the engine on the card (all four
      kernels, decode chunks as CUDA graphs) emits the same greedy tokens as
      the engine on the CPU (plain paths); sampled at a fixed seed, the two
@@ -22,7 +23,7 @@ Phases (any failure raises and the script exits non-zero):
      (every bucket that runs replays a graph), then multi-bin (4 bins),
      WAIT (k=8) and SRPT, each capped at the engine's 16 slots, and
      profile one decode chunk at bucket 16 as a graph replay and through
-     the eager loop;
+     the eager loop, K4's launches and device ms a step among them;
   6. serve the same request stream with continuous batching
      (``serve_continuous``, 16 slots, chunk 32) on phase 4's engine;
   8a. serve phase 4's stream, made again under MMPP traffic, through two
@@ -45,7 +46,8 @@ Phases (any failure raises and the script exits non-zero):
      versions on the card, four lanes of the Fig 5 launch and every S3-S5
      lane to the NumPy oracle, assert the benchmark's relations at λ = 1,
      print every lane's mean wait beside the paper's analytic delay or
-     envelope, and time the kernels against their bytes bound;
+     envelope, time the kernels against their bytes bound, and print the
+     device time of each S5 launch in the counted path (CUDA events);
   8b. run the reference benchmarks' fleet, predictor and fault grids on
      the card (``fleet.sweep``, ``simulate_fleet_fast``, ``sweep_noise``
      with its SRPT cells as one ``srpt_scan`` launch,
@@ -53,7 +55,11 @@ Phases (any failure raises and the script exits non-zero):
      ``backlog_scan`` (S6); assert the benchmarks' relations, print each
      figure beside ``benchmarks/BENCH_simulators.json``, hold every S6
      launch at full length to its plain version on the card and to the
-     NumPy recursion, and time S6 against its bytes bound.
+     NumPy recursion, and time S6 against its bytes bound; hold every S5
+     lane of the counted path (the ten-lane noise plane and the 40 fleet
+     replicas' sub-streams) to its plain version at full length, in a
+     pool of host processes, and print each launch's device time in the
+     path (CUDA events) and their total.
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after it.
 
@@ -166,6 +172,8 @@ def ptxas_report(build_log):
             entry = name.group(1) if name else mangled
             entry += (" (bf16)" if "_kernelI13__nv_bfloat16" in mangled else
                       " (fp32)" if "_kernelIf" in mangled else "")
+            vpt = re.search(r"fused_rmsnorm_kernelI\w+?Li(\d+)E", mangled)
+            entry += f" VPT={vpt.group(1)}" if vpt else ""
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and entry:
@@ -378,16 +386,23 @@ def check_flash(dev):
 
 
 def check_rmsnorm(dev):
+    """K4 against its plain version at every row count the serving path
+    gives it (one decode token to a prefill bucket) in both dtypes; then
+    timed at the decode buckets' T = 1, 16, 64 and the prefill shape T =
+    4096 beside the plain version, ``add`` + ``rms_norm`` and the bytes
+    bound.  The JSON entry carries the prefill shape, and every T under
+    ``shapes``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import fused_rmsnorm, rmsnorm_reference
     d, eps = 2048, 1e-6
+    rows_checked = (1, 2, 16, 64, 4096)
     rng = np.random.default_rng(3)
     max_err = {}
     for dtype in ("bfloat16", "float32"):
         td = getattr(torch, dtype)
         err = 0.0
-        for t in (1, 16, 4096):
+        for t in rows_checked:
             x, r = (torch.from_numpy(rng.standard_normal((t, d), np.float32)
                                      ).to(dev, td) for _ in range(2))
             w = torch.from_numpy(rng.standard_normal(d, np.float32) * 0.1
@@ -399,10 +414,15 @@ def check_rmsnorm(dev):
             err = max(err, float((n.float() - ref.float()).abs().max()))
         max_err[dtype] = err
         log(f"K4 fused_rmsnorm {dtype}: s bit-equal to x + residual, max "
-            f"|n - plain| = {err:.3e} over T in (1, 16, 4096), D={d}")
+            f"|n - plain| = {err:.3e} over T in {rows_checked}, D={d}")
 
-    entry = None
-    for t in (4096, 16):
+    # yardsticks: the device time of the smallest kernel (a one-element
+    # add_), and per T a device-to-device copy of the bytes K4 moves but w
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: one.add_(1.0))
+    log(f"K4 yardstick: a one-element add_ takes {fmt(floor_ms)}")
+    entry, shapes = None, {}
+    for t in (4096, 64, 16, 1):
         sets = [tuple(torch.randn(t, d, device=dev, dtype=torch.bfloat16)
                       for _ in range(2)) for _ in range(4)]
         w = torch.randn(d, device=dev, dtype=torch.bfloat16) * 0.1
@@ -412,11 +432,20 @@ def check_rmsnorm(dev):
             lambda x, r: rmsnorm_reference(x, r, w, eps), sets))
         lib_ms = time_ms(rotating(lambda x, r: F.rms_norm(
             torch.add(x, r), (d,), weight=w1, eps=eps), sets))
+        pairs = [(torch.empty(2, t, d, device=dev, dtype=torch.bfloat16),
+                  torch.stack(xr)) for xr in sets]
+        copy_ms = time_ms(rotating(lambda dst, src: dst.copy_(src), pairs))
         nbytes = 2 * (4 * t * d + d)
         bnd = bound_ms(nbytes, 0, "bfloat16")
         log(f"K4 timing T={t} D={d} bf16: kernel {fmt(ms)}, plain "
             f"{fmt(plain_ms)}, add + rms_norm {fmt(lib_ms)}, bound "
-            f"{bnd:.4f} ms (bytes; {nbytes / 1e6:.2f} MB)")
+            f"{bnd:.5f} ms (bytes; {nbytes / 1e6:.3f} MB; the kernel at "
+            f"{100 * bnd / ms[1]:.1f}% of it); a copy of x and r "
+            f"{fmt(copy_ms)}")
+        shapes[f"T={t}"] = {"ms": ms[1], "call_ms": ms[0],
+                            "plain_ms": plain_ms[1], "library_ms": lib_ms[1],
+                            "bound_ms": bnd, "copy_ms": copy_ms[1],
+                            "one_element_add_ms": floor_ms[1]}
         if entry is None:     # the prefill shape goes into the JSON line
             entry = {"name": "fused_rmsnorm", "route": "cuda",
                      "source": "src/repro_torch/kernels/rmsnorm/csrc/"
@@ -424,7 +453,8 @@ def check_rmsnorm(dev):
                      "replaces": "src/repro/kernels/rmsnorm/kernel.py:26",
                      "max_abs_err": max(max_err.values()), "ms": ms[1],
                      "plain_ms": plain_ms[1], "bound_ms": bnd,
-                     "bound_by": "bytes", "library_ms": lib_ms[1]}
+                     "bound_by": "bytes", "library_ms": lib_ms[1],
+                     "shapes": shapes}
     return entry
 
 
@@ -652,6 +682,7 @@ def profile_decode(engine, reqs, steps=8):
     pg, out = profiled(lambda: engine.decode_chunk(
         cache, state[1], state[0], state[2], targets, steps))
     wall_graph_prof = out[-1] / steps
+    state = out[1:4]
     pe, (_, _, dt) = profiled(lambda: eager(eager_state))
     wall_eager_prof = dt / steps
     kinds = {"graph": _kernel_kinds(pg), "eager": _kernel_kinds(pe)}
@@ -679,6 +710,12 @@ def profile_decode(engine, reqs, steps=8):
         for kind, (n, ms) in sorted(kinds[k].items(), key=lambda kv: -kv[1][1]):
             log(f"    {kind}: {n / steps:.0f} launches/step, {ms / steps:.3f} "
                 f"ms/step")
+    n4, ms4 = kinds["graph"]["fused_rmsnorm"]
+    log(f"K4 in the replayed decode step at bucket 16: {n4 / steps:.0f} "
+        f"launches, {ms4 / steps:.4f} ms of device time a step "
+        f"({1e3 * ms4 / n4:.2f} us a launch)")
+    return {"bucket": b, "launches_per_step": n4 / steps,
+            "device_ms_per_step": ms4 / steps}
 
 
 def serve_full(engine, reqs):
@@ -714,7 +751,7 @@ def serve_full(engine, reqs):
     assert engine.sample_fallbacks == 0, "non-finite logits"
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"({len(engine._graphs)} decode graphs)")
-    profile_decode(engine, reqs)
+    k4_step = profile_decode(engine, reqs)
 
     # token agreement, elastic vs padded, on one batch (printed: in bf16 a
     # bucket change can reorder a GEMM's sums)
@@ -730,7 +767,7 @@ def serve_full(engine, reqs):
     assert all(0 <= t < cfg.vocab_size for x in re_["tokens"] for t in x)
     log(f"elastic vs padded greedy tokens: {same}/{total} equal "
         f"(requests identical: {sum(x == y for x, y in zip(re_['tokens'], rp['tokens']))}/8)")
-    return totals
+    return totals, k4_step
 
 
 # ----------------------------------------------------------------------------
@@ -898,6 +935,56 @@ def wall_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, 1e3 * (time.perf_counter() - t0)
+
+
+class S5Launches:
+    """Inside ``with``: every ``srpt_scan`` launch that ``core.fastsim``
+    makes (``simulate_policy_fast``'s SRPT cells, each fleet replica's
+    sub-stream, ``sweep_noise``'s one launch) is recorded with its inputs,
+    its outputs and a CUDA event on each side of it on the stream, so its
+    device time in the path is read afterwards (``ms``).  The wrapper and
+    its launch counter are the same; only the name fastsim calls is
+    wrapped."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import fastsim
+        self.launches, self._orig = [], fastsim.srpt_scan
+
+        def recorded(*args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = self._orig(*args)
+            ev[1].record()
+            self.launches.append({"args": args, "out": out, "events": ev})
+            return out
+
+        fastsim.srpt_scan = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import fastsim
+        fastsim.srpt_scan = self._orig
+
+    def ms(self):
+        """Device ms of each recorded launch (the card synchronized)."""
+        import torch
+        torch.cuda.synchronize()
+        return [lo["events"][0].elapsed_time(lo["events"][1])
+                for lo in self.launches]
+
+    def report(self, path):
+        """Print the launches' in-path times and return them as a dict."""
+        ms = self.ms()
+        req = [lo["out"][0].numel() for lo in self.launches]
+        ns = [1e6 * m / r for m, r in zip(ms, req)]
+        log(f"S5 srpt_scan in the {path} path: {len(ms)} launches, "
+            f"{sum(ms):.3f} ms of device time in all by CUDA events around "
+            f"each launch ({sum(req)} lane-requests; per launch "
+            f"{min(ms):.3f}-{max(ms):.3f} ms, {min(ns):.1f}-{max(ns):.1f} "
+            f"ns a lane-request)")
+        return {"launches": len(ms), "total_ms": sum(ms),
+                "lane_requests": sum(req), "ms": ms}
 
 
 def _fit_line(x, y, what):
@@ -1121,6 +1208,7 @@ def run_simulators(dev, cal):
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    s5_rec = S5Launches().__enter__()
     fig5 = _sim_grid("Fig 5 (uniform 0..1000, k = 0.05, 0.5, 5e-4, 0.02)",
                      uni, lat5, np.geomspace(0.05, 0.8, 16), pols, dev)
     fig6 = _sim_grid("Fig 6b (lognormal(7, 0.7), k = 0.05, 0.5, 2e-4, "
@@ -1139,12 +1227,19 @@ def run_simulators(dev, cal):
             num_requests=FIG4_N, device=dev)
     torch.cuda.synchronize()
     main_wall = time.perf_counter() - t0
+    s5_rec.__exit__()
     launches = dict(K.LAUNCHES)
     assert launches == {**launches, "batch_scan": 4, "impatience_scan": 4,
                         "multibin_scan": 4, "wait_scan": 2,
                         "srpt_scan": 2}, launches
     log(f"simulators: main path {main_wall:.2f} s wall (the heavy-tail "
         f"sweep {heavy['wall']:.2f} s), launches {launches}")
+    # the two SRPT cells' launches are the ones check_event_cells holds to
+    # the plain version and the oracle below
+    assert {id(lo["out"]) for lo in s5_rec.launches} == {
+        id(c["out"]) for c in heavy["scan"]["cells"].values()
+        if c["kernel"] == "srpt_scan"}
+    s5_path = s5_rec.report("simulators")
     for g in (fig5, fig6):
         _print_grid(g, pols)
     _print_grid(fit, scan_pols)
@@ -1247,7 +1342,10 @@ def run_simulators(dev, cal):
           "shape": [FIG4_N, lanes], "max_abs_err": 0.0, "ms": ms,
           "ms_one_lane": ms1, "plain_ms": plain_ms, "bound_ms": bnd,
           "bound_by": "bytes", "library_ms": None}
-    return launches, [s1, s2] + check_event_cells(heavy, dev)
+    event_entries = check_event_cells(heavy, dev)
+    next(e for e in event_entries if e["name"] == "srpt_scan")["in_path"] = \
+        {"simulators": s5_path}
+    return launches, [s1, s2] + event_entries
 
 
 # ----------------------------------------------------------------------------
@@ -1330,6 +1428,48 @@ def check_backlog_launches(launches, dev):
             "library_ms": None, "launch_rows": rows}
 
 
+def _plain_s5_lane(arr, tok, order, b_max, k):
+    """S5's plain version on one lane, on the host CPU (a worker of
+    ``plain_s5_on_host``): numpy in, numpy out."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.kernels.srpt_scan import srpt_scan_reference
+    s, f = srpt_scan_reference(*(torch.from_numpy(a) for a in (arr, tok, order,
+                                                                b_max)), *k)
+    return s.numpy(), f.numpy()
+
+
+def plain_s5_on_host(launches):
+    """Hold every lane of the given S5 launches (launch_out dicts) at full
+    length to the plain version: the same function in float64 on the same
+    inputs, one lane a job in a pool of host processes (the plain loop is
+    a few small tensor ops a batch, faster on the host's cores than as
+    launches on the card).  Returns the host seconds it took."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    jobs, outs = [], []
+    for lo in launches:
+        arr, tok, order, b_max, *k = lo["args"]
+        host = [t.cpu().numpy() for t in (arr, tok, order, b_max)]
+        starts, first = (t.cpu().numpy() for t in lo["out"])
+        for j in range(host[0].shape[1]):
+            jobs.append((host[0][:, j:j + 1].copy(), host[1][:, j:j + 1].copy(),
+                         host[2][:, j:j + 1].copy(), host[3][j:j + 1].copy(),
+                         tuple(float(x) for x in k)))
+            outs.append((starts[:, j:j + 1], first[:, j:j + 1]))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")) \
+            as pool:
+        refs = list(pool.map(_plain_s5_lane, *zip(*jobs)))
+    for (s, f), (rs, rf) in zip(outs, refs):
+        assert np.array_equal(s, rs) and np.array_equal(f, rf), \
+            "S5 differs from its plain version"
+    return len(jobs), time.perf_counter() - t0
+
+
 def run_fleet_sims(dev):
     import torch
     from repro_torch import kernels as K
@@ -1362,6 +1502,7 @@ def run_fleet_sims(dev):
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    s5_rec = S5Launches().__enter__()
     # (a) the replica-count scaling curve (jsq, capped dynamic replicas)
     got = {}
     scal = sweep([1, 2, 4, 8], [0.8], "jsq", DynamicPolicy(b_max=8), uni,
@@ -1418,7 +1559,9 @@ def run_fleet_sims(dev):
         s6[f"crash {mtbf:g}/{mttr:g}"] = got
     torch.cuda.synchronize()
     main_wall = time.perf_counter() - t0
+    s5_rec.__exit__()
     launches = dict(K.LAUNCHES)
+    assert len(s5_rec.launches) == launches["srpt_scan"] == 41, launches
     assert launches["backlog_scan"] == len(s6) == 14, (launches, sorted(s6))
     log(f"fleet simulators: main path {main_wall:.2f} s wall (the SRPT noise "
         f"plane {t_noise:.2f} s), launches {launches}")
@@ -1499,18 +1642,30 @@ def run_fleet_sims(dev):
             assert grids[name][li, 0] == ref, (name, lam)
     log("(d) the sigma = 0 columns equal simulate_policy_fast with the "
         "oracle policy exactly (srpt_b16, multibin4)")
-    (ref_s, ref_f), plain_ms = wall_ms(lambda: srpt_scan_reference(
-        *s5["args"]))
+    # the plain version on the card, timed, on the noise launch's first lane
+    one = tuple(a[:, :1].contiguous() for a in s5["args"][:3]) + \
+        (s5["args"][3][:1],) + tuple(s5["args"][4:])
+    (ref_s, ref_f), plain_ms = wall_ms(lambda: srpt_scan_reference(*one))
     starts, first = s5["out"]
-    assert torch.equal(starts, ref_s) and torch.equal(first, ref_f), \
+    assert torch.equal(starts[:, :1], ref_s) and \
+        torch.equal(first[:, :1], ref_f), \
         "S5 (sweep_noise) differs from its plain version"
     ms = event_ms(lambda: srpt_scan(*s5["args"]))
     n, lanes = starts.shape
+    # every S5 lane of the counted path (the noise launch's ten, the 40
+    # fleet replicas' sub-streams) against the plain version, at full length
+    replicas = [lo for lo in s5_rec.launches if lo["out"] is not s5["out"]]
+    assert len(replicas) == 40, len(replicas)
+    jobs, host_s = plain_s5_on_host(s5_rec.launches)
     log(f"S5 srpt_scan, sweep_noise's one launch of {lanes} lanes x {n}: "
         f"{ms:.3f} ms by CUDA events ({1e6 * ms / (n * lanes):.1f} ns a "
-        f"lane-request), all lanes equal the plain version's at full length "
-        f"(plain {plain_ms:.1f} ms)")
-    noise_s5 = {"lanes": lanes, "n": n, "ms": ms, "plain_ms": plain_ms}
+        f"lane-request); the plain version on the card {plain_ms:.1f} ms for "
+        f"its first lane; all {jobs} lanes of the 41 counted S5 launches (the "
+        f"noise plane and the 40 fleet replicas) equal the plain version's "
+        f"at full length (host processes, {host_s:.1f} s)")
+    noise_s5 = {"lanes": lanes, "n": n, "ms": ms,
+                "plain_ms_first_lane": plain_ms}
+    noise_s5["in_path"] = s5_rec.report("fleet simulators")
     return launches, check_backlog_launches(s6, dev), noise_s5
 
 
@@ -1545,9 +1700,9 @@ def main() -> int:
     secs = K.build()
     log(f"build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, parallel)")
-    for name in ("flash_attention", "ragged_decode_attention", "batch_scan",
-                 "impatience_scan", "multibin_scan", "wait_scan", "srpt_scan",
-                 "backlog_scan"):
+    for name in ("flash_attention", "ragged_decode_attention", "fused_rmsnorm",
+                 "batch_scan", "impatience_scan", "multibin_scan", "wait_scan",
+                 "srpt_scan", "backlog_scan"):
         for line in ptxas_report(K.build_log(name)):
             log(f"ptxas {name}: {line}")
 
@@ -1572,7 +1727,8 @@ def main() -> int:
                                vocab=cfg.vocab_size, prompt_len_range=(16, 257),
                                seed=0)
     t0 = time.perf_counter()
-    paths = {"serving schedule": serve_full(engine, reqs)}
+    paths = {}
+    paths["serving schedule"], k4_step = serve_full(engine, reqs)
     log(f"phase 4 (serving schedule) took {time.perf_counter() - t0:.1f} s")
     cal = engine.calibration_log()          # phase 4's measurements (M4)
     paths["continuous"] = serve_cont(engine, reqs)
@@ -1595,8 +1751,11 @@ def main() -> int:
     paths["fleet simulators"], s6, noise_s5 = run_fleet_sims(dev)
     log(f"phase 8b (fleet simulators) took {time.perf_counter() - t0:.1f} s")
     kernels.append(s6)
-    next(k for k in kernels if k["name"] == "srpt_scan")["sweep_noise"] = \
-        noise_s5
+    next(k for k in kernels if k["name"] == "fused_rmsnorm")[
+        "decode_step"] = k4_step
+    s5 = next(k for k in kernels if k["name"] == "srpt_scan")
+    s5["in_path"]["fleet simulators"] = noise_s5.pop("in_path")
+    s5["sweep_noise"] = noise_s5
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in paths.items()}

@@ -19,9 +19,9 @@ oracle, as in the reference.
     F_k = max(F_{k-1}, A_k) + H_k telescopes to a running maximum (host
     NumPy, as in the reference).
   * ``"multibin"``, ``"wait"``, ``"srpt"``   the batch-event disciplines,
-    one step per batch: kernels S3 (``kernels/multibin_scan``), S4
-    (``kernels/wait_scan``) and S5 (``kernels/srpt_scan``), one thread per
-    lane.  The host supplies each request's bin (S3) or the rank order of a
+    one step per batch: kernels S3 (``kernels/multibin_scan``) and S4
+    (``kernels/wait_scan``), one thread per lane, and S5
+    (``kernels/srpt_scan``), one block per lane.  The host supplies each request's bin (S3) or the rank order of a
     stable argsort of the lengths (S5), from the workload's PREDICTED
     column where it has one; the service law always sees the true tokens.
 

@@ -58,6 +58,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (ptxas -v) into the build log
 EXTRA_FLAGS = {
     "ragged_decode_attention": ("-Xptxas=-v",),
+    "fused_rmsnorm": ("-Xptxas=-v",),
     "flash_attention": ("-Xptxas=-v",),
     "batch_scan": ("-Xptxas=-v",),
     "impatience_scan": ("-Xptxas=-v",),

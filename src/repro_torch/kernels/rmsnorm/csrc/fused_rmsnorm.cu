@@ -8,26 +8,41 @@
 // to the next site, so the add costs no extra pass over memory.
 //
 // Shapes: x, r, s, n [T, D] (contiguous rows); w [D] stored as w - 1.
-// fp32 or bf16 (w of the same type); math in fp32.
+// fp32 or bf16 (w of the same type); math in fp32.  D a multiple of one
+// 16-byte vector (4 fp32 or 8 bf16 elements), up to 16,384.
 //
-// What bounds it on this card: bytes.  Each call reads x, r and w and
-// writes s and n: (4 T D + D) * sizeof(T) over 3.35 TB/s; the arithmetic
-// is a few flops per element.
+// What bounds it on this card: bytes at the prefill shape, (4 T D + D) *
+// sizeof(T) over 3.35 TB/s; at the decode shape (T = 1..64 rows) latency:
+// the launch, one round trip to memory and one block reduction.
 //
 // Design.  One block per row, so any T works (the TPU kernel needs T to be
-// a multiple of its row block).  Threads stride over the row in 16-byte
-// vectors (8 bf16 or 4 fp32 elements; D must be a multiple of that).  The
-// first pass forms s in fp32, writes s in T (bit-equal to a PyTorch add,
-// which also rounds the fp32 sum once) and keeps the fp32 s in shared
-// memory while summing s^2; after a block reduction the second pass reads
-// s back from shared memory, so n normalises the unrounded fp32 sum, as the
-// TPU kernel does, and x and r are read from device memory once.
+// a multiple of its row block).  The row's 16-byte vectors are spread
+// over the block's threads, VPT vectors a thread (VPT a template
+// parameter, the fewest of 1, 2 and 4 that fit the row in 1,024 threads),
+// so the row lives in registers: s is never written to shared memory and
+// never read back.  Every load a thread needs (its vectors of w, x and r)
+// is issued before anything waits on one.  The sum of squares is reduced
+// once: a warp butterfly, then (for rows of more than one warp) one
+// shared-memory exchange of the warp partials that every warp finishes on
+// its own, so there is a single barrier and no serial loop.  s is formed
+// in fp32 and written in T (bit-equal to a PyTorch add, which also rounds
+// the fp32 sum once); n normalises the unrounded fp32 s held in registers,
+// as the TPU kernel does.  At the decode shape (T = 16, D = 2048 bf16: 16
+// blocks of 256 threads, one vector each) the time is the launch and one
+// round trip; at the prefill shape it is the bytes, and the kernel moves
+// them as fast as a device-to-device copy of the same bytes (chip_smoke.py
+// phase 2 times both).  Several rows a block and 2 or 4 vectors a thread
+// at many rows were tried and were no faster, and so was programmatic
+// dependent launch inside the decode graph (PERF.md, Findings).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int MAX_THREADS = 1024;
+constexpr int MAX_D = 16384;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -42,59 +57,84 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// grid (T); block: a multiple of 32 threads; dynamic shared memory D floats
-// plus one float per warp
-template <typename T>
-__global__ void fused_rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                                     const T* __restrict__ w, T* __restrict__ s_out,
-                                     T* __restrict__ n_out, int D, float eps) {
+// grid (rows); block: a multiple of 32 threads, blockDim.x * VPT >= D / VEC
+template <typename T, int VPT>
+__global__ void __launch_bounds__(MAX_THREADS)
+    fused_rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                         const T* __restrict__ w, T* __restrict__ s_out, T* __restrict__ n_out,
+                         int D, float eps) {
   constexpr int VEC = 16 / sizeof(T);
-  extern __shared__ float smem[];
-  float* srow = smem;              // [D] fp32 s of this row
-  float* wsum = smem + D;          // [nwarps]
-  const size_t base = (size_t)blockIdx.x * D;
+  __shared__ float partial[MAX_THREADS / 32];
+  const int tpr = blockDim.x, tx = threadIdx.x, lane = tx & 31;
+  const int nvec = D / VEC;
+  const size_t base = static_cast<size_t>(blockIdx.x) * D;
+  const uint4* wv = reinterpret_cast<const uint4*>(w);
   const uint4* xv = reinterpret_cast<const uint4*>(x + base);
   const uint4* rv = reinterpret_cast<const uint4*>(r + base);
-  uint4* sv = reinterpret_cast<uint4*>(s_out + base);
-  const int nvec = D / VEC;
 
-  float sq = 0.f;
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    const uint4 a = xv[i], b = rv[i];
-    const T* ae = reinterpret_cast<const T*>(&a);
-    const T* be = reinterpret_cast<const T*>(&b);
-    uint4 o;
-    T* oe = reinterpret_cast<T*>(&o);
+  uint4 wr[VPT], xr[VPT], rr[VPT];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const float s = to_f32(ae[j]) + to_f32(be[j]);
-      srow[i * VEC + j] = s;
-      sq += s * s;
-      oe[j] = from_f32(s, T());
+  for (int k = 0; k < VPT; ++k) {
+    const int i = tx + k * tpr;
+    if (i < nvec) {
+      wr[k] = __ldg(wv + i);
+      xr[k] = xv[i];
+      rr[k] = rv[i];
     }
-    sv[i] = o;
+  }
+
+  float s[VPT][VEC];
+  float sq = 0.f;
+  uint4* sv = reinterpret_cast<uint4*>(s_out + base);
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = tx + k * tpr;
+    if (i < nvec) {
+      const T* ae = reinterpret_cast<const T*>(&xr[k]);
+      const T* be = reinterpret_cast<const T*>(&rr[k]);
+      uint4 o;
+      T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        s[k][j] = to_f32(ae[j]) + to_f32(be[j]);
+        sq += s[k][j] * s[k][j];
+        oe[j] = from_f32(s[k][j], T());
+      }
+      sv[i] = o;
+    }
   }
   sq = warp_sum(sq);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  if (lane == 0) wsum[warp] = sq;
-  __syncthreads();
-  float tot = 0.f;
-  for (int k = 0; k < nwarps; ++k) tot += wsum[k];
-  const float inv = rsqrtf(tot / (float)D + eps);
-
-  const uint4* wv = reinterpret_cast<const uint4*>(w);
-  uint4* nv = reinterpret_cast<uint4*>(n_out + base);
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    const uint4 g = wv[i];
-    const T* ge = reinterpret_cast<const T*>(&g);
-    uint4 o;
-    T* oe = reinterpret_cast<T*>(&o);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      oe[j] = from_f32(srow[i * VEC + j] * inv * (1.0f + to_f32(ge[j])), T());
-    nv[i] = o;
+  if (tpr > 32) {
+    if (lane == 0) partial[tx >> 5] = sq;
+    __syncthreads();
+    sq = warp_sum(lane < (tpr >> 5) ? partial[lane] : 0.f);
   }
+  const float inv = rsqrtf(sq / static_cast<float>(D) + eps);
+
+  uint4* nv = reinterpret_cast<uint4*>(n_out + base);
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = tx + k * tpr;
+    if (i < nvec) {
+      const T* ge = reinterpret_cast<const T*>(&wr[k]);
+      uint4 o;
+      T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) oe[j] = from_f32(s[k][j] * inv * (1.0f + to_f32(ge[j])), T());
+      nv[i] = o;
+    }
+  }
+}
+
+template <typename T, int VPT>
+int launch_vpt(const void* x, const void* r, const void* w, void* s, void* n, int rows, int D,
+               float eps, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int threads = ((D / VEC + VPT - 1) / VPT + 31) / 32 * 32;
+  fused_rmsnorm_kernel<T, VPT><<<rows, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const T*>(w),
+      static_cast<T*>(s), static_cast<T*>(n), D, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -102,22 +142,21 @@ int launch(const void* x, const void* r, const void* w, void* s, void* n, int ro
            float eps, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   if (D % VEC != 0) return -1;
-  int threads = ((D / VEC + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-  const size_t smem = ((size_t)D + threads / 32) * sizeof(float);
-  if (smem > 48 * 1024) return -1;
-  fused_rmsnorm_kernel<T><<<rows, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const T*>(w),
-      static_cast<T*>(s), static_cast<T*>(n), D, eps);
-  return (int)cudaGetLastError();
+  // the fewest vectors a thread that fit the row in one block: rows of up
+  // to 16,384 elements (4 fp32 vectors a thread, 2 bf16)
+  const int nvec = D / VEC;
+  if (D > MAX_D) return -1;
+  if (nvec <= MAX_THREADS) return launch_vpt<T, 1>(x, r, w, s, n, rows, D, eps, stream);
+  if (nvec <= 2 * MAX_THREADS) return launch_vpt<T, 2>(x, r, w, s, n, rows, D, eps, stream);
+  if constexpr (VEC == 4) return launch_vpt<T, 4>(x, r, w, s, n, rows, D, eps, stream);
+  return -1;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, r, w, s and n all of it).  Returns
 // cudaGetLastError() after the launch, or -1 for a shape the kernel does
-// not take (D not a multiple of 16 bytes, or D above 12,000 or so floats
-// of shared memory).
+// not take (D not a multiple of 16 bytes, or above 16,384).
 extern "C" int fused_rmsnorm(const void* x, const void* r, const void* w, void* s, void* n,
                              int rows, int D, float eps, int dtype, void* stream) {
   if (rows <= 0 || D <= 0) return -1;

@@ -14,8 +14,8 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.kernels.srpt_scan.ref import srpt_scan_reference
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_int] + \
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_longlong] + \
     [ctypes.c_double] * 4 + [ctypes.c_void_p]
 
 
@@ -36,9 +36,18 @@ def _check(arr, tok, order, b_max):
         raise ValueError(f"order outside [0, {arr.shape[0]})")
 
 
-def tree_size(n: int) -> int:
-    """L, the least power of two >= n: the tree has leaves L..2L-1."""
-    return 1 << max(n - 1, 0).bit_length()
+def lane_words(n: int) -> int:
+    """The float64 words of scratch the kernel takes for a lane of ``n``
+    requests (its ``srpt_scan_lane_words``, which owns the tree's layout):
+    4 n for the lane's arrays, and more once the tree's lower levels
+    outgrow shared memory.  Needs the built kernel."""
+    fn = K.library("srpt_scan").srpt_scan_lane_words
+    fn.argtypes, fn.restype = [ctypes.c_longlong], ctypes.c_longlong
+    words = fn(n)
+    if words < 0:
+        raise ValueError(f"srpt_scan takes 1 to {2 ** 31 - 33} requests a "
+                         f"lane, got {n}")
+    return words
 
 
 def srpt_scan(arr, tok, order, b_max, k1, k2, k3, k4):
@@ -50,7 +59,9 @@ def srpt_scan(arr, tok, order, b_max, k1, k2, k3, k4):
     b_max: [lanes] int64 batch cap (<= 0 for none); k1..k4: the batch
     latency law.  Returns (starts [n, lanes] float64, first [n, lanes]
     bool): each request's batch start and whether it was its batch's first
-    member."""
+    member.  A request that a NaN arrival leaves unserved has first False
+    and, from the kernel, start NaN (the plain version leaves its start
+    unset)."""
     _check(arr, tok, order, b_max)
     lat = tuple(float(x) for x in (k1, k2, k3, k4))
     if not K.on_cuda(arr, tok, order, b_max):
@@ -61,13 +72,17 @@ def srpt_scan(arr, tok, order, b_max, k1, k2, k3, k4):
     first = torch.empty(arr.shape, dtype=torch.bool, device=arr.device)
     if n == 0 or lanes == 0:
         return starts, first
-    L = tree_size(n)
-    tree = torch.empty((lanes, 2 * L), dtype=torch.float64, device=arr.device)
+    words = lane_words(n)
+    # each lane's requests in time order (NaN last): the kernel inserts
+    # them into its tree as the batch start passes their arrivals
+    torder = torch.argsort(arr, dim=0, stable=True)
+    scratch = torch.empty((lanes, words), dtype=torch.float64,
+                          device=arr.device)
     fn = K.library("srpt_scan").srpt_scan
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     status = fn(arr.data_ptr(), tok.data_ptr(), order.data_ptr(),
-                b_max.data_ptr(), starts.data_ptr(), first.data_ptr(),
-                tree.data_ptr(), n, lanes, L, L.bit_length() - 1, *lat,
+                torder.data_ptr(), b_max.data_ptr(), starts.data_ptr(),
+                first.data_ptr(), scratch.data_ptr(), n, lanes, words, *lat,
                 K.stream_ptr(arr))
     K.check_status("srpt_scan", status)
     K.LAUNCHES["srpt_scan"] += 1

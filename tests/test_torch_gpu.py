@@ -11,6 +11,8 @@ rounding); the gather, the fused norm's residual sum, the simulators'
 float64 scans and batch-event loops (S1-S5) and the fleet's routing scan
 (S6) are bit-equal."""
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -238,22 +240,45 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(q16, k, k.cpu())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [1, 16, 4096, (4, 37)])
-def test_rmsnorm_kernel_matches_plain(cuda, rows, dtype):
-    shape = (rows if isinstance(rows, tuple) else (rows,)) + (2048,)
-    x = _randn(shape, dtype, cuda, 0) * 3
-    r = _randn(shape, dtype, cuda, 1)
-    w = _randn((2048,), dtype, cuda, 2) * 0.1
+def _check_rmsnorm(x, r, w):
     before = K.LAUNCHES["fused_rmsnorm"]
     s, n = fused_rmsnorm(x, r, w, eps=1e-6)
+    torch.cuda.synchronize()
     assert K.LAUNCHES["fused_rmsnorm"] == before + 1
-    assert s.dtype == n.dtype == dtype and s.shape == n.shape == x.shape
+    assert s.dtype == n.dtype == x.dtype and s.shape == n.shape == x.shape
     assert torch.equal(s, x + r)
     torch.testing.assert_close(n.float(),
                                rmsnorm_reference(x, r, w, 1e-6)[1].float(),
-                               **TOL[dtype])
+                               **TOL[x.dtype])
+
+
+# rows: one decode token to a prefill bucket; D: the smallest bf16 row (one
+# 16-byte vector), qwen2.5-3b's width, a width no multiple of the thread
+# block, and the widest rows (12000 fit the earlier kernel's 48 KB of
+# shared memory; 12288 is the wrapper's limit)
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 2048, 2056, 12000, 12288])
+@pytest.mark.parametrize("rows", [1, 2, 16, 64, 4096, (4, 37)])
+def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype):
+    shape = (rows if isinstance(rows, tuple) else (rows,)) + (d,)
+    x = _randn(shape, dtype, cuda, 0) * 3
+    r = _randn(shape, dtype, cuda, 1)
+    w = _randn((d,), dtype, cuda, 2) * 0.1
+    _check_rmsnorm(x, r, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_strided_and_3d_inputs(cuda, dtype):
+    wide = _randn((16, 2 * 2048), dtype, cuda, 0)
+    x = wide[:, ::2]                                     # non-contiguous rows
+    assert not x.is_contiguous()
+    _check_rmsnorm(x, _randn((16, 2048), dtype, cuda, 1),
+                   _randn((2048,), dtype, cuda, 2) * 0.1)
+    _check_rmsnorm(_randn((2, 9, 2048), dtype, cuda, 3),
+                   _randn((2, 9, 2048), dtype, cuda, 4),
+                   _randn((2048,), dtype, cuda, 5) * 0.1)
 
 
 @pytest.mark.gpu
@@ -680,6 +705,118 @@ def test_event_kernels_bit_equal_to_plain(cuda, kernel, case, n, lanes):
              *EVENT_LAT)
     assert torch.equal(starts.cpu(), cpu[0]) and torch.equal(first.cpu(),
                                                              cpu[1])
+
+
+@contextlib.contextmanager
+def _nan_filled_empty():
+    """torch.empty fills floats with NaN (and bools with True) inside, so
+    the requests a lane leaves unserved read NaN in the plain version's
+    starts too, and the two compare as wholes."""
+    det, warn = (torch.are_deterministic_algorithms_enabled(),
+                 torch.is_deterministic_algorithms_warn_only_enabled())
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(det, warn_only=warn)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+@contextlib.contextmanager
+def _sentinel_empty(monkeypatch):
+    """torch.empty and torch.empty_like fill what they return with -7
+    (True for bools) inside, so an output a kernel leaves unwritten
+    shows."""
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def fill(t):
+        return t.fill_(True if t.dtype == torch.bool else -7)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", lambda *a, **kw: fill(empty(*a, **kw)))
+        m.setattr(torch, "empty_like",
+                  lambda *a, **kw: fill(empty_like(*a, **kw)))
+        yield
+
+
+def _srpt_oracle(arr, tok, b_max):
+    """One lane through the NumPy oracle's SRPT formation (its heap of
+    (predicted, index) over arrivals in time order), the predicted lengths
+    the true ones: (starts, first)."""
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import _SRPTFormation
+    lat = BatchLatencyModel(*EVENT_LAT)
+    fs = _SRPTFormation(arr, tok, b_max if b_max > 0 else None)
+    starts, first = np.empty(len(arr)), np.zeros(len(arr), bool)
+    t_free = 0.0
+    while (nb := fs.next_batch(t_free)) is not None:
+        start, idx = nb
+        starts[idx], first[idx[0]] = start, True
+        t_free = start + lat.batch_time(len(idx), tok[idx].max())
+    return starts, first
+
+
+# S5's fanout-32 tree at its edges: a level that just fills a word of 32
+# and one that spills into the next, at 32, 1,024 and 32,768 ranks; every
+# arrival at one instant; arrivals out of time order; caps of n and more; a
+# NaN arrival in one lane; one cap per lane; and a lane whose level 0
+# outgrows shared memory and sits in the scratch (at 2**21 + 3 requests
+# level 0 is in the scratch, levels 1 to 3 in shared memory)
+SRPT_TREE_CASES = [("n", n, 2) for n in (31, 32, 33, 1023, 1024, 1025, 32767,
+                                         32768, 32769)] + [
+    ("equal_arrivals", 3001, 3), ("unsorted", 3001, 3), ("cap_ge_n", 2001, 3),
+    ("nan_one_lane", 2001, 3), ("mixed_caps", 4001, 6),
+    ("global_levels", 2 ** 21 + 3, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,n,lanes", SRPT_TREE_CASES)
+def test_srpt_scan_wide_tree_bit_equal(cuda, monkeypatch, case, n, lanes):
+    from repro_torch.kernels.srpt_scan import srpt_scan, srpt_scan_reference
+    from repro_torch.kernels.srpt_scan.ops import lane_words
+    arr, tok = _event_inputs(n, lanes, seed=n + lanes)
+    if case == "equal_arrivals":
+        arr[:] = 5.0
+    if case == "global_levels":       # saturated, so the plain loop is short
+        arr = np.cumsum(np.full((n, 1), 1 / 3.0), axis=0)
+        assert lane_words(n) > 4 * n      # tree words beyond the arrays
+    if case == "unsorted":            # shuffled, with runs of equal arrivals
+        arr = np.random.default_rng(n).permutation(arr)
+        arr[::7] = arr[3::7]
+    if case == "nan_one_lane":
+        arr[n // 2, lanes - 1] = np.nan
+    b_max = {"cap_ge_n": [n, n + 5, 0], "mixed_caps": [1, 2, 16, 0, 33, 1000],
+             "global_levels": [128]}.get(case, [8, 0, 3][:lanes])
+    order = np.argsort(tok, axis=0, kind="stable")
+    args = tuple(torch.from_numpy(np.asarray(a)).to(cuda) for a in (
+        arr, tok, order.astype(np.int64), np.asarray(b_max, np.int64)))
+    before = K.LAUNCHES["srpt_scan"]
+    with _sentinel_empty(monkeypatch):
+        starts, first = srpt_scan(*args, *EVENT_LAT)
+        torch.cuda.synchronize()
+    assert K.LAUNCHES["srpt_scan"] == before + 1
+    # the kernel writes every start and flag: NaN and False for a request a
+    # NaN arrival leaves unserved, which the plain version leaves unset
+    assert not bool((starts == -7).any())
+    with _nan_filled_empty():
+        ref_s, ref_f = srpt_scan_reference(*args, *EVENT_LAT)
+    torch.testing.assert_close(starts, ref_s, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(first, ref_f)
+    s, f = starts.cpu().numpy(), first.cpu().numpy()
+    for lane in range(lanes):
+        if case == "nan_one_lane" and lane == lanes - 1:
+            served = ~np.isnan(s[:, lane])
+            assert 0 < served.sum() < n and not served[n // 2]
+            assert not f[~served, lane].any()
+            continue
+        if case == "unsorted":        # the oracle takes arrivals in time order
+            continue
+        assert not np.isnan(s[:, lane]).any()
+        ora_s, ora_f = _srpt_oracle(arr[:, lane], tok[:, lane],
+                                    int(b_max[lane]))
+        assert np.array_equal(s[:, lane], ora_s), (case, lane)
+        assert np.array_equal(f[:, lane], ora_f), (case, lane)
 
 
 @pytest.mark.gpu
