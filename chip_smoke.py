@@ -46,20 +46,23 @@ Phases (any failure raises and the script exits non-zero):
      versions on the card, four lanes of the Fig 5 launch and every S3-S5
      lane to the NumPy oracle, assert the benchmark's relations at λ = 1,
      print every lane's mean wait beside the paper's analytic delay or
-     envelope, time the kernels against their bytes bound, and print the
+     envelope, time the kernels against their bytes bound (S3 also the
+     kernel alone, without its grouping by bin), and print the
      device time of each S5 launch in the counted path (CUDA events);
   8b. run the reference benchmarks' fleet, predictor and fault grids on
      the card (``fleet.sweep``, ``simulate_fleet_fast``, ``sweep_noise``
-     with its SRPT cells as one ``srpt_scan`` launch,
+     with its SRPT cells as one ``srpt_scan`` launch and its multi-bin
+     cells as one ``multibin_scan`` launch,
      ``simulate_fleet_faulty(fast=True)``), the backlog routers on
      ``backlog_scan`` (S6); assert the benchmarks' relations, print each
      figure beside ``benchmarks/BENCH_simulators.json``, hold every S6
      launch at full length to its plain version on the card and to the
-     NumPy recursion, and time S6 against its bytes bound; hold every S5
-     lane of the counted path (the ten-lane noise plane and the 40 fleet
-     replicas' sub-streams) to its plain version at full length, in a
-     pool of host processes, and print each launch's device time in the
-     path (CUDA events) and their total.
+     NumPy recursion, and time S6 (the wrapper and the kernel alone)
+     against its bytes bound; hold every S5 lane of the counted path (the
+     ten-lane noise plane and the 40 fleet replicas' sub-streams) and the
+     ten lanes of the S3 noise launch to their plain versions at full
+     length, in a pool of host processes, and print each S5 launch's
+     device time in the path (CUDA events) and their total.
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after it.
 
@@ -174,6 +177,9 @@ def ptxas_report(build_log):
                       " (fp32)" if "_kernelIf" in mangled else "")
             vpt = re.search(r"fused_rmsnorm_kernelI\w+?Li(\d+)E", mangled)
             entry += f" VPT={vpt.group(1)}" if vpt else ""
+            rt = re.search(r"backlog_\w+?_kernelILi(\d+)ELb([01])E", mangled)
+            entry += (f" RT={rt.group(1)}{' masked' if rt.group(2) == '1' else ''}"
+                      if rt else "")
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and entry:
@@ -1108,6 +1114,21 @@ EVENT_KERNELS = {
 }
 
 
+def s3_times(args):
+    """S3 on one launch's inputs, ms by CUDA events: the wrapper (its
+    grouping by bin on the card included) and the kernel alone on the
+    grouped inputs."""
+    import torch
+    from repro_torch.kernels.multibin_scan import multibin_scan, ops
+    arr, tok, bins, num_bins, b_max, *lat = args
+    laid = ops.layout(arr, tok, bins, num_bins)
+    starts = torch.empty(arr.shape, dtype=torch.float64, device=arr.device)
+    first = torch.empty(arr.shape, dtype=torch.bool, device=arr.device)
+    return (event_ms(lambda: multibin_scan(*args)),
+            event_ms(lambda: ops.launch(laid, num_bins, b_max, tuple(lat),
+                                        starts, first)))
+
+
 def check_event_cells(g, dev):
     """Every S3-S5 cell of the grid's counted launches, at full length:
     its starts and batch heads against the plain version on the card on
@@ -1137,20 +1158,26 @@ def check_event_cells(g, dev):
         assert np.array_equal(starts[:, 0].cpu().numpy() - arr,
                               ora["waits"]), f"{name} λ={lam}: oracle differs"
         assert g["n"] / nb == ora["mean_batch"], (name, lam)
-        ms = event_ms(lambda: fn(*args))
+        if kern == "multibin_scan":
+            ms, kernel_ms = s3_times(args)
+            alone = (f"; the kernel alone {kernel_ms:.3f} ms "
+                     f"({1e6 * kernel_ms / g['n']:.1f} ns a request)")
+        else:
+            ms, kernel_ms, alone = event_ms(lambda: fn(*args)), None, ""
         n = g["n"]
         _, nbytes = EVENT_KERNELS[kern]
         bnd = bound_ms(nbytes * n, 0, "float64")
         log(f"{kern} {name} λ={lam}: {nb} batches (mean {n / nb:.3f}); "
-            f"{ms:.3f} ms by CUDA events ({1e6 * ms / n:.1f} ns a request), "
-            f"bound {bnd:.5f} ms (bytes, {nbytes * n / 1e6:.2f} MB; "
+            f"{ms:.3f} ms by CUDA events ({1e6 * ms / n:.1f} ns a request)"
+            f"{alone}, bound {bnd:.5f} ms (bytes, {nbytes * n / 1e6:.2f} MB; "
             f"{100 * bnd / ms:.3f}% of it); plain {plain_ms:.1f} ms; starts "
             f"and batch heads equal the plain version's, waits and mean "
             f"batch equal the oracle's (oracle {cpu_s:.2f} s of host CPU)")
         by_kernel.setdefault(kern, []).append(
             {"cell": f"{name} λ={lam}", "batches": nb, "ms": ms,
              "ns_per_request": 1e6 * ms / n, "plain_ms": plain_ms,
-             "bound_ms": bnd})
+             "bound_ms": bnd, **({"kernel_ms": kernel_ms} if kernel_ms
+                                 else {})})
     out = []
     for kern, rows in by_kernel.items():
         last = rows[-1]               # the λ = 1 cell of the last policy
@@ -1160,7 +1187,9 @@ def check_event_cells(g, dev):
                     "shape": [g["n"], 1], "max_abs_err": 0.0,
                     "ms": last["ms"], "plain_ms": last["plain_ms"],
                     "bound_ms": last["bound_ms"], "bound_by": "bytes",
-                    "library_ms": None, "cells": rows})
+                    "library_ms": None, "cells": rows,
+                    **({"kernel_ms": last["kernel_ms"]} if "kernel_ms" in last
+                       else {})})
     return out
 
 
@@ -1377,7 +1406,7 @@ def check_backlog_launches(launches, dev):
     from repro_torch.core.fleet import (
         _backlog_assign_np, _masked_backlog_assign_np)
     from repro_torch.kernels.backlog_scan import (
-        backlog_scan, backlog_scan_reference)
+        backlog_scan, backlog_scan_reference, ops)
     groups = {}
     for label, lo in launches.items():
         arr, work, R, *up = lo["args"]
@@ -1408,14 +1437,22 @@ def check_backlog_launches(launches, dev):
         arr, work, R, *up = lo["args"]
         n = arr.shape[0]
         ms = event_ms(lambda: backlog_scan(*lo["args"]), iters=5)
+        # the kernel alone, on the wrapper's packed mask
+        bits = ops.pack_up(up[0]) if up else None
+        out = torch.empty_like(lo["out"])
+        kernel_ms = event_ms(lambda: ops.launch(arr, work, bits, R, out),
+                             iters=5)
         nbytes = n * (8 + 8 + 8) + (n * R if up else 0)
         bnd = bound_ms(nbytes, 0, "float64")
         rows[label] = dict(R=R, n=n, masked=bool(up), ms=ms,
-                           ns_per_request=1e6 * ms / n, bound_ms=bnd)
-        log(f"S6 backlog_scan {label}: R={R}{' masked' if up else ''}, "
-            f"[{n}, 1]: {ms:.3f} ms by CUDA events "
-            f"({1e6 * ms / n:.1f} ns a request), bound {bnd:.5f} ms (bytes, "
-            f"{nbytes / 1e6:.2f} MB; {100 * bnd / ms:.4f}% of it)")
+                           ns_per_request=1e6 * ms / n, kernel_ms=kernel_ms,
+                           bound_ms=bnd)
+        log(f"S6 backlog_scan {label}: R={R} (template "
+            f"{ops.template_of(R)}){' masked' if up else ''}, [{n}, 1]: "
+            f"{ms:.3f} ms by CUDA events ({1e6 * ms / n:.1f} ns a request), "
+            f"the kernel alone {kernel_ms:.3f} ms ({1e6 * kernel_ms / n:.1f} "
+            f"ns), bound {bnd:.5f} ms (bytes, {nbytes / 1e6:.2f} MB; "
+            f"{100 * bnd / ms:.4f}% of it)")
     timed = "routers least_work"
     lo = launches[timed]
     _, plain_ms = wall_ms(lambda: backlog_scan_reference(*lo["args"]))
@@ -1423,50 +1460,57 @@ def check_backlog_launches(launches, dev):
             "source": "src/repro_torch/kernels/backlog_scan/csrc/"
                       "backlog_scan.cu",
             "replaces": S6_REPLACES, "shape": [rows[timed]["n"], 1],
-            "max_abs_err": 0.0, "ms": rows[timed]["ms"], "plain_ms": plain_ms,
+            "max_abs_err": 0.0, "ms": rows[timed]["ms"],
+            "kernel_ms": rows[timed]["kernel_ms"], "plain_ms": plain_ms,
             "bound_ms": rows[timed]["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "launch_rows": rows}
 
 
-def _plain_s5_lane(arr, tok, order, b_max, k):
-    """S5's plain version on one lane, on the host CPU (a worker of
-    ``plain_s5_on_host``): numpy in, numpy out."""
+def _plain_lane(kern, args):
+    """Kernel ``kern``'s plain version on one lane, on the host CPU (a
+    worker of ``plain_on_host``): numpy in, numpy out."""
     sys.path.insert(0, str(ROOT / "src"))
+    import importlib
     import torch
     torch.set_num_threads(1)
-    from repro_torch.kernels.srpt_scan import srpt_scan_reference
-    s, f = srpt_scan_reference(*(torch.from_numpy(a) for a in (arr, tok, order,
-                                                                b_max)), *k)
+    mod = importlib.import_module(f"repro_torch.kernels.{kern}")
+    s, f = getattr(mod, f"{kern}_reference")(*(
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in args))
     return s.numpy(), f.numpy()
 
 
-def plain_s5_on_host(launches):
-    """Hold every lane of the given S5 launches (launch_out dicts) at full
-    length to the plain version: the same function in float64 on the same
-    inputs, one lane a job in a pool of host processes (the plain loop is
-    a few small tensor ops a batch, faster on the host's cores than as
-    launches on the card).  Returns the host seconds it took."""
+def plain_on_host(launches):
+    """Hold every lane of the given S3 and S5 launches ((kernel name,
+    launch_out dict) pairs) at full length to the plain version: the same
+    function in float64 on the same inputs, one lane a job in a pool of
+    host processes (the plain loops are a few small tensor ops a batch,
+    faster on the host's cores than as launches on the card).  Returns
+    the lanes held and the host seconds it took."""
     import multiprocessing
     import os
     from concurrent.futures import ProcessPoolExecutor
+    import torch
     jobs, outs = [], []
-    for lo in launches:
-        arr, tok, order, b_max, *k = lo["args"]
-        host = [t.cpu().numpy() for t in (arr, tok, order, b_max)]
+    for kern, lo in launches:
+        host = [a.cpu().numpy() if torch.is_tensor(a) else a
+                for a in lo["args"]]
         starts, first = (t.cpu().numpy() for t in lo["out"])
-        for j in range(host[0].shape[1]):
-            jobs.append((host[0][:, j:j + 1].copy(), host[1][:, j:j + 1].copy(),
-                         host[2][:, j:j + 1].copy(), host[3][j:j + 1].copy(),
-                         tuple(float(x) for x in k)))
-            outs.append((starts[:, j:j + 1], first[:, j:j + 1]))
+        lanes = starts.shape[1]
+        for j in range(lanes):
+            # [n, lanes] and [lanes] tensors cut to lane j; scalars as they are
+            jobs.append((kern, tuple(
+                a[:, j:j + 1].copy() if isinstance(a, np.ndarray) and a.ndim == 2
+                else a[j:j + 1].copy() if isinstance(a, np.ndarray) else a
+                for a in host)))
+            outs.append((kern, starts[:, j:j + 1], first[:, j:j + 1]))
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
                              mp_context=multiprocessing.get_context("spawn")) \
             as pool:
-        refs = list(pool.map(_plain_s5_lane, *zip(*jobs)))
-    for (s, f), (rs, rf) in zip(outs, refs):
+        refs = list(pool.map(_plain_lane, *zip(*jobs)))
+    for (kern, s, f), (rs, rf) in zip(outs, refs):
         assert np.array_equal(s, rs) and np.array_equal(f, rf), \
-            "S5 differs from its plain version"
+            f"{kern} differs from its plain version"
     return len(jobs), time.perf_counter() - t0
 
 
@@ -1532,9 +1576,9 @@ def run_fleet_sims(dev):
             **fleet_kw)["mean_wait"]
         s6[f"least_work sigma={sg}"] = got
     # (d) the (lambda, sigma) plane: SRPT as one S5 launch of 10 lanes,
-    # multi-bin and WAIT a cell at a time
+    # multi-bin as one S3 launch of 10 lanes, WAIT a cell at a time
     s5_before = K.LAUNCHES["srpt_scan"]
-    s5 = {}
+    s5, s3 = {}, {}
     t_noise = time.perf_counter()
     grids = {"srpt_b16": sweep_noise(
         noise_factory(lambda p: SRPTPolicy(b_max=16, predictor=p)),
@@ -1542,12 +1586,13 @@ def run_fleet_sims(dev):
         device=dev, launch_out=s5)["mean_wait"]}
     t_noise = time.perf_counter() - t_noise
     assert K.LAUNCHES["srpt_scan"] == s5_before + 1, "SRPT cells not one launch"
-    for name, make in (("multibin4", lambda p: MultiBinPolicy(
-            num_bins=4, predictor=p)),
-            ("wait_k16", lambda p: WaitPolicy(k=16, predictor=p))):
+    for name, make, got in (
+            ("multibin4", lambda p: MultiBinPolicy(num_bins=4, predictor=p),
+             s3),
+            ("wait_k16", lambda p: WaitPolicy(k=16, predictor=p), None)):
         grids[name] = sweep_noise(noise_factory(make), noise_lams, sigmas, ln,
                                   ht, num_requests=NOISE_N, seed=NOISE_SEED,
-                                  device=dev)["mean_wait"]
+                                  device=dev, launch_out=got)["mean_wait"]
     # (e) crash faults on a least_work fleet, masked S6
     crash = {}
     for mtbf, mttr in crash_cells:
@@ -1563,6 +1608,7 @@ def run_fleet_sims(dev):
     launches = dict(K.LAUNCHES)
     assert len(s5_rec.launches) == launches["srpt_scan"] == 41, launches
     assert launches["backlog_scan"] == len(s6) == 14, (launches, sorted(s6))
+    assert launches["multibin_scan"] == 1, "multi-bin cells not one launch"
     log(f"fleet simulators: main path {main_wall:.2f} s wall (the SRPT noise "
         f"plane {t_noise:.2f} s), launches {launches}")
 
@@ -1653,20 +1699,34 @@ def run_fleet_sims(dev):
     ms = event_ms(lambda: srpt_scan(*s5["args"]))
     n, lanes = starts.shape
     # every S5 lane of the counted path (the noise launch's ten, the 40
-    # fleet replicas' sub-streams) against the plain version, at full length
+    # fleet replicas' sub-streams) and the ten lanes of the S3 noise launch
+    # against the plain version, at full length
     replicas = [lo for lo in s5_rec.launches if lo["out"] is not s5["out"]]
     assert len(replicas) == 40, len(replicas)
-    jobs, host_s = plain_s5_on_host(s5_rec.launches)
+    jobs, host_s = plain_on_host([("srpt_scan", lo) for lo in s5_rec.launches]
+                                 + [("multibin_scan", s3)])
     log(f"S5 srpt_scan, sweep_noise's one launch of {lanes} lanes x {n}: "
         f"{ms:.3f} ms by CUDA events ({1e6 * ms / (n * lanes):.1f} ns a "
         f"lane-request); the plain version on the card {plain_ms:.1f} ms for "
         f"its first lane; all {jobs} lanes of the 41 counted S5 launches (the "
-        f"noise plane and the 40 fleet replicas) equal the plain version's "
-        f"at full length (host processes, {host_s:.1f} s)")
+        f"noise plane and the 40 fleet replicas) and of the one S3 launch "
+        f"(the noise plane) equal the plain version's at full length (host "
+        f"processes, {host_s:.1f} s)")
     noise_s5 = {"lanes": lanes, "n": n, "ms": ms,
                 "plain_ms_first_lane": plain_ms}
+    s3_ms, s3_kernel_ms = s3_times(s3["args"])
+    n, lanes = s3["args"][0].shape
+    nb = int(s3["out"][1].sum())
+    log(f"S3 multibin_scan, sweep_noise's one launch of {lanes} lanes x {n} "
+        f"({nb} batches): {s3_ms:.3f} ms by CUDA events ("
+        f"{1e6 * s3_ms / n:.1f} ns a request a lane, "
+        f"{1e6 * s3_ms / (n * lanes):.1f} ns a lane-request), the kernel "
+        f"alone {s3_kernel_ms:.3f} ms ({1e6 * s3_kernel_ms / n:.1f} ns a "
+        f"request a lane)")
+    noise_s3 = {"lanes": lanes, "n": n, "batches": nb, "ms": s3_ms,
+                "kernel_ms": s3_kernel_ms}
     noise_s5["in_path"] = s5_rec.report("fleet simulators")
-    return launches, check_backlog_launches(s6, dev), noise_s5
+    return launches, check_backlog_launches(s6, dev), noise_s5, noise_s3
 
 
 def main() -> int:
@@ -1748,7 +1808,7 @@ def main() -> int:
     log(f"phase 7 (simulators) took {time.perf_counter() - t0:.1f} s")
     kernels += sim_kernels
     t0 = time.perf_counter()
-    paths["fleet simulators"], s6, noise_s5 = run_fleet_sims(dev)
+    paths["fleet simulators"], s6, noise_s5, noise_s3 = run_fleet_sims(dev)
     log(f"phase 8b (fleet simulators) took {time.perf_counter() - t0:.1f} s")
     kernels.append(s6)
     next(k for k in kernels if k["name"] == "fused_rmsnorm")[
@@ -1756,6 +1816,8 @@ def main() -> int:
     s5 = next(k for k in kernels if k["name"] == "srpt_scan")
     s5["in_path"]["fleet simulators"] = noise_s5.pop("in_path")
     s5["sweep_noise"] = noise_s5
+    next(k for k in kernels if k["name"] == "multibin_scan")["sweep_noise"] = \
+        noise_s3
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in paths.items()}

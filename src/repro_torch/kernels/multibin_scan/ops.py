@@ -3,7 +3,10 @@
 
 CUDA tensors launch the kernel; CPU tensors run the plain version in
 ``ref.py``.  The wrapper checks what the kernel takes and raises on the
-rest; it never falls back from one to the other."""
+rest; it never falls back from one to the other.  On the card it lays out
+what the kernel reads (``layout``: each lane's requests grouped by bin, the
+reference's per-bin rows); the kernel forms every batch itself.  The
+layout is plain torch, so the CPU tests hold it too."""
 
 from __future__ import annotations
 
@@ -14,10 +17,10 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.kernels.multibin_scan.ref import multibin_scan_reference
 
-MAX_BINS = 64          # the kernel's per-lane cursor arrays
+MAX_BINS = 64          # two bins a thread of the kernel's warp
+MAX_N = 2 ** 31 - 1    # the kernel's int32 positions
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int] + \
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + \
     [ctypes.c_double] * 4 + [ctypes.c_void_p]
 
 
@@ -35,8 +38,51 @@ def _check(arr, tok, bins, num_bins, b_max):
                          f"[lanes]")
     if not 1 <= num_bins <= MAX_BINS:
         raise ValueError(f"num_bins {num_bins}: need 1..{MAX_BINS}")
+    if arr.shape[0] > MAX_N:
+        raise ValueError(f"{arr.shape[0]} requests a lane: need <= {MAX_N}")
     if bins.numel() and (int(bins.min()) < 0 or int(bins.max()) >= num_bins):
         raise ValueError(f"bins outside [0, {num_bins})")
+
+
+def group_by_bin(bins, num_bins: int):
+    """Each lane's requests stably sorted by bin: a bin's members contiguous
+    and in arrival order, as the reference's per-bin rows.  bins: [n, lanes]
+    int64.  Returns (perm [lanes, n] int64, the request at each sorted
+    position; offs [lanes, num_bins + 1] int64, bin b's members at sorted
+    positions offs[:, b] .. offs[:, b + 1] - 1)."""
+    keys = bins.t()
+    perm = torch.sort(keys, dim=1, stable=True).indices
+    counts = torch.zeros((keys.shape[0], num_bins), dtype=torch.int64,
+                         device=bins.device)
+    counts.scatter_add_(1, keys, torch.ones_like(keys))
+    return perm, torch.nn.functional.pad(counts.cumsum(1), (1, 0))
+
+
+def layout(arr, tok, bins, num_bins: int):
+    """What the kernel reads, each contiguous: (arr, tok [lanes, n] float64
+    and perm [lanes, n] int32 in :func:`group_by_bin`'s order, offs [lanes,
+    num_bins + 1] int32).  (A sort along the rows of a transposed view
+    returns its indices in the view's strides.)"""
+    perm, offs = group_by_bin(bins, num_bins)
+    return tuple(x.contiguous() for x in (
+        arr.t().gather(1, perm), tok.t().gather(1, perm),
+        perm.to(torch.int32), offs.to(torch.int32)))
+
+
+def launch(laid, num_bins: int, b_max, lat, starts, first):
+    """The kernel alone on :func:`layout`'s tensors ``laid``; writes starts
+    [n, lanes] float64 and first [n, lanes] bool in request order."""
+    arr, tok, perm, offs = laid
+    lanes, n = arr.shape
+    fn = K.library("multibin_scan").multibin_scan
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    status = fn(arr.data_ptr(), tok.data_ptr(), perm.data_ptr(),
+                offs.data_ptr(), b_max.data_ptr(), starts.data_ptr(),
+                first.data_ptr(), n, lanes, num_bins, *lat,
+                K.stream_ptr(arr))
+    K.check_status("multibin_scan", status)
+    K.LAUNCHES["multibin_scan"] += 1
+    return starts, first
 
 
 def multibin_scan(arr, tok, bins, num_bins, b_max, k1, k2, k3, k4):
@@ -53,17 +99,9 @@ def multibin_scan(arr, tok, bins, num_bins, b_max, k1, k2, k3, k4):
     lat = tuple(float(x) for x in (k1, k2, k3, k4))
     if not K.on_cuda(arr, tok, bins, b_max):
         return multibin_scan_reference(arr, tok, bins, num_bins, b_max, *lat)
-    arr, tok, bins, b_max = (x.contiguous() for x in (arr, tok, bins, b_max))
-    n, lanes = arr.shape
-    starts = torch.empty_like(arr)
+    starts = torch.empty(arr.shape, dtype=torch.float64, device=arr.device)
     first = torch.empty(arr.shape, dtype=torch.bool, device=arr.device)
-    if n == 0 or lanes == 0:
+    if arr.numel() == 0:
         return starts, first
-    fn = K.library("multibin_scan").multibin_scan
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    status = fn(arr.data_ptr(), tok.data_ptr(), bins.data_ptr(),
-                b_max.data_ptr(), starts.data_ptr(), first.data_ptr(), n,
-                lanes, num_bins, *lat, K.stream_ptr(arr))
-    K.check_status("multibin_scan", status)
-    K.LAUNCHES["multibin_scan"] += 1
-    return starts, first
+    return launch(layout(arr, tok, bins, num_bins), num_bins,
+                  b_max.contiguous(), lat, starts, first)

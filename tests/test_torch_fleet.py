@@ -256,8 +256,8 @@ def test_sweep_noise_equals_reference(x64, pname):
                                           td, tl, num_requests=n, seed=15,
                                           device="cpu")
         assert t["mean_wait"][li, 0] == ref["mean_wait"]
-    if pname == "srpt":     # every (lambda, sigma) cell a lane of ONE launch
-        assert launch["kernel"] == "srpt_scan"
+    if pname in ("srpt", "multibin"):   # every cell a lane of ONE launch
+        assert launch["kernel"] == pname + "_scan"
         assert launch["args"][0].shape == (n, len(lams) * len(sigmas))
         assert launch["cells"] == [(li, si) for li in range(2)
                                    for si in range(3)]

@@ -646,6 +646,30 @@ def _event_inputs(n, lanes, seed, tie_every=0):
     return arr, tok
 
 
+def _multibin_bins(case, tok, lanes, rng):
+    """(num_bins, [n, lanes] bins) of a multi-bin case."""
+    n = tok.shape[0]
+    if case.startswith("bins_"):              # every bin, at random
+        num_bins = int(case.split("_")[1])
+        return num_bins, rng.integers(0, num_bins, (n, lanes))
+    if case == "mixed_layouts":               # each lane its own layout
+        bins = np.stack([np.zeros(n, np.int64),               # one bin
+                         rng.integers(0, 64, n),              # all 64
+                         np.where(rng.random(n) < 0.5, 5, 63),  # two
+                         np.searchsorted([500.0, 1000.0, 1500.0],
+                                         tok[:, 3 % lanes])][:lanes],
+                        axis=1)
+        return 64, bins
+    edges = {"one_bin": [1e9, 2e9, 3e9],      # every request in bin 0
+             "empty_bin": [600.0, 600.5, 1200.0]}.get(  # bin 1 empty
+                 case, [500.0, 1000.0, 1500.0])
+    bins = np.searchsorted(edges, tok, side="left")
+    if case == "early_empty":                 # bin 3's members all early
+        bins = np.where(bins == 3, 0, bins)
+        bins[: n // 20: 3] = 3
+    return 4, bins
+
+
 def _event_case(kernel, case, n, lanes, dev):
     """(wrapper, plain version, args on ``dev``) of one edge case."""
     from repro_torch.kernels.multibin_scan import (
@@ -654,8 +678,12 @@ def _event_case(kernel, case, n, lanes, dev):
     from repro_torch.kernels.wait_scan import wait_scan, wait_scan_reference
     arr, tok = _event_inputs(n, lanes, seed=n + lanes,
                              tie_every=3 if case == "ties" else 0)
-    cap = {"b_max_1": 1, "ties": 4}.get(case, 8)
+    if case == "wide":          # saturated lanes: batches of hundreds
+        arr = arr / 20.0
+    cap = {"b_max_1": 1, "ties": 4, "b_max_16": 16}.get(case, 8)
     b_max = np.where(np.arange(lanes) % 2 == 0, cap, 0)     # 0: no cap
+    if case == "wide":
+        b_max[:] = 0
 
     def i64(x):
         return torch.from_numpy(np.asarray(x, np.int64)).to(dev)
@@ -664,12 +692,10 @@ def _event_case(kernel, case, n, lanes, dev):
         return torch.from_numpy(np.asarray(x, np.float64)).to(dev)
 
     if kernel == "multibin_scan":
-        edges = {"one_bin": [1e9, 2e9, 3e9],      # every request in bin 0
-                 "empty_bin": [600.0, 600.5, 1200.0]}.get(  # bin 1 empty
-                     case, [500.0, 1000.0, 1500.0])
-        bins = np.searchsorted(edges, tok, side="left")
+        num_bins, bins = _multibin_bins(case, tok, lanes,
+                                        np.random.default_rng(n))
         return multibin_scan, multibin_scan_reference, (
-            f64(arr), f64(tok), i64(bins), 4, i64(b_max))
+            f64(arr), f64(tok), i64(bins), num_bins, i64(b_max))
     if kernel == "wait_scan":
         timeout = {"timeout_0": 0.0}.get(case, 3.0)
         timeouts = np.where(np.arange(lanes) % 3 == 2, np.inf, timeout)
@@ -681,18 +707,33 @@ def _event_case(kernel, case, n, lanes, dev):
         f64(arr), f64(tok), i64(order), i64(b_max))
 
 
+# every batch-event kernel on the shared edge cases; S3 also across the
+# warp's bins (1, 4, 32, 33 and 64: two bins a thread past 32), a bin that
+# empties early, caps of 1, 16 and none, batches of hundreds (past the
+# 32-member window) and lanes of different bin layouts
+EVENT_CASES = [(kernel, case, n, lanes)
+               for kernel in ("multibin_scan", "wait_scan", "srpt_scan")
+               for case, n, lanes in (
+                   ("plain", 4001, 5), ("ties", 3001, 3), ("b_max_1", 2001, 2),
+                   ("n_1", 1, 3), ("one_bin", 2001, 2), ("empty_bin", 2001, 3),
+                   ("timeout_0", 2001, 3))] + [
+    ("multibin_scan", case, n, lanes) for case, n, lanes in (
+        ("bins_1", 3001, 3), ("bins_32", 4001, 3), ("bins_33", 4001, 3),
+        ("bins_64", 6001, 4), ("early_empty", 4001, 3), ("b_max_16", 4001, 4),
+        ("wide", 6001, 3), ("mixed_layouts", 4001, 4))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["multibin_scan", "wait_scan",
-                                    "srpt_scan"])
-@pytest.mark.parametrize("case,n,lanes", [
-    ("plain", 4001, 5), ("ties", 3001, 3), ("b_max_1", 2001, 2),
-    ("n_1", 1, 3), ("one_bin", 2001, 2), ("empty_bin", 2001, 3),
-    ("timeout_0", 2001, 3)])
-def test_event_kernels_bit_equal_to_plain(cuda, kernel, case, n, lanes):
+@pytest.mark.parametrize("kernel,case,n,lanes", EVENT_CASES)
+def test_event_kernels_bit_equal_to_plain(cuda, monkeypatch, kernel, case, n,
+                                          lanes):
     fn, ref, args = _event_case(kernel, case, n, lanes, cuda)
     before = K.LAUNCHES[kernel]
-    starts, first = fn(*args, *EVENT_LAT)
-    torch.cuda.synchronize()
+    # S3's outputs start as a sentinel: the kernel writes every row
+    with (_sentinel_empty(monkeypatch) if kernel == "multibin_scan"
+          else contextlib.nullcontext()):
+        starts, first = fn(*args, *EVENT_LAT)
+        torch.cuda.synchronize()
     assert K.LAUNCHES[kernel] == before + 1
     assert starts.shape == (n, lanes) and starts.dtype == torch.float64
     assert first.dtype == torch.bool
@@ -705,6 +746,12 @@ def test_event_kernels_bit_equal_to_plain(cuda, kernel, case, n, lanes):
              *EVENT_LAT)
     assert torch.equal(starts.cpu(), cpu[0]) and torch.equal(first.cpu(),
                                                              cpu[1])
+    if case == "wide":          # a batch (one start) spans several windows
+        assert max(int(torch.unique(starts[:, c], return_counts=True)[1].max())
+                   for c in range(lanes)) > 64
+    if case == "early_empty":   # bin 3 is empty long before the end
+        bins = args[2][:, 0].cpu()
+        assert int(torch.nonzero(bins == 3).max()) < n // 20
 
 
 @contextlib.contextmanager
@@ -897,18 +944,23 @@ def _routing_inputs(n, R, lanes, seed):
     return arr, work, up
 
 
+# every template of S6 (R = 2..8, 16, 32, 64; the thread-a-lane and the
+# warp-a-lane kernels) and a count rounded up to each of 16, 32 and 64; at
+# n = 37 70 lanes, more than one block of the thread-a-lane kernel
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 2, 37, 40_000])
-@pytest.mark.parametrize("R", [1, 2, 3, 4, 8, 64])
-def test_backlog_scan_kernel_bit_equal_to_plain(cuda, R, n):
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 32, 33, 64])
+def test_backlog_scan_kernel_bit_equal_to_plain(cuda, monkeypatch, R, n):
     from repro_torch.kernels.backlog_scan import (
         backlog_scan, backlog_scan_reference)
+    lanes = 70 if n == 37 else 3
     arr, work, up = (torch.from_numpy(x).to(cuda)
-                     for x in _routing_inputs(n, R, 3, seed=R + n))
+                     for x in _routing_inputs(n, R, lanes, seed=R + n))
     for mask in (None, up):
         before = K.LAUNCHES["backlog_scan"]
-        out = backlog_scan(arr, work, R, mask)
-        torch.cuda.synchronize()
+        with _sentinel_empty(monkeypatch):     # the kernel writes every row
+            out = backlog_scan(arr, work, R, mask)
+            torch.cuda.synchronize()
         assert K.LAUNCHES["backlog_scan"] == before + (R > 1)
         assert out.dtype == torch.int64 and out.shape == arr.shape
         assert torch.equal(out, backlog_scan_reference(arr, work, R, mask))
@@ -996,7 +1048,7 @@ def test_sweep_noise_on_the_card_equals_cpu(cuda, policy):
     cpu = fastsim.sweep_noise(*args, num_requests=5000, seed=15,
                               device="cpu")
     assert np.array_equal(gpu["mean_wait"], cpu["mean_wait"])
-    # SRPT: all six cells are lanes of one launch; multi-bin: one a cell
-    assert K.LAUNCHES[name] == before + (1 if policy == "srpt" else 6)
-    if policy == "srpt":
-        assert got["args"][0].shape == (5000, 6)
+    # SRPT and multi-bin alike: all six cells are lanes of one launch
+    assert K.LAUNCHES[name] == before + 1
+    assert got["kernel"] == name and got["args"][0].shape == (5000, 6)
+    assert got["cells"] == [(li, si) for li in range(2) for si in range(3)]
