@@ -43,26 +43,30 @@ Phases (any failure raises and the script exits non-zero):
      not, elastic: S1 lanes; multi-bin with equal-mass and optimised
      edges: S3; WAIT k=16: S4; SRPT b=16: S5); hold every lane of the
      counted launches, at full length, bit for bit to their plain
-     versions on the card, four lanes of the Fig 5 launch and every S3-S5
-     lane to the NumPy oracle, assert the benchmark's relations at λ = 1,
-     print every lane's mean wait beside the paper's analytic delay or
-     envelope, time the kernels against their bytes bound (S3 also the
-     kernel alone, without its grouping by bin), and print the
-     device time of each S5 launch in the counted path (CUDA events);
+     versions (the Fig 5 S1 launch and every S3-S5 cell on the card, the
+     other S1 launches on host processes) and to the NumPy oracle (every
+     S1 lane on the launch's inputs, four Fig 5 lanes and every S3-S5
+     cell on the oracle's own sampling), assert the benchmark's relations
+     at λ = 1, print every lane's mean wait beside the paper's analytic
+     delay or envelope, time the kernels against their bytes bound (S1 and
+     S4 beside their first designs' figures from PERF.md; S3 also the
+     kernel alone, without its grouping by bin), and print the device
+     time of each S5 launch in the counted path (CUDA events);
   8b. run the reference benchmarks' fleet, predictor and fault grids on
      the card (``fleet.sweep``, ``simulate_fleet_fast``, ``sweep_noise``
-     with its SRPT cells as one ``srpt_scan`` launch and its multi-bin
-     cells as one ``multibin_scan`` launch,
-     ``simulate_fleet_faulty(fast=True)``), the backlog routers on
+     with its SRPT, multi-bin and WAIT cells each as one launch of ten
+     lanes, ``simulate_fleet_faulty(fast=True)``), the backlog routers on
      ``backlog_scan`` (S6); assert the benchmarks' relations, print each
      figure beside ``benchmarks/BENCH_simulators.json``, hold every S6
      launch at full length to its plain version on the card and to the
      NumPy recursion, and time S6 (the wrapper and the kernel alone)
-     against its bytes bound; hold every S5 lane of the counted path (the
-     ten-lane noise plane and the 40 fleet replicas' sub-streams) and the
-     ten lanes of the S3 noise launch to their plain versions at full
-     length, in a pool of host processes, and print each S5 launch's
-     device time in the path (CUDA events) and their total.
+     against its bytes bound; hold every lane of the counted S5 launches
+     (the noise plane and the 40 fleet replicas' sub-streams), of the S3
+     and S4 noise launches and of the 27 S1 launches (the fleet replicas'
+     dynamic sub-streams) to their plain versions at full length, and
+     every S1 and S4 lane to the NumPy oracle, in a pool of host
+     processes; time the S4 noise launch and print each S5 and S1 launch's
+     device time in the path (CUDA events) and their totals.
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after it.
 
@@ -943,19 +947,28 @@ def wall_ms(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
-class S5Launches:
-    """Inside ``with``: every ``srpt_scan`` launch that ``core.fastsim``
-    makes (``simulate_policy_fast``'s SRPT cells, each fleet replica's
-    sub-stream, ``sweep_noise``'s one launch) is recorded with its inputs,
-    its outputs and a CUDA event on each side of it on the stream, so its
-    device time in the path is read afterwards (``ms``).  The wrapper and
-    its launch counter are the same; only the name fastsim calls is
-    wrapped."""
+# the simulator kernels' tags in the log
+SIM_TAGS = {"batch_scan": "S1", "impatience_scan": "S2", "multibin_scan": "S3",
+            "wait_scan": "S4", "srpt_scan": "S5", "backlog_scan": "S6"}
+
+
+class PathLaunches:
+    """Inside ``with``: every launch of the scan wrapper ``name`` that
+    ``core.fastsim`` makes (for S5 ``simulate_policy_fast``'s SRPT cells,
+    each fleet replica's sub-stream and ``sweep_noise``'s one launch; for
+    S1 each fleet replica's dynamic sub-stream; for S4 ``sweep_noise``'s
+    one launch) is recorded with its inputs, its outputs and a CUDA event
+    on each side of it on the stream, so its device time in the path is
+    read afterwards (``ms``).  The wrapper and its launch counter are the
+    same; only the name fastsim calls is wrapped."""
+
+    def __init__(self, name):
+        self.name = name
 
     def __enter__(self):
         import torch
         from repro_torch.core import fastsim
-        self.launches, self._orig = [], fastsim.srpt_scan
+        self.launches, self._orig = [], getattr(fastsim, self.name)
 
         def recorded(*args):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -965,12 +978,12 @@ class S5Launches:
             self.launches.append({"args": args, "out": out, "events": ev})
             return out
 
-        fastsim.srpt_scan = recorded
+        setattr(fastsim, self.name, recorded)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.core import fastsim
-        fastsim.srpt_scan = self._orig
+        setattr(fastsim, self.name, self._orig)
 
     def ms(self):
         """Device ms of each recorded launch (the card synchronized)."""
@@ -984,11 +997,11 @@ class S5Launches:
         ms = self.ms()
         req = [lo["out"][0].numel() for lo in self.launches]
         ns = [1e6 * m / r for m, r in zip(ms, req)]
-        log(f"S5 srpt_scan in the {path} path: {len(ms)} launches, "
-            f"{sum(ms):.3f} ms of device time in all by CUDA events around "
-            f"each launch ({sum(req)} lane-requests; per launch "
-            f"{min(ms):.3f}-{max(ms):.3f} ms, {min(ns):.1f}-{max(ns):.1f} "
-            f"ns a lane-request)")
+        log(f"{SIM_TAGS[self.name]} {self.name} in the {path} path: "
+            f"{len(ms)} launches, {sum(ms):.3f} ms of device time in all by "
+            f"CUDA events around each launch ({sum(req)} lane-requests; per "
+            f"launch {min(ms):.3f}-{max(ms):.3f} ms, {min(ns):.1f}-"
+            f"{max(ns):.1f} ns a lane-request)")
         return {"launches": len(ms), "total_ms": sum(ms),
                 "lane_requests": sum(req), "ms": ms}
 
@@ -1039,7 +1052,7 @@ def fit_engine_latency(cal):
     return lat
 
 
-def _sim_grid(name, dist, lat, lams, policies, dev, n=SIM_N, seed=0):
+def _sim_grid(key, name, dist, lat, lams, policies, dev, n=SIM_N, seed=0):
     """One λ grid through ``sweep``; its scan lanes run in one S1 launch,
     whose inputs and outputs ``scan_out`` hands back, and each batch-event
     cell in a launch of its own, handed back under ``cells``."""
@@ -1049,7 +1062,7 @@ def _sim_grid(name, dist, lat, lams, policies, dev, n=SIM_N, seed=0):
     waits = sweep(policies, lams, dist, lat, num_requests=n, seed=seed,
                   device=dev, scan_out=scan)
     wall = time.perf_counter() - t0
-    return {"name": name, "dist": dist, "lat": lat, "lams": lams,
+    return {"key": key, "name": name, "dist": dist, "lat": lat, "lams": lams,
             "waits": waits, "wall": wall, "scan": scan, "n": n,
             "seed": seed, "policies": policies}
 
@@ -1070,35 +1083,58 @@ def _print_grid(g, policies):
             f"{' '.join(pairs)}")
 
 
-def check_batch_scan(g, dev):
-    """Every lane of the grid's counted S1 launch, at full length, against
-    the plain version on the card on the same inputs; then the kernel
-    timed on them.  Returns (lanes, n, ms, plain_ms, bound_ms)."""
+# the first designs of S1 and S4 on the same card and inputs (PERF.md §6,
+# "earlier": S1 75 ns a request a lane, S4 136-139 ns), printed beside
+# this run's figures
+EARLIER_S1_MS = {"fig5": 11.410, "fig6": 11.411, "fit": 11.509, "heavy": 4.188}
+EARLIER_S4_MS = {0.5: 8.310, 1.0: 8.139}
+
+
+def s1_launch(g, dev):
+    """The grid's counted S1 launch as a ``launch_out`` dict: its inputs
+    and outputs, on the card."""
     import torch
-    from repro_torch.kernels.batch_scan import (
-        NO_CAP, batch_scan, batch_scan_reference)
+    from repro_torch.kernels.batch_scan import NO_CAP
     scan = g["scan"]
-    arr, tok = (torch.from_numpy(scan[k]).to(dev) for k in ("arr", "tok"))
+    arr, tok, starts, closed = (torch.from_numpy(scan[k]).to(dev) for k in
+                                ("arr", "tok", "starts", "closed"))
     el = torch.tensor([e for *_, e, _ in scan["lanes"]], device=dev)
     bm = torch.tensor([NO_CAP if b is None else float(b)
                        for *_, b in scan["lanes"]], dtype=torch.float64,
                       device=dev)
     k = (g["lat"].k1, g["lat"].k2, g["lat"].k3, g["lat"].k4)
-    (ref_s, ref_c), plain_ms = wall_ms(
-        lambda: batch_scan_reference(arr, tok, el, bm, *k))
-    assert np.array_equal(ref_s.cpu().numpy(), scan["starts"]) and \
-        np.array_equal(ref_c.cpu().numpy(), scan["closed"]), \
-        f"{g['name']}: batch_scan differs from its plain version"
-    n, lanes = arr.shape
-    ms = event_ms(lambda: batch_scan(arr, tok, el, bm, *k))
+    return {"kernel": "batch_scan", "args": (arr, tok, el, bm, *k),
+            "out": (starts, closed)}
+
+
+def check_batch_scan(g, lo, plain_on_card):
+    """The grid's counted S1 launch ``lo`` timed by CUDA events on its
+    inputs; with ``plain_on_card`` every lane is first held at full length
+    to the plain version on the card (timed), else ``plain_on_host`` holds
+    them.  Returns (lanes, n, ms, plain_ms or None, bound_ms)."""
+    import torch
+    from repro_torch.kernels.batch_scan import (
+        batch_scan, batch_scan_reference)
+    args = lo["args"]
+    plain_ms, held = None, "held to the plain version on host processes"
+    if plain_on_card:
+        (ref_s, ref_c), plain_ms = wall_ms(lambda: batch_scan_reference(*args))
+        assert torch.equal(ref_s, lo["out"][0]) and \
+            torch.equal(ref_c, lo["out"][1]), \
+            f"{g['name']}: batch_scan differs from its plain version"
+        held = (f"plain {plain_ms:.1f} ms on the card; the counted launch's "
+                f"starts and closed equal the plain version's")
+    n, lanes = args[0].shape
+    ms = event_ms(lambda: batch_scan(*args))
     nbytes = lanes * n * (8 + 8 + 8 + 1) + lanes * (1 + 8)
     bnd = bound_ms(nbytes, 8 * lanes * n, "float64")
+    was = EARLIER_S1_MS[g["key"]]
     log(f"S1 batch_scan {lanes} lanes x {n}: {ms:.3f} ms by CUDA events "
-        f"({lanes * n / ms / 1e6:.3f} G lane-requests/s), bound {bnd:.4f} ms "
-        f"(bytes, {nbytes / 1e6:.1f} MB; {100 * bnd / ms:.2f}% of it); plain "
-        f"{plain_ms:.1f} ms; the counted launch's starts and closed equal "
-        f"the plain version's over all {lanes} lanes at full length "
-        f"({g['name']})")
+        f"({1e6 * ms / n:.1f} ns a request a lane, "
+        f"{lanes * n / ms / 1e6:.3f} G lane-requests/s; the first design "
+        f"{was:.3f} ms, {1e6 * was / n:.1f} ns, PERF.md), bound {bnd:.4f} ms "
+        f"(bytes, {nbytes / 1e6:.1f} MB; {100 * bnd / ms:.2f}% of it); {held} "
+        f"over all {lanes} lanes at full length ({g['name']})")
     return lanes, n, ms, plain_ms, bnd
 
 
@@ -1165,6 +1201,10 @@ def check_event_cells(g, dev):
         else:
             ms, kernel_ms, alone = event_ms(lambda: fn(*args)), None, ""
         n = g["n"]
+        if kern == "wait_scan":
+            was = EARLIER_S4_MS[lam]
+            alone = (f" (the first design {was:.3f} ms, "
+                     f"{1e6 * was / n:.1f} ns, PERF.md)")
         _, nbytes = EVENT_KERNELS[kern]
         bnd = bound_ms(nbytes * n, 0, "float64")
         log(f"{kern} {name} λ={lam}: {nb} batches (mean {n / nb:.3f}); "
@@ -1205,9 +1245,7 @@ def run_simulators(dev, cal):
     from repro_torch.core.policies import (
         DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy, MultiBinPolicy,
         SRPTPolicy, WaitPolicy)
-    from repro_torch.core.simulate import _warm, no_warmup, simulate_policy
-    from repro_torch.kernels.impatience_scan import (
-        impatience_scan, impatience_scan_reference)
+    from repro_torch.core.simulate import no_warmup, simulate_policy
 
     pols = {"dynamic": DynamicPolicy(), "dynamic_b8": DynamicPolicy(b_max=8),
             "elastic": ElasticPolicy(), "elastic_b8": ElasticPolicy(b_max=8),
@@ -1237,18 +1275,20 @@ def run_simulators(dev, cal):
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    s5_rec = S5Launches().__enter__()
-    fig5 = _sim_grid("Fig 5 (uniform 0..1000, k = 0.05, 0.5, 5e-4, 0.02)",
-                     uni, lat5, np.geomspace(0.05, 0.8, 16), pols, dev)
-    fig6 = _sim_grid("Fig 6b (lognormal(7, 0.7), k = 0.05, 0.5, 2e-4, "
-                     f"0.002; elastic saturates at {sat6:.4f}/s)", ln, lat6,
-                     np.geomspace(0.05, 0.9 * sat6, 16), pols, dev)
-    fit = _sim_grid(f"fitted law (λ 10%-90% of mu[16] = {mu16:.4f}/s)", uni,
-                    lat_fit, np.linspace(0.1, 0.9, 9) * mu16, scan_pols, dev)
-    heavy = _sim_grid(f"heavy tail (lognormal(7, 0.7), Fig 6b constants, "
-                      f"{HT_N} requests, seed {HT_SEED}; multibin4_opt "
-                      f"edges {ht_edges})", ln, lat6, [0.5, 1.0], ht_pols,
-                      dev, n=HT_N, seed=HT_SEED)
+    s5_rec = PathLaunches("srpt_scan").__enter__()
+    fig5 = _sim_grid("fig5", "Fig 5 (uniform 0..1000, k = 0.05, 0.5, 5e-4, "
+                     "0.02)", uni, lat5, np.geomspace(0.05, 0.8, 16), pols,
+                     dev)
+    fig6 = _sim_grid("fig6", "Fig 6b (lognormal(7, 0.7), k = 0.05, 0.5, "
+                     f"2e-4, 0.002; elastic saturates at {sat6:.4f}/s)", ln,
+                     lat6, np.geomspace(0.05, 0.9 * sat6, 16), pols, dev)
+    fit = _sim_grid("fit", f"fitted law (λ 10%-90% of mu[16] = "
+                    f"{mu16:.4f}/s)", uni, lat_fit,
+                    np.linspace(0.1, 0.9, 9) * mu16, scan_pols, dev)
+    heavy = _sim_grid("heavy", f"heavy tail (lognormal(7, 0.7), Fig 6b "
+                      f"constants, {HT_N} requests, seed {HT_SEED}; "
+                      f"multibin4_opt edges {ht_edges})", ln, lat6,
+                      [0.5, 1.0], ht_pols, dev, n=HT_N, seed=HT_SEED)
     fig4 = {}
     for n_max, tau in fcfs_cells:
         fig4[n_max, tau] = simulate_policy_fast(
@@ -1291,7 +1331,7 @@ def run_simulators(dev, cal):
             f" s (analytic {a:.3f}), loss {r['loss_frac']:.4f}")
 
     # four lanes of the counted Fig 5 launch at full length against the
-    # NumPy oracle (host CPU)
+    # NumPy oracle sampling its own workload (host CPU)
     scan = fig5["scan"]
     col = {(name, li): c for c, (name, li, _, _) in enumerate(scan["lanes"])}
     last = len(fig5["lams"]) - 1
@@ -1311,15 +1351,50 @@ def run_simulators(dev, cal):
                 f"counted launch equal bit for bit, mean batch "
                 f"{ora['mean_batch']:.4f} equal; the oracle took {cpu_s:.2f} "
                 f"s of host CPU time")
+    # every lane of the four counted S1 launches at full length: against
+    # the plain version (Fig 5's on the card, timed; the others on host
+    # processes) and against the NumPy oracle (host processes), the host's
+    # jobs running while the card checks and times the kernels
+    grids = (fig5, fig6, fit, heavy)
+    s1_los = [s1_launch(g, dev) for g in grids]
+    with host_pool() as pool:
+        plain_done = plain_on_host([("batch_scan", lo) for lo in s1_los[1:]],
+                                   pool)
+        oracle_done = oracle_on_host(
+            [("batch_scan", lo, False) for lo in s1_los], pool)
+        s1, s2, event_entries = _simulator_kernels_on_card(
+            dev, grids, s1_los, fig4, fcfs_cells, heavy, ln, s5_path)
+        jobs, host_s = plain_done()
+        lanes_held, tied, ora_s = oracle_done()
+    assert tied == 0, f"{tied} S1 lanes of phase 7 part from the oracle"
+    log(f"S1: the {jobs} plain-version jobs of the Fig 6b, fitted-law and "
+        f"heavy-tail launches equal the kernel's starts and closed; all "
+        f"{lanes_held} lanes of the four launches equal the NumPy oracle's "
+        f"waits and mean batch at full length (host processes, {host_s:.1f} "
+        f"and {ora_s:.1f} s from their start)")
+    return launches, [s1, s2] + event_entries
+
+
+def _simulator_kernels_on_card(dev, grids, s1_los, fig4, fcfs_cells, heavy,
+                               ln, s5_path):
+    """Phase 7's checks and timings on the card: S1 on the four counted
+    launches (Fig 5's plain version on the card), the Fig 4 cells against
+    the oracle, S2 against its plain version, and every S3-S5 cell.
+    Returns the JSON entries of S1, S2 and S3-S5."""
+    import torch
+    from repro_torch.core.latency_model import PAPER_A100_LLAMA2_7B
+    from repro_torch.core.policies import FCFSPolicy
+    from repro_torch.core.simulate import _warm, simulate_policy
+    from repro_torch.kernels.impatience_scan import (
+        impatience_scan, impatience_scan_reference)
+    rows = [check_batch_scan(g, lo, plain_on_card=g is grids[0])
+            for g, lo in zip(grids, s1_los)]
     for (n_max, tau), r in fig4.items():
         ora = simulate_policy(FCFSPolicy(n_max=n_max, tau=tau), 1 / 40, ln,
                               PAPER_A100_LLAMA2_7B, num_requests=FIG4_N)
         assert np.array_equal(r["waits"], ora["waits"]), (n_max, tau)
     log(f"Fig 4: all {len(fig4)} FCFS cells' {FIG4_N} waits equal the oracle's")
 
-    # S1: every lane of the three counted launches against the plain
-    # version on the card, at full length
-    rows = [check_batch_scan(g, dev) for g in (fig5, fig6, fit, heavy)]
     lanes, n, ms, plain_ms, bnd = rows[0]
     s1 = {"name": "batch_scan", "route": "cuda",
           "source": "src/repro_torch/kernels/batch_scan/csrc/batch_scan.cu",
@@ -1327,7 +1402,8 @@ def run_simulators(dev, cal):
                       "lax.scan; no Pallas kernel)",
           "shape": [n, lanes], "max_abs_err": 0.0, "ms": ms,
           "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": "bytes",
-          "library_ms": None}
+          "library_ms": None,
+          "launch_ms": {g["key"]: r[2] for g, r in zip(grids, rows)}}
 
     # S2: each impatient Fig 4 cell at the main path's shape [FIG4_N, 1],
     # against the plain version run once over the four cells as lanes and
@@ -1374,7 +1450,7 @@ def run_simulators(dev, cal):
     event_entries = check_event_cells(heavy, dev)
     next(e for e in event_entries if e["name"] == "srpt_scan")["in_path"] = \
         {"simulators": s5_path}
-    return launches, [s1, s2] + event_entries
+    return s1, s2, event_entries
 
 
 # ----------------------------------------------------------------------------
@@ -1467,8 +1543,8 @@ def check_backlog_launches(launches, dev):
 
 
 def _plain_lane(kern, args):
-    """Kernel ``kern``'s plain version on one lane, on the host CPU (a
-    worker of ``plain_on_host``): numpy in, numpy out."""
+    """Kernel ``kern``'s plain version on one lane or a few, on the host
+    CPU (a worker of ``plain_on_host``): numpy in, numpy out."""
     sys.path.insert(0, str(ROOT / "src"))
     import importlib
     import torch
@@ -1479,39 +1555,134 @@ def _plain_lane(kern, args):
     return s.numpy(), f.numpy()
 
 
-def plain_on_host(launches):
-    """Hold every lane of the given S3 and S5 launches ((kernel name,
-    launch_out dict) pairs) at full length to the plain version: the same
-    function in float64 on the same inputs, one lane a job in a pool of
-    host processes (the plain loops are a few small tensor ops a batch,
-    faster on the host's cores than as launches on the card).  Returns
-    the lanes held and the host seconds it took."""
+def _oracle_lane(kern, arr, tok, params):
+    """The NumPy oracle on one S1 or S4 lane's inputs (a worker of
+    ``oracle_on_host``): its waits and mean batch.  ``params``: the lane's
+    (elastic, b_max) for S1, (k, timeout, b_max) for S4, then k1..k4."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import (
+        DynamicPolicy, ElasticPolicy, WaitPolicy, Workload)
+    from repro_torch.core.simulate import no_warmup, simulate_policy
+    from repro_torch.kernels.batch_scan import NO_CAP
+    *own, k1, k2, k3, k4 = params
+    if kern == "batch_scan":
+        elastic, b_max = own
+        pol = (ElasticPolicy if elastic else DynamicPolicy)(
+            b_max=None if b_max >= NO_CAP else int(b_max))
+    else:
+        k, timeout, b_max = own
+        pol = WaitPolicy(k=max(int(k), 1),
+                         timeout=None if np.isinf(timeout) else timeout,
+                         b_max=int(b_max) if b_max > 0 else None)
+    with no_warmup():
+        ora = simulate_policy(pol, None, None, BatchLatencyModel(k1, k2, k3, k4),
+                              workload=Workload(arr, tok))
+    return ora["waits"], ora["mean_batch"]
+
+
+def host_pool():
+    """A pool of host processes, one a core but the one that drives the
+    card (at least 1, at most 8)."""
     import multiprocessing
     import os
     from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(
+        max_workers=max(1, min(8, (os.cpu_count() or 2) - 1)),
+        mp_context=multiprocessing.get_context("spawn"))
+
+
+# lanes a job of plain_on_host: S1's plain loop steps every lane at once, a
+# few small tensor ops a request, so a job takes several lanes
+PLAIN_LANES_A_JOB = {"batch_scan": 8}
+
+
+def plain_on_host(launches, pool):
+    """Hold every lane of the given launches ((kernel name, launch_out
+    dict) pairs) at full length to the plain version: the same function in
+    float64 on the same inputs, on ``pool`` (``host_pool``), a lane a job
+    (S1: ``PLAIN_LANES_A_JOB`` lanes; the plain loops are a few small
+    tensor ops a batch or a request, faster on the host's cores than as
+    launches on the card).  The jobs start now; the returned function
+    waits for them, checks, and returns the jobs run and the seconds from
+    their start, so the card can work meanwhile."""
     import torch
     jobs, outs = [], []
     for kern, lo in launches:
         host = [a.cpu().numpy() if torch.is_tensor(a) else a
                 for a in lo["args"]]
         starts, first = (t.cpu().numpy() for t in lo["out"])
-        lanes = starts.shape[1]
-        for j in range(lanes):
-            # [n, lanes] and [lanes] tensors cut to lane j; scalars as they are
+        lanes, step = starts.shape[1], PLAIN_LANES_A_JOB.get(kern, 1)
+        for j in range(0, lanes, step):
+            cut = slice(j, j + step)
+            # [n, lanes] and [lanes] arrays cut to the job's lanes; scalars
+            # as they are
             jobs.append((kern, tuple(
-                a[:, j:j + 1].copy() if isinstance(a, np.ndarray) and a.ndim == 2
-                else a[j:j + 1].copy() if isinstance(a, np.ndarray) else a
+                a[:, cut].copy() if isinstance(a, np.ndarray) and a.ndim == 2
+                else a[cut].copy() if isinstance(a, np.ndarray) else a
                 for a in host)))
-            outs.append((kern, starts[:, j:j + 1], first[:, j:j + 1]))
+            outs.append((kern, starts[:, cut], first[:, cut]))
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
-                             mp_context=multiprocessing.get_context("spawn")) \
-            as pool:
-        refs = list(pool.map(_plain_lane, *zip(*jobs)))
-    for (kern, s, f), (rs, rf) in zip(outs, refs):
-        assert np.array_equal(s, rs) and np.array_equal(f, rf), \
-            f"{kern} differs from its plain version"
-    return len(jobs), time.perf_counter() - t0
+    refs = pool.map(_plain_lane, *zip(*jobs))
+
+    def check():
+        for (kern, s, f), (rs, rf) in zip(outs, refs):
+            assert np.array_equal(s, rs) and np.array_equal(f, rf), \
+                f"{kern} differs from its plain version"
+        return len(jobs), time.perf_counter() - t0
+    return check
+
+
+def oracle_on_host(launches, pool):
+    """Hold every lane of the given S1 and S4 launches ((kernel name,
+    launch_out dict, ties allowed) triples) at full length to the NumPy
+    oracle on the same inputs: its waits (starts - arrivals) and mean
+    batch, a lane a job on ``pool``, started now and checked by the
+    returned function, as ``plain_on_host``.
+
+    One difference is known, and allowed only in the launches marked so
+    (the crash-fault replicas'): on equal arrival times (the crash
+    faults' operational clock maps the arrivals of a repair to one
+    instant) the scan, as the reference's, lets a request arriving at its
+    batch's start join it, while the oracle's idle server starts its head
+    alone.  Such an S1 lane whose waits part from the oracle's must part
+    first at such a request: equal to the one before it, which started
+    alone on arrival, and joined by the scan.  The returned function
+    returns the lanes held, those parted by a tie, and the seconds from
+    the jobs' start."""
+    import torch
+    jobs, outs = [], []
+    for kern, lo, ties in launches:
+        arr, tok, *rest = lo["args"]
+        arr, tok = arr.cpu().numpy(), tok.cpu().numpy()
+        own = [x.cpu().numpy() for x in rest if torch.is_tensor(x)]
+        law = tuple(x for x in rest if not torch.is_tensor(x))
+        starts, first = (t.cpu().numpy() for t in lo["out"])
+        for j in range(arr.shape[1]):
+            jobs.append((kern, arr[:, j].copy(), tok[:, j].copy(),
+                         tuple(x[j].item() for x in own) + law))
+            outs.append((kern, ties, j, arr[:, j], starts[:, j] - arr[:, j],
+                         first[:, j]))
+    t0 = time.perf_counter()
+    refs = pool.map(_oracle_lane, *zip(*jobs))
+
+    def check():
+        tied = 0
+        for (kern, ties, j, a, waits, first), (ora_w, ora_mb) in zip(outs,
+                                                                     refs):
+            if np.array_equal(waits, ora_w):
+                assert len(waits) / first.sum() == ora_mb, \
+                    f"{kern} lane {j}: mean batch differs from the oracle's"
+                continue
+            i = int(np.flatnonzero(waits != ora_w)[0])
+            assert ties and kern == "batch_scan" and i > 0 \
+                and a[i] == a[i - 1] and waits[i - 1] == ora_w[i - 1] == 0.0 \
+                and waits[i] == 0.0 and not first[i], \
+                f"{kern} lane {j}: waits differ from the NumPy oracle's at " \
+                f"request {i}"
+            tied += 1
+        return len(jobs), tied, time.perf_counter() - t0
+    return check
 
 
 def run_fleet_sims(dev):
@@ -1530,7 +1701,6 @@ def run_fleet_sims(dev):
         DynamicPolicy, FCFSPolicy, MultiBinPolicy, SRPTPolicy, WaitPolicy,
         single_from_batch)
     from repro_torch.core.predictors import LogNormalNoisePredictor
-    from repro_torch.kernels.srpt_scan import srpt_scan, srpt_scan_reference
     r4, r5, r6 = reference_record()
     uni, ln = UniformTokens(1000), LogNormalTokens(7.0, 0.7)
     lat5 = BatchLatencyModel(0.05, 0.5, 0.0005, 0.02)
@@ -1546,7 +1716,8 @@ def run_fleet_sims(dev):
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    s5_rec = S5Launches().__enter__()
+    s5_rec = PathLaunches("srpt_scan").__enter__()
+    s1_rec = PathLaunches("batch_scan").__enter__()
     # (a) the replica-count scaling curve (jsq, capped dynamic replicas)
     got = {}
     scal = sweep([1, 2, 4, 8], [0.8], "jsq", DynamicPolicy(b_max=8), uni,
@@ -1576,9 +1747,9 @@ def run_fleet_sims(dev):
             **fleet_kw)["mean_wait"]
         s6[f"least_work sigma={sg}"] = got
     # (d) the (lambda, sigma) plane: SRPT as one S5 launch of 10 lanes,
-    # multi-bin as one S3 launch of 10 lanes, WAIT a cell at a time
+    # multi-bin as one S3 launch of 10 lanes, WAIT as one S4 launch of 10
     s5_before = K.LAUNCHES["srpt_scan"]
-    s5, s3 = {}, {}
+    s5, s3, s4 = {}, {}, {}
     t_noise = time.perf_counter()
     grids = {"srpt_b16": sweep_noise(
         noise_factory(lambda p: SRPTPolicy(b_max=16, predictor=p)),
@@ -1589,12 +1760,13 @@ def run_fleet_sims(dev):
     for name, make, got in (
             ("multibin4", lambda p: MultiBinPolicy(num_bins=4, predictor=p),
              s3),
-            ("wait_k16", lambda p: WaitPolicy(k=16, predictor=p), None)):
+            ("wait_k16", lambda p: WaitPolicy(k=16, predictor=p), s4)):
         grids[name] = sweep_noise(noise_factory(make), noise_lams, sigmas, ln,
                                   ht, num_requests=NOISE_N, seed=NOISE_SEED,
                                   device=dev, launch_out=got)["mean_wait"]
-    # (e) crash faults on a least_work fleet, masked S6
-    crash = {}
+    # (e) crash faults on a least_work fleet, masked S6 (the S1 launches
+    # from here on are the crash-fault replicas')
+    crash, s1_fault0 = {}, len(s1_rec.launches)
     for mtbf, mttr in crash_cells:
         got = {}
         crash[mtbf, mttr] = simulate_fleet_faulty(
@@ -1605,10 +1777,14 @@ def run_fleet_sims(dev):
     torch.cuda.synchronize()
     main_wall = time.perf_counter() - t0
     s5_rec.__exit__()
+    s1_rec.__exit__()
     launches = dict(K.LAUNCHES)
     assert len(s5_rec.launches) == launches["srpt_scan"] == 41, launches
+    assert len(s1_rec.launches) == launches["batch_scan"] == 27, launches
     assert launches["backlog_scan"] == len(s6) == 14, (launches, sorted(s6))
     assert launches["multibin_scan"] == 1, "multi-bin cells not one launch"
+    assert launches["wait_scan"] == 1 and s4["kernel"] == "wait_scan", \
+        "WAIT cells not one launch"
     log(f"fleet simulators: main path {main_wall:.2f} s wall (the SRPT noise "
         f"plane {t_noise:.2f} s), launches {launches}")
 
@@ -1688,7 +1864,52 @@ def run_fleet_sims(dev):
             assert grids[name][li, 0] == ref, (name, lam)
     log("(d) the sigma = 0 columns equal simulate_policy_fast with the "
         "oracle policy exactly (srpt_b16, multibin4)")
-    # the plain version on the card, timed, on the noise launch's first lane
+    # every lane of the counted S5 launches (the noise launch's ten, the 40
+    # fleet replicas' sub-streams), of the S3 and S4 noise launches and of
+    # the 27 S1 launches (the fleet replicas) against the plain version,
+    # and every S1 and S4 lane against the NumPy oracle, at full length, on
+    # host processes while the card checks and times the kernels
+    replicas = [lo for lo in s5_rec.launches if lo["out"] is not s5["out"]]
+    assert len(replicas) == 40, len(replicas)
+    with host_pool() as pool:
+        plain_done = plain_on_host(
+            [("srpt_scan", lo) for lo in s5_rec.launches]
+            + [("multibin_scan", s3), ("wait_scan", s4)]
+            + [("batch_scan", lo) for lo in s1_rec.launches], pool)
+        oracle_done = oracle_on_host(
+            [("batch_scan", lo, i >= s1_fault0)
+             for i, lo in enumerate(s1_rec.launches)]
+            + [("wait_scan", s4, False)], pool)
+        noise_s5, noise_s3, noise_s4 = _noise_launches_on_card(s5, s3, s4)
+        backlog = check_backlog_launches(s6, dev)
+        jobs, host_s = plain_done()
+        lanes_held, tied, ora_s = oracle_done()
+    assert tied == 1, f"{tied} crash-fault replica lanes part from the " \
+                      f"oracle at a tie, not the one known"
+    log(f"every lane of the 41 counted S5 launches (the noise plane and the "
+        f"40 fleet replicas), of the S3 and the S4 launch (the noise plane) "
+        f"and of the 27 S1 launches (the fleet replicas) equals the plain "
+        f"version's at full length ({jobs} jobs on host processes, "
+        f"{host_s:.1f} s from their start)")
+    log(f"S1 and S4: of the {lanes_held} lanes of the 27 S1 launches and the "
+        f"S4 launch, {lanes_held - tied} equal the NumPy oracle's waits and "
+        f"mean batch at full length and {tied} of the "
+        f"{len(s1_rec.launches) - s1_fault0} crash-fault replicas' lanes part "
+        f"from it first at a request that arrives at the same instant as "
+        f"the one before it, which the oracle's idle server started alone "
+        f"and the scan lets join ({ora_s:.1f} s from their start)")
+    noise_s5["in_path"] = s5_rec.report("fleet simulators")
+    s1_path = s1_rec.report("fleet simulators")
+    return launches, backlog, noise_s5, noise_s3, noise_s4, s1_path
+
+
+def _noise_launches_on_card(s5, s3, s4):
+    """The noise plane's S5, S3 and S4 launches timed by CUDA events (S5's
+    first lane also held to its plain version on the card, timed).
+    Returns their JSON entries."""
+    import torch
+    from repro_torch.kernels.srpt_scan import srpt_scan, srpt_scan_reference
+    from repro_torch.kernels.wait_scan import wait_scan
     one = tuple(a[:, :1].contiguous() for a in s5["args"][:3]) + \
         (s5["args"][3][:1],) + tuple(s5["args"][4:])
     (ref_s, ref_f), plain_ms = wall_ms(lambda: srpt_scan_reference(*one))
@@ -1698,20 +1919,10 @@ def run_fleet_sims(dev):
         "S5 (sweep_noise) differs from its plain version"
     ms = event_ms(lambda: srpt_scan(*s5["args"]))
     n, lanes = starts.shape
-    # every S5 lane of the counted path (the noise launch's ten, the 40
-    # fleet replicas' sub-streams) and the ten lanes of the S3 noise launch
-    # against the plain version, at full length
-    replicas = [lo for lo in s5_rec.launches if lo["out"] is not s5["out"]]
-    assert len(replicas) == 40, len(replicas)
-    jobs, host_s = plain_on_host([("srpt_scan", lo) for lo in s5_rec.launches]
-                                 + [("multibin_scan", s3)])
     log(f"S5 srpt_scan, sweep_noise's one launch of {lanes} lanes x {n}: "
         f"{ms:.3f} ms by CUDA events ({1e6 * ms / (n * lanes):.1f} ns a "
         f"lane-request); the plain version on the card {plain_ms:.1f} ms for "
-        f"its first lane; all {jobs} lanes of the 41 counted S5 launches (the "
-        f"noise plane and the 40 fleet replicas) and of the one S3 launch "
-        f"(the noise plane) equal the plain version's at full length (host "
-        f"processes, {host_s:.1f} s)")
+        f"its first lane")
     noise_s5 = {"lanes": lanes, "n": n, "ms": ms,
                 "plain_ms_first_lane": plain_ms}
     s3_ms, s3_kernel_ms = s3_times(s3["args"])
@@ -1725,8 +1936,16 @@ def run_fleet_sims(dev):
         f"request a lane)")
     noise_s3 = {"lanes": lanes, "n": n, "batches": nb, "ms": s3_ms,
                 "kernel_ms": s3_kernel_ms}
-    noise_s5["in_path"] = s5_rec.report("fleet simulators")
-    return launches, check_backlog_launches(s6, dev), noise_s5, noise_s3
+    n, lanes = s4["args"][0].shape
+    nb = int(s4["out"][1].sum())
+    s4_ms = event_ms(lambda: wait_scan(*s4["args"]))
+    log(f"S4 wait_scan, sweep_noise's one launch of {lanes} lanes x {n} "
+        f"({nb} batches): {s4_ms:.3f} ms by CUDA events "
+        f"({1e6 * s4_ms / n:.1f} ns a request a lane, "
+        f"{1e6 * s4_ms / (n * lanes):.1f} ns a lane-request; the first "
+        f"design ran ten one-lane launches at 136-139 ns a request, PERF.md)")
+    return noise_s5, noise_s3, {"lanes": lanes, "n": n, "batches": nb,
+                                "ms": s4_ms}
 
 
 def main() -> int:
@@ -1808,7 +2027,8 @@ def main() -> int:
     log(f"phase 7 (simulators) took {time.perf_counter() - t0:.1f} s")
     kernels += sim_kernels
     t0 = time.perf_counter()
-    paths["fleet simulators"], s6, noise_s5, noise_s3 = run_fleet_sims(dev)
+    (paths["fleet simulators"], s6, noise_s5, noise_s3, noise_s4,
+     s1_path) = run_fleet_sims(dev)
     log(f"phase 8b (fleet simulators) took {time.perf_counter() - t0:.1f} s")
     kernels.append(s6)
     next(k for k in kernels if k["name"] == "fused_rmsnorm")[
@@ -1818,6 +2038,10 @@ def main() -> int:
     s5["sweep_noise"] = noise_s5
     next(k for k in kernels if k["name"] == "multibin_scan")["sweep_noise"] = \
         noise_s3
+    next(k for k in kernels if k["name"] == "wait_scan")["sweep_noise"] = \
+        noise_s4
+    next(k for k in kernels if k["name"] == "batch_scan")["in_path"] = \
+        {"fleet simulators": s1_path}
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in paths.items()}

@@ -14,13 +14,14 @@ oracle, as in the reference.
     S2 (``kernels/impatience_scan``), one lane per cell.
   * ``"batch_scan"``   dynamic / elastic batch formation as a per-request
     scan with an O(1) carry (start, count, token sum, token max): kernel
-    S1 (``kernels/batch_scan``), one thread per lane.
+    S1 (``kernels/batch_scan``), one thread walking each lane, a lane a
+    block.
   * ``"fixed_cummax"`` closed form: the free-time recursion
     F_k = max(F_{k-1}, A_k) + H_k telescopes to a running maximum (host
     NumPy, as in the reference).
   * ``"multibin"``, ``"wait"``, ``"srpt"``   the batch-event disciplines,
     one step per batch: kernels S3 (``kernels/multibin_scan``), one warp
-    per lane, S4 (``kernels/wait_scan``), one thread per lane, and S5
+    per lane, S4 (``kernels/wait_scan``), one warp per lane, and S5
     (``kernels/srpt_scan``), one block per lane.  The host supplies each request's bin (S3) or the rank order of a
     stable argsort of the lengths (S5), from the workload's PREDICTED
     column where it has one; the service law always sees the true tokens.
@@ -29,8 +30,8 @@ oracle, as in the reference.
 policy rides the batching scan as a lane of ONE S1 launch; the other
 policies dispatch through ``KERNELS`` per cell, as the reference does.
 ``sweep_noise`` sweeps the (arrival rate, prediction noise) plane: when
-every policy rides SRPT (or multi-bin), all its cells are lanes of ONE S5
-(or S3) launch.
+every policy rides SRPT (or multi-bin, or WAIT), all its cells are lanes
+of ONE S5 (or S3, or S4) launch.
 
 The fleet layer (:mod:`repro_torch.core.fleet`) rides the same kernels:
 the state-dependent routers' backlog recursion is kernel S6
@@ -481,13 +482,14 @@ def sweep_noise(policy_factory: Callable[[float], BatchPolicy], lam_grid,
     When every produced policy rides the ``srpt`` kernel, all (λ, σ) cells
     are lanes of ONE launch of kernel S5 (the reference's
     ``_srpt_loop_vmapped``); when every one rides ``multibin``, of ONE
-    launch of kernel S3, each lane with its own bin row (the reference
-    runs those a cell at a time: its per-bin rows change shape with σ).
-    The policies must then share b_max (and num_bins), else this raises.
-    A ``launch_out`` dict is filled with that launch's inputs and outputs
-    (see :func:`_launch`) and with ``cells``, the (λ index, σ index) of
-    each lane.  Otherwise each cell dispatches through
-    :func:`simulate_policy_fast` on its own.
+    launch of kernel S3, each lane with its own bin row; when every one
+    rides ``wait``, of ONE launch of kernel S4, each lane with its own k,
+    timeout and b_max (the reference runs multi-bin and WAIT a cell at a
+    time).  SRPT and multi-bin policies must then share b_max (and
+    num_bins), else this raises.  A ``launch_out`` dict is filled with that
+    launch's inputs and outputs (see :func:`_launch`) and with ``cells``,
+    the (λ index, σ index) of each lane.  Otherwise each cell dispatches
+    through :func:`simulate_policy_fast` on its own.
     ``srpt_loop`` (the reference's multi-device lane executor) is not
     ported yet (ROADMAP.md M9).
 
@@ -501,34 +503,41 @@ def sweep_noise(policy_factory: Callable[[float], BatchPolicy], lam_grid,
     pols = [policy_factory(s) for s in sigma_grid]
     out = np.empty((len(lam_grid), len(sigma_grid)))
     kinds = {p.fast_kernel for p in pols}
-    if kinds in ({"srpt"}, {"multibin"}):
+    if kinds in ({"srpt"}, {"multibin"}, {"wait"}):
+        kind = kinds.pop()
         shared = {(p.b_max, getattr(p, "num_bins", None)) for p in pols}
-        if len(shared) != 1:
-            raise ValueError(f"{kinds.pop()} lanes must share one b_max (and "
+        if kind != "wait" and len(shared) != 1:
+            raise ValueError(f"{kind} lanes must share one b_max (and "
                              f"num_bins), got {sorted(shared, key=str)}")
-        cells, wls, keys = [], [], []
-        for li, lam in enumerate(lam_grid):
-            for si, pol in enumerate(pols):
-                wl = pol.sample_workload(lam, dist, num_requests, seed)
-                cells.append((li, si))
-                wls.append(wl)
-                # S5 takes the rank order of the predicted lengths, S3 the
-                # bin of each request (both from the PREDICTED column)
-                keys.append(pol.bin_of(wl.predicted_or_true, dist)
-                            if kinds == {"multibin"} else
-                            np.argsort(wl.predicted_or_true, kind="stable"))
+        cells = [(li, si) for li in range(len(lam_grid))
+                 for si in range(len(pols))]
+        lane_pols = [pols[si] for _, si in cells]
+        wls = [pol.sample_workload(lam_grid[li], dist, num_requests, seed)
+               for (li, _), pol in zip(cells, lane_pols)]
         arr = np.stack([wl.arrivals for wl in wls], axis=1)
         tok = np.stack([wl.tokens for wl in wls], axis=1)
-        b_max = _i64([_cap(pols[0].b_max)] * len(cells), device)
-        args = (_f64(arr, device), _f64(tok, device),
-                _i64(np.stack(keys, axis=1), device))
-        if kinds == {"multibin"}:
-            starts, first = _launch(launch_out, "multibin_scan", multibin_scan,
-                                    *args, pols[0].num_bins, b_max,
-                                    *_law(lat))
+        args = (_f64(arr, device), _f64(tok, device))
+        b_max = _i64([_cap(pol.b_max) for pol in lane_pols], device)
+        if kind == "wait":
+            starts, first = _launch(
+                launch_out, "wait_scan", wait_scan, *args,
+                _i64([pol.k for pol in lane_pols], device),
+                _f64([np.inf if pol.timeout is None else pol.timeout
+                      for pol in lane_pols], device), b_max, *_law(lat))
         else:
-            starts, first = _launch(launch_out, "srpt_scan", srpt_scan, *args,
-                                    b_max, *_law(lat))
+            # S5 takes the rank order of the predicted lengths, S3 the bin
+            # of each request (both from the PREDICTED column)
+            keys = _i64(np.stack([
+                pol.bin_of(wl.predicted_or_true, dist) if kind == "multibin"
+                else np.argsort(wl.predicted_or_true, kind="stable")
+                for pol, wl in zip(lane_pols, wls)], axis=1), device)
+            if kind == "multibin":
+                starts, first = _launch(launch_out, "multibin_scan",
+                                        multibin_scan, *args, keys,
+                                        pols[0].num_bins, b_max, *_law(lat))
+            else:
+                starts, first = _launch(launch_out, "srpt_scan", srpt_scan,
+                                        *args, keys, b_max, *_law(lat))
         if launch_out is not None:
             launch_out["cells"] = cells
         starts, first = starts.cpu().numpy(), first.cpu().numpy()

@@ -32,6 +32,14 @@ def _check(arr, tok, elastic, b_max):
                          f"[lanes]")
 
 
+def ring_depth() -> int:
+    """Requests a lane the kernel's shared-memory ring holds (its
+    ``batch_scan_ring_depth``).  Needs the built kernel."""
+    fn = K.library("batch_scan").batch_scan_ring_depth
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
 def batch_scan(arr, tok, elastic, b_max, k1, k2, k3, k4):
     """Dynamic / elastic batch formation, one lane per sweep cell.
 

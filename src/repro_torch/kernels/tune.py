@@ -1,0 +1,223 @@
+"""Time variants of the simulator kernels S1 (``batch_scan``) and S4
+(``wait_scan``) on the card, to choose their shape constants.
+
+Each kernel's source fixes its shape constants as ``constexpr int NAME =
+value;`` lines.  This module writes copies of the source with other values
+into ``build/kernels/variants/``, compiles them all at once with the
+committed kernel's flags, and times each by CUDA events on the inputs the
+main path gives the kernel (``chip_smoke.py`` phases 7 and 8b), beside the
+committed kernel.  Every variant's outputs must equal the committed
+kernel's, bit for bit, or the run fails; the committed kernel itself is
+held to its plain version by ``chip_smoke.py`` and the GPU tests.
+
+    PYTHONPATH=src python -m repro_torch.kernels.tune
+
+Needs a CUDA device and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import itertools
+import re
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import kernels as K
+
+# the grids timed: constant name -> candidate values (a variant must keep
+# the source's static_asserts, or it fails to build and is reported)
+GRIDS = {
+    "batch_scan": {"STAGES": (2, 4, 8)},
+    "wait_scan": {"CHUNKS": (4, 8, 16), "AHEAD": (2, 4, 6)},
+}
+
+
+def variant_source(text: str, values: dict) -> str:
+    """``text`` with each ``constexpr int NAME = v;`` set to values[NAME]."""
+    for name, v in values.items():
+        text, hits = re.subn(rf"(constexpr int {name} = )\d+;", rf"\g<1>{v};",
+                             text)
+        if hits != 1:
+            raise ValueError(f"constexpr int {name} found {hits} times")
+    return text
+
+
+def build_sources(name: str, sources: dict) -> dict:
+    """Compile {label: source text} of kernel ``name`` in parallel; returns
+    {label: CDLL, or the compiler's output if it failed}."""
+    out_dir = K.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc, procs = K._nvcc(), {}
+    for label, text in sources.items():
+        stem = out_dir / f"{name}-{re.sub(r'[^A-Za-z0-9]+', '_', label)}"
+        stem.with_suffix(".cu").write_text(text)
+        cmd = [nvcc, *K._flags(name), "-o", str(stem.with_suffix(".so")),
+               str(stem.with_suffix(".cu"))]
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        stem)
+    libs = {}
+    for label, (proc, stem) in procs.items():
+        log, _ = proc.communicate()
+        libs[label] = ctypes.CDLL(str(stem.with_suffix(".so"))) \
+            if proc.returncode == 0 else log
+    return libs
+
+
+def _s1_inputs(dev):
+    """(label, args) of S1 launches at the main path's shapes."""
+    from repro_torch.core.distributions import LogNormalTokens, UniformTokens
+    from repro_torch.core.fastsim import scan_lane_inputs
+    from repro_torch.core.policies import DynamicPolicy, ElasticPolicy
+    from repro_torch.kernels.batch_scan import NO_CAP
+    uni, ln = UniformTokens(1000), LogNormalTokens(7.0, 0.7)
+    lat5, lat6 = (0.05, 0.5, 0.0005, 0.02), (0.05, 0.5, 2e-4, 0.002)
+    fig5 = {"dynamic": DynamicPolicy(), "dynamic_b8": DynamicPolicy(b_max=8),
+            "elastic": ElasticPolicy(), "elastic_b8": ElasticPolicy(b_max=8)}
+    heavy = {"dyn": DynamicPolicy(), "dyn_b32": DynamicPolicy(b_max=32),
+             "dyn_b16": DynamicPolicy(b_max=16), "ela": ElasticPolicy()}
+    cases = [("Fig 5, 64 lanes x 150,000", fig5, np.geomspace(0.05, 0.8, 16),
+              uni, 150_000, 0, lat5),
+             ("heavy tail, 8 lanes x 60,000", heavy, [0.5, 1.0], ln, 60_000,
+              15, lat6),
+             ("one fleet replica, 1 lane x 10,000", {"dyn_b8": DynamicPolicy(
+                 b_max=8)}, [0.2], uni, 10_000, 3, lat5)]
+    out = []
+    for label, pols, lams, dist, n, seed, lat in cases:
+        lanes, arr, tok = scan_lane_inputs(pols, lams, dist, n, seed)
+        el = torch.tensor([e for *_, e, _ in lanes], device=dev)
+        bm = torch.tensor([NO_CAP if b is None else float(b)
+                           for *_, b in lanes], dtype=torch.float64,
+                          device=dev)
+        out.append((label, (torch.from_numpy(arr).to(dev),
+                            torch.from_numpy(tok).to(dev), el, bm, *lat)))
+    return out
+
+
+def _s4_inputs(dev):
+    """(label, args) of S4 launches at the main path's shapes: phase 7's
+    heavy-tail WAIT k16 cells and phase 8b's noise plane as one launch."""
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.policies import WaitPolicy
+    ln, lat = LogNormalTokens(7.0, 0.7), (0.05, 0.5, 2e-4, 0.002)
+
+    def launch(wls):
+        arr = np.stack([w.arrivals for w in wls], axis=1)
+        tok = np.stack([w.tokens for w in wls], axis=1)
+        lanes = len(wls)
+        return (torch.from_numpy(arr).to(dev), torch.from_numpy(tok).to(dev),
+                torch.full((lanes,), 16, dtype=torch.int64, device=dev),
+                torch.full((lanes,), float("inf"), dtype=torch.float64,
+                           device=dev),
+                torch.zeros(lanes, dtype=torch.int64, device=dev), *lat)
+    pol = WaitPolicy(k=16)
+    out = [(f"heavy tail λ={lam}, 1 lane x 60,000",
+            launch([pol.sample_workload(lam, ln, 60_000, 15)]))
+           for lam in (0.5, 1.0)]
+    # WAIT ignores the predicted lengths: the plane's lanes are its λ rows
+    out.append(("noise plane, 10 lanes x 30,000", launch(
+        [pol.sample_workload(lam, ln, 30_000, 15) for lam in (0.6, 1.0)
+         for _ in range(5)])))
+    return out
+
+
+def _run(lib, name, args, outs):
+    """Launch kernel ``name`` of ``lib`` on the wrapper's arguments."""
+    from repro_torch.kernels.batch_scan.ops import _ARGTYPES as S1_ARGS
+    from repro_torch.kernels.wait_scan.ops import _ARGTYPES as S4_ARGS
+    fn = getattr(lib, name)
+    fn.argtypes = S1_ARGS if name == "batch_scan" else S4_ARGS
+    fn.restype = ctypes.c_int
+    arr, tok, *rest = args
+    n, lanes = arr.shape
+    if name == "batch_scan":
+        el, bm, *lat = rest
+        ptrs = (el.data_ptr(), bm.data_ptr())
+    else:
+        k, timeout, bm, *lat = rest
+        ptrs = (k.data_ptr(), timeout.data_ptr(), bm.data_ptr())
+    status = fn(arr.data_ptr(), tok.data_ptr(), *ptrs,
+                *(o.data_ptr() for o in outs), n, lanes, *lat,
+                K.stream_ptr(arr))
+    K.check_status(name, status)
+
+
+def time_ms(fn, iters=5, warmup=1):
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def tune(name: str, dev) -> list:
+    src = K.SOURCES[name]
+    text = src.read_text()
+    grid = GRIDS[name]
+    sources = {"committed": text}
+    for combo in itertools.product(*grid.values()):
+        values = dict(zip(grid, combo))
+        if "AHEAD" in values and values["CHUNKS"] - values["AHEAD"] < 2:
+            continue                  # S4's step needs two landed chunks
+        sources[" ".join(f"{k}={v}" for k, v in values.items())] = \
+            variant_source(text, values)
+    t0 = time.perf_counter()
+    libs = build_sources(name, sources)
+    print(f"{name}: {len(libs)} sources built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rows = []
+    inputs = _s1_inputs(dev) if name == "batch_scan" else _s4_inputs(dev)
+    for label, args in inputs:
+        arr = args[0]
+        n = arr.shape[0]
+
+        def outputs():
+            return (torch.empty_like(arr),
+                    torch.empty(arr.shape, dtype=torch.uint8, device=dev))
+        ref = outputs()
+        _run(libs["committed"], name, args, ref)
+        torch.cuda.synchronize()
+        for variant, lib in libs.items():
+            if isinstance(lib, str):
+                print(f"{name} [{variant}]: did not build", flush=True)
+                rows.append({"kernel": name, "variant": variant,
+                             "shape": label, "error": lib[-2000:]})
+                continue
+            got = outputs()
+            ms = time_ms(lambda: _run(lib, name, args, got))
+            same = bool(torch.equal(got[0], ref[0])
+                        and torch.equal(got[1], ref[1]))
+            rows.append({"kernel": name, "variant": variant, "shape": label,
+                         "ms": ms, "ns_per_request": 1e6 * ms / n,
+                         "equal_to_committed": same})
+            print(f"{name} [{variant}] {label}: {ms:.3f} ms "
+                  f"({1e6 * ms / n:.1f} ns a request a lane)"
+                  f"{'' if same else '  DIFFERS from the committed kernel'}",
+                  flush=True)
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("tune: no CUDA device")
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    dev = torch.device("cuda", 0)
+    rows = [r for name in GRIDS for r in tune(name, dev)]
+    bad = [r for r in rows if not r.get("equal_to_committed")]
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

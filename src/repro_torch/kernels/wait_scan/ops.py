@@ -33,6 +33,24 @@ def _check(arr, tok, k, timeout, b_max):
                          f"{tuple(b_max.shape)}: need [n, lanes] and [lanes]")
 
 
+def window() -> int:
+    """Requests the kernel's shared-memory window holds from the chunk of
+    its cursor on (its ``wait_scan_window``): a trigger k - 1 requests
+    ahead of the head is read there while it lies inside, else from device
+    memory.  Needs the built kernel."""
+    fn = K.library("wait_scan").wait_scan_window
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
+
+
+def max_requests() -> int:
+    """The most requests a lane the kernel takes (its ``wait_scan_max_n``):
+    its positions are 32-bit ints.  Needs the built kernel."""
+    fn = K.library("wait_scan").wait_scan_max_n
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return fn()
+
+
 def wait_scan(arr, tok, k, timeout, b_max, k1, k2, k3, k4):
     """WAIT threshold-admission batch formation, one lane per sweep cell.
 
@@ -46,9 +64,12 @@ def wait_scan(arr, tok, k, timeout, b_max, k1, k2, k3, k4):
     lat = tuple(float(x) for x in (k1, k2, k3, k4))
     if not K.on_cuda(arr, tok, k, timeout, b_max):
         return wait_scan_reference(arr, tok, k, timeout, b_max, *lat)
+    n, lanes = arr.shape
+    if n > max_requests():
+        raise ValueError(f"wait_scan takes at most {max_requests()} requests "
+                         f"a lane on the card, got {n}")
     arr, tok, k, timeout, b_max = (x.contiguous() for x in
                                    (arr, tok, k, timeout, b_max))
-    n, lanes = arr.shape
     starts = torch.empty_like(arr)
     first = torch.empty(arr.shape, dtype=torch.bool, device=arr.device)
     if n == 0 or lanes == 0:

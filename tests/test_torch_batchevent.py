@@ -32,6 +32,7 @@ from repro.core import fastsim as j_fast  # noqa: E402
 from repro.core import latency_model as j_lat  # noqa: E402
 from repro.core import mg1 as j_mg1  # noqa: E402
 from repro.core import policies as j_pol  # noqa: E402
+from repro.core import predictors as j_pred  # noqa: E402
 from repro.core import simulate as j_sim  # noqa: E402
 from repro.data.pipeline import make_request_stream as j_stream  # noqa: E402
 from repro.serving import metrics as j_metrics  # noqa: E402
@@ -42,7 +43,9 @@ from repro_torch.core import distributions as t_dist  # noqa: E402
 from repro_torch.core import fastsim as t_fast  # noqa: E402
 from repro_torch.core import latency_model as t_lat  # noqa: E402
 from repro_torch.core import mg1 as t_mg1  # noqa: E402
+from repro_torch import kernels as K  # noqa: E402
 from repro_torch.core import policies as t_pol  # noqa: E402
+from repro_torch.core import predictors as t_pred  # noqa: E402
 from repro_torch.core import simulate as t_sim  # noqa: E402
 from repro_torch.data.pipeline import make_request_stream as t_stream  # noqa: E402
 from repro_torch.kernels.multibin_scan import multibin_scan  # noqa: E402
@@ -391,3 +394,59 @@ def test_formation_rewind_equals_reference(name, kw):
         t_free = tb[0] + 0.3 * len(tb[1])
         step += 1
     assert step > 50
+
+
+# ----------------------------------------------------------------------------
+# sweep_noise: WAIT cells as the lanes of one S4 launch
+# ----------------------------------------------------------------------------
+
+def _wait_noise_factory(pol_mod, pred_mod, kw):
+    """WAIT at prediction noise sigma: ``kw`` for every sigma, or with
+    ``"per_sigma"`` a k, timeout and cap of its own for each (the lanes of
+    one launch need not share them)."""
+    def make(s):
+        own = kw if kw != "per_sigma" else {
+            "k": 4 + int(8 * s), "timeout": None if s == 0 else 3.0 * s,
+            "b_max": int(16 * s) or None}
+        return pol_mod.get_policy(
+            "wait", predictor=pred_mod.LogNormalNoisePredictor(s), **own)
+    return make
+
+
+@pytest.mark.parametrize("kw", [{"k": 16}, {"k": 4, "timeout": 2.5, "b_max": 8},
+                                "per_sigma"], ids=["k16", "k4-t2.5-b8",
+                                                   "per_sigma"])
+def test_sweep_noise_wait_lanes_equal_cells_and_reference(x64, kw):
+    """``sweep_noise`` with every cell WAIT runs the cells as the lanes of
+    one ``wait_scan`` call (the plain version here: no launch counted);
+    its means equal the per-cell ``simulate_policy_fast`` path bit for bit
+    and the JAX package's ``sweep_noise`` (which runs WAIT a cell at a
+    time) within the band."""
+    lams, sigmas, n = [0.6, 1.0], [0.0, 0.5, 1.5], 2000
+    jd, td = dists("lognormal")
+    jl, tl = lats()
+    factory = _wait_noise_factory(t_pol, t_pred, kw)
+    got = {}
+    before = K.LAUNCHES["wait_scan"]
+    lanes = t_fast.sweep_noise(factory, lams, sigmas, td, tl, num_requests=n,
+                               seed=15, device="cpu", launch_out=got)
+    assert K.LAUNCHES["wait_scan"] == before
+    assert got["kernel"] == "wait_scan"
+    cells = [(li, si) for li in range(len(lams)) for si in range(len(sigmas))]
+    assert got["cells"] == cells
+    assert got["args"][0].shape == (n, len(cells))
+    pols = [factory(sigmas[si]) for _, si in cells]
+    assert got["args"][2].tolist() == [p.k for p in pols]
+    assert got["args"][3].tolist() == [float("inf") if p.timeout is None
+                                       else p.timeout for p in pols]
+    assert got["args"][4].tolist() == [p.b_max or 0 for p in pols]
+    for li, lam in enumerate(lams):
+        for si, s in enumerate(sigmas):
+            cell = t_fast.simulate_policy_fast(factory(s), lam, td, tl,
+                                               num_requests=n, seed=15,
+                                               device="cpu")
+            assert lanes["mean_wait"][li, si] == cell["mean_wait"], (li, si)
+    ref = j_fast.sweep_noise(_wait_noise_factory(j_pol, j_pred, kw), lams,
+                             sigmas, jd, jl, num_requests=n, seed=15)
+    np.testing.assert_allclose(lanes["mean_wait"], ref["mean_wait"], rtol=0,
+                               atol=SCAN_ATOL)

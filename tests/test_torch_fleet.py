@@ -256,13 +256,11 @@ def test_sweep_noise_equals_reference(x64, pname):
                                           td, tl, num_requests=n, seed=15,
                                           device="cpu")
         assert t["mean_wait"][li, 0] == ref["mean_wait"]
-    if pname in ("srpt", "multibin"):   # every cell a lane of ONE launch
-        assert launch["kernel"] == pname + "_scan"
-        assert launch["args"][0].shape == (n, len(lams) * len(sigmas))
-        assert launch["cells"] == [(li, si) for li in range(2)
-                                   for si in range(3)]
-    else:
-        assert not launch
+    # every cell a lane of ONE launch, WAIT's too
+    assert launch["kernel"] == pname + "_scan"
+    assert launch["args"][0].shape == (n, len(lams) * len(sigmas))
+    assert launch["cells"] == [(li, si) for li in range(2)
+                               for si in range(3)]
     with pytest.raises(NotImplementedError, match="M9"):
         t_fast.sweep_noise(factory(t_pol, t_pred), lams, sigmas, td, tl,
                            srpt_loop=object(), device="cpu")

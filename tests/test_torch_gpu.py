@@ -542,6 +542,73 @@ def test_batch_scan_kernel_bit_equal_to_plain(cuda, lanes, capped):
     assert torch.equal(starts.cpu(), cpu_s) and torch.equal(closed.cpu(), cpu_c)
 
 
+# S1's shared-memory ring at its edges: n of 1, one short of the ring's
+# depth D, D, one past it and three rings and a bit; lanes of one block, a
+# few, one past a warp and the sweeps' 64; capped and not; every lane
+# padded, every lane elastic, or the two alternating in one launch (each
+# lane's block runs the loop of its own law)
+# (multiple of D, offset): n = multiple * D + offset
+S1_RING_NS = {"1": (0, 1), "D-1": (1, -1), "D": (1, 0), "D+1": (1, 1),
+              "3D+5": (3, 5)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("law", ["padded", "elastic", "mixed"])
+@pytest.mark.parametrize("capped", [False, True])
+@pytest.mark.parametrize("lanes", [1, 3, 33, 64])
+@pytest.mark.parametrize("n_case", sorted(S1_RING_NS))
+def test_batch_scan_ring_edges_bit_equal_to_plain(cuda, n_case, lanes, capped,
+                                                  law):
+    from repro_torch.kernels.batch_scan import (
+        NO_CAP, batch_scan, batch_scan_reference)
+    from repro_torch.kernels.batch_scan.ops import ring_depth
+    depth = ring_depth()
+    assert depth >= 64
+    times, plus = S1_RING_NS[n_case]
+    n = times * depth + plus
+    arr, tok = _scan_inputs(lanes, n, seed=n + lanes)
+    elastic = {"padded": np.zeros(lanes, bool), "elastic": np.ones(lanes, bool),
+               "mixed": np.arange(lanes) % 2 == 1}[law]
+    b_max = np.where(np.arange(lanes) % 3 == 0, NO_CAP, 4.0) if capped \
+        else np.full(lanes, NO_CAP)
+    args = [torch.from_numpy(x).to(cuda) for x in (arr, tok, elastic, b_max)]
+    lat = (0.05, 0.5, 0.0005, 0.02)
+    before = K.LAUNCHES["batch_scan"]
+    starts, closed = batch_scan(*args, *lat)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["batch_scan"] == before + 1
+    ref_s, ref_c = batch_scan_reference(*(a.cpu() for a in args), *lat)
+    assert torch.equal(starts.cpu(), ref_s) and torch.equal(closed.cpu(), ref_c)
+
+
+@pytest.mark.gpu
+def test_batch_scan_saturated_and_light_lanes_in_one_launch(cuda):
+    """One launch whose lane 0 arrives far above the padded capacity (its
+    batches fill to the cap, or without one grow to hundreds) beside lanes
+    so light that nearly every request closes a batch."""
+    from repro_torch.kernels.batch_scan import (
+        NO_CAP, batch_scan, batch_scan_reference)
+    n, lanes = 20_011, 8
+    rng = np.random.default_rng(20)
+    lam = np.array([50.0, 50.0] + list(np.geomspace(5e-4, 5e-3, lanes - 2)))
+    gaps = rng.exponential(1.0, (n, lanes)) / lam
+    gaps[0] = 0.0
+    arr = np.cumsum(gaps, axis=0)
+    tok = rng.integers(1, 1001, (n, lanes)).astype(np.float64)
+    elastic = np.arange(lanes) % 2 == 1
+    b_max = np.array([8.0, NO_CAP] + [8.0, NO_CAP] * ((lanes - 2) // 2))
+    args = [torch.from_numpy(x).to(cuda) for x in (arr, tok, elastic, b_max)]
+    lat = (0.05, 0.5, 0.0005, 0.02)
+    starts, closed = batch_scan(*args, *lat)
+    torch.cuda.synchronize()
+    ref_s, ref_c = batch_scan_reference(*(a.cpu() for a in args), *lat)
+    assert torch.equal(starts.cpu(), ref_s) and torch.equal(closed.cpu(), ref_c)
+    batches = closed.sum(dim=0).cpu().numpy()
+    assert batches[0] <= n // 8 + 3                  # full batches of 8
+    assert batches[1] < n // 100                     # batches of hundreds
+    assert (batches[2:] > 0.9 * n).all()             # nearly all alone
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("lanes", [1, 3, 64])
 def test_impatience_scan_kernel_bit_equal_to_plain(cuda, lanes):
@@ -752,6 +819,70 @@ def test_event_kernels_bit_equal_to_plain(cuda, monkeypatch, kernel, case, n,
     if case == "early_empty":   # bin 3 is empty long before the end
         bins = args[2][:, 0].cpu()
         assert int(torch.nonzero(bins == 3).max()) < n // 20
+
+
+# S4's staged window at its edges: a trigger count k of 0 (counts as 1), 1,
+# 16 and three past the window W (read from device memory); caps of none, 1,
+# 16 and W + 3; timeouts of 0, 2.5 and none; one lane or ten.  The loads run
+# from idle to far past saturation, so batches of hundreds cross the window.
+# (multiple of W, offset)
+S4_WINDOW_VALUES = {"0": (0, 0), "1": (0, 1), "16": (0, 16), "W+3": (1, 3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 10])
+@pytest.mark.parametrize("timeout", [0.0, 2.5, float("inf")])
+@pytest.mark.parametrize("b_max_case", sorted(S4_WINDOW_VALUES))
+@pytest.mark.parametrize("k_case", sorted(S4_WINDOW_VALUES))
+def test_wait_scan_window_edges_bit_equal_to_plain(cuda, k_case, b_max_case,
+                                                   timeout, lanes):
+    from repro_torch.kernels.wait_scan import wait_scan, wait_scan_reference
+    from repro_torch.kernels.wait_scan.ops import window
+    w = window()
+    assert w >= 64
+    k, b_max = (S4_WINDOW_VALUES[c][0] * w + S4_WINDOW_VALUES[c][1]
+                for c in (k_case, b_max_case))
+    n = 4 * w + 37
+    rng = np.random.default_rng(k + 7 * b_max + lanes)
+    lam = np.geomspace(0.05, 60.0, lanes) if lanes > 1 else np.array([60.0])
+    gaps = rng.exponential(1.0, (n, lanes)) / lam
+    gaps[0] = 0.0
+    arr = np.cumsum(gaps, axis=0)
+    tok = rng.integers(1, 40, (n, lanes)).astype(np.float64) * 50.0
+
+    def i64(x):
+        return torch.from_numpy(np.asarray(x, np.int64)).to(cuda)
+    args = (torch.from_numpy(arr).to(cuda), torch.from_numpy(tok).to(cuda),
+            i64(np.full(lanes, k)),
+            torch.full((lanes,), timeout, dtype=torch.float64, device=cuda),
+            i64(np.full(lanes, b_max)))
+    before = K.LAUNCHES["wait_scan"]
+    starts, first = wait_scan(*args, *EVENT_LAT)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["wait_scan"] == before + 1
+    ref_s, ref_f = wait_scan_reference(*(a.cpu() for a in args), *EVENT_LAT)
+    assert torch.equal(starts.cpu(), ref_s) and torch.equal(first.cpu(), ref_f)
+    if timeout == float("inf") and b_max in (0, w + 3):
+        # the saturated lane's batches run past the window
+        sizes = torch.unique(starts[:, -1], return_counts=True)[1]
+        assert int(sizes.max()) > w
+
+
+@pytest.mark.gpu
+def test_wait_scan_refuses_lanes_past_its_int_positions(cuda):
+    """The kernel keeps a lane's positions in 32-bit ints: the wrapper
+    refuses a lane one request past the kernel's bound instead of
+    launching (the lane a broadcast view, so nothing of its size is
+    allocated)."""
+    from repro_torch.kernels.wait_scan import ops, wait_scan
+    bound = ops.max_requests()
+    assert 2 ** 30 < bound < 2 ** 31
+    a = torch.zeros(1, 1, dtype=torch.float64, device=cuda).expand(bound + 1, 1)
+    one = torch.ones(1, dtype=torch.int64, device=cuda)
+    before = K.LAUNCHES["wait_scan"]
+    with pytest.raises(ValueError, match=f"at most {bound} requests"):
+        wait_scan(a, a, one, a[0], one, *EVENT_LAT)
+    assert K.LAUNCHES["wait_scan"] == before
 
 
 @contextlib.contextmanager
@@ -1026,7 +1157,7 @@ def test_fleet_simulators_on_the_card_equal_cpu(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("policy", ["srpt", "multibin"])
+@pytest.mark.parametrize("policy", ["srpt", "multibin", "wait"])
 def test_sweep_noise_on_the_card_equals_cpu(cuda, policy):
     from repro_torch.core import fastsim
     from repro_torch.core.distributions import LogNormalTokens
@@ -1035,7 +1166,8 @@ def test_sweep_noise_on_the_card_equals_cpu(cuda, policy):
     from repro_torch.core.predictors import LogNormalNoisePredictor
     ln = LogNormalTokens(7.0, 0.7)
     lat = BatchLatencyModel(*EVENT_LAT)
-    kw = {"srpt": {"b_max": 16}, "multibin": {"num_bins": 4}}[policy]
+    kw = {"srpt": {"b_max": 16}, "multibin": {"num_bins": 4},
+          "wait": {"k": 16}}[policy]
 
     def factory(s):
         return get_policy(policy, predictor=LogNormalNoisePredictor(s), **kw)
@@ -1048,7 +1180,7 @@ def test_sweep_noise_on_the_card_equals_cpu(cuda, policy):
     cpu = fastsim.sweep_noise(*args, num_requests=5000, seed=15,
                               device="cpu")
     assert np.array_equal(gpu["mean_wait"], cpu["mean_wait"])
-    # SRPT and multi-bin alike: all six cells are lanes of one launch
+    # SRPT, multi-bin and WAIT alike: all six cells are lanes of one launch
     assert K.LAUNCHES[name] == before + 1
     assert got["kernel"] == name and got["args"][0].shape == (5000, 6)
     assert got["cells"] == [(li, si) for li in range(2) for si in range(3)]
