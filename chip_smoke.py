@@ -36,21 +36,25 @@ Phases (any failure raises and the script exits non-zero):
   7. run the paper's simulators (``repro_torch.core.fastsim``) on the card:
      the Fig 5 and heavy-tail Fig 6b grids (dynamic, elastic, capped and
      not, as 64 lanes of one ``batch_scan`` launch each; fixed b=4, 8 by
-     the closed form) and the Fig 4 FCFS cells (``impatience_scan``), then
+     the closed form) and the Fig 4 FCFS cells (a ``sweep`` whose four
+     cells with impatience are the lanes of one ``impatience_scan``
+     launch; the other two by the closed form), then
      the four scan policies once more on k1..k4 fitted from phase 4's
      engine (ROADMAP M4; a fitted slope below 0 is held at 0), and the
      reference benchmark's heavy-tail grid (dynamic capped at 32, 16 and
      not, elastic: S1 lanes; multi-bin with equal-mass and optimised
      edges: S3; WAIT k=16: S4; SRPT b=16: S5); hold every lane of the
      counted launches, at full length, bit for bit to their plain
-     versions (the Fig 5 S1 launch and every S3-S5 cell on the card, the
-     other S1 launches on host processes) and to the NumPy oracle (every
-     S1 lane on the launch's inputs, four Fig 5 lanes and every S3-S5
-     cell on the oracle's own sampling), assert the benchmark's relations
+     versions (the Fig 5 S1 launch, the S2 launch and every S3-S5 cell on
+     the card, the other S1 launches on host processes) and to the NumPy
+     oracle (every S1 lane on the launch's inputs, four Fig 5 lanes and
+     every S2-S5 cell on the oracle's own sampling), assert the
+     benchmark's relations
      at λ = 1, print every lane's mean wait beside the paper's analytic
-     delay or envelope, time the kernels against their bytes bound (S1 and
-     S4 beside their first designs' figures from PERF.md; S3 also the
-     kernel alone, without its grouping by bin), and print the device
+     delay or envelope, time the kernels against their bytes bound (S1, S2
+     and S4 beside their first designs' figures from PERF.md; S2 also
+     beside its chain, and S2 and S3 also the kernel alone, without the
+     wrapper's layout), and print the device
      time of each S5 launch in the counted path (CUDA events);
   8b. run the reference benchmarks' fleet, predictor and fault grids on
      the card (``fleet.sweep``, ``simulate_fleet_fast``, ``sweep_noise``
@@ -1088,6 +1092,11 @@ def _print_grid(g, policies):
 # this run's figures
 EARLIER_S1_MS = {"fig5": 11.410, "fig6": 11.411, "fit": 11.509, "heavy": 4.188}
 EARLIER_S4_MS = {0.5: 8.310, 1.0: 8.139}
+# S2's first design at 4 lanes and 1 (PERF.md §6: 55 ns a request a lane),
+# and its chain: dependent float64 additions a request, each taken at
+# CHAIN_CYCLES cycles of a CHAIN_HZ clock (assumed, not measured)
+EARLIER_S2_MS = {4: 10.927, 1: 10.925}
+S2_CHAIN_OPS, CHAIN_CYCLES, CHAIN_HZ = 2, 8, 1.755e9
 
 
 def s1_launch(g, dev):
@@ -1238,14 +1247,13 @@ def run_simulators(dev, cal):
     from repro_torch import kernels as K
     from repro_torch.core.bulk import elastic_batching_bound
     from repro_torch.core.distributions import LogNormalTokens, UniformTokens
-    from repro_torch.core.fastsim import simulate_policy_fast
     from repro_torch.core.latency_model import (
         PAPER_A100_LLAMA2_7B, BatchLatencyModel)
     from repro_torch.core.bulk import optimize_bin_edges
     from repro_torch.core.policies import (
         DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy, MultiBinPolicy,
         SRPTPolicy, WaitPolicy)
-    from repro_torch.core.simulate import no_warmup, simulate_policy
+    from repro_torch.core.simulate import _warm, no_warmup, simulate_policy
 
     pols = {"dynamic": DynamicPolicy(), "dynamic_b8": DynamicPolicy(b_max=8),
             "elastic": ElasticPolicy(), "elastic_b8": ElasticPolicy(b_max=8),
@@ -1259,8 +1267,8 @@ def run_simulators(dev, cal):
     sat6 = 1.0 / elastic_batching_bound(ln, lat6, 1.0)["alpha"]
     lat_fit = fit_engine_latency(cal)
     mu16 = float(lat_fit.service_rate(uni, 16)[0])
-    fcfs_cells = [(n_max, tau) for n_max in (None, 1600)
-                  for tau in (30.0, 120.0, None)]
+    fig4_pols = {(n_max, tau): FCFSPolicy(n_max=n_max, tau=tau)
+                 for n_max in (None, 1600) for tau in (30.0, 120.0, None)}
     # the reference benchmark's heavy-tail grid
     # (benchmarks/bench_batching_policies.py, multi-bin and PR 3 parts)
     ht_edges = tuple(float(e) for e in optimize_bin_edges(ln, lat6, 1.0,
@@ -1271,7 +1279,7 @@ def run_simulators(dev, cal):
                "multibin4_opt": MultiBinPolicy(edges=ht_edges),
                "wait_k16": WaitPolicy(k=16), "srpt_b16": SRPTPolicy(b_max=16)}
 
-    # the main path, counted: four sweeps and the Fig 4 cells
+    # the main path, counted: five sweeps (the Fig 4 cells the last)
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1289,16 +1297,14 @@ def run_simulators(dev, cal):
                       f"constants, {HT_N} requests, seed {HT_SEED}; "
                       f"multibin4_opt edges {ht_edges})", ln, lat6,
                       [0.5, 1.0], ht_pols, dev, n=HT_N, seed=HT_SEED)
-    fig4 = {}
-    for n_max, tau in fcfs_cells:
-        fig4[n_max, tau] = simulate_policy_fast(
-            FCFSPolicy(n_max=n_max, tau=tau), 1 / 40, ln, PAPER_A100_LLAMA2_7B,
-            num_requests=FIG4_N, device=dev)
+    fig4 = _sim_grid("fig4", "Fig 4 FCFS (lognormal(7, 0.7), the paper's "
+                     "A100 law)", ln, PAPER_A100_LLAMA2_7B, [1 / 40],
+                     fig4_pols, dev, n=FIG4_N)
     torch.cuda.synchronize()
     main_wall = time.perf_counter() - t0
     s5_rec.__exit__()
     launches = dict(K.LAUNCHES)
-    assert launches == {**launches, "batch_scan": 4, "impatience_scan": 4,
+    assert launches == {**launches, "batch_scan": 4, "impatience_scan": 1,
                         "multibin_scan": 4, "wait_scan": 2,
                         "srpt_scan": 2}, launches
     log(f"simulators: main path {main_wall:.2f} s wall (the heavy-tail "
@@ -1323,12 +1329,19 @@ def run_simulators(dev, cal):
         f"{hw['dyn_b16']:.3f}; multibin4 {hw['multibin4']:.3f} < 0.1 x dyn "
         f"{hw['dyn']:.3f} and 0.1 x dyn_b32 {hw['dyn_b32']:.3f}; "
         f"multibin4_opt {hw['multibin4_opt']:.3f} < 1.02 x multibin4")
-    for (n_max, tau), r in fig4.items():
-        pol = FCFSPolicy(n_max=n_max, tau=tau)
+    fig4_s2 = fig4["scan"]["impatience"]
+    col = {cell: c for c, (cell, _) in enumerate(fig4_s2["lanes"])}
+    lost = fig4_s2["out"][1].cpu().numpy()
+    for cell, pol in fig4_pols.items():
         a = pol.analytic_delay(1 / 40, ln, PAPER_A100_LLAMA2_7B)
-        log(f"Fig 4 FCFS λ=1/40 n_max={n_max} tau={tau} "
-            f"({'S2' if tau else 'closed form'}): mean wait {r['mean_wait']:.3f}"
-            f" s (analytic {a:.3f}), loss {r['loss_frac']:.4f}")
+        loss = _warm(lost[:, col[cell]]).mean() if cell in col else 0.0
+        log(f"Fig 4 FCFS λ=1/40 n_max={cell[0]} tau={cell[1]} "
+            f"({f'S2 lane {col[cell]}' if cell in col else 'closed form'}): "
+            f"mean wait {fig4['waits'][cell][0]:.3f} s (analytic {a:.3f}), "
+            f"loss {loss:.4f}")
+    log(f"Fig 4: {len(col)} impatient cells as the {len(col)} lanes of one "
+        f"impatience_scan launch, {len(fig4_pols) - len(col)} by the closed "
+        f"form; sweep wall {fig4['wall']:.2f} s")
 
     # four lanes of the counted Fig 5 launch at full length against the
     # NumPy oracle sampling its own workload (host CPU)
@@ -1363,7 +1376,7 @@ def run_simulators(dev, cal):
         oracle_done = oracle_on_host(
             [("batch_scan", lo, False) for lo in s1_los], pool)
         s1, s2, event_entries = _simulator_kernels_on_card(
-            dev, grids, s1_los, fig4, fcfs_cells, heavy, ln, s5_path)
+            dev, grids, s1_los, fig4, heavy, s5_path)
         jobs, host_s = plain_done()
         lanes_held, tied, ora_s = oracle_done()
     assert tied == 0, f"{tied} S1 lanes of phase 7 part from the oracle"
@@ -1375,25 +1388,17 @@ def run_simulators(dev, cal):
     return launches, [s1, s2] + event_entries
 
 
-def _simulator_kernels_on_card(dev, grids, s1_los, fig4, fcfs_cells, heavy,
-                               ln, s5_path):
+def _simulator_kernels_on_card(dev, grids, s1_los, fig4, heavy, s5_path):
     """Phase 7's checks and timings on the card: S1 on the four counted
     launches (Fig 5's plain version on the card), the Fig 4 cells against
-    the oracle, S2 against its plain version, and every S3-S5 cell.
-    Returns the JSON entries of S1, S2 and S3-S5."""
+    the oracle, S2's counted launch against its plain version, and every
+    S3-S5 cell.  Returns the JSON entries of S1, S2 and S3-S5."""
     import torch
-    from repro_torch.core.latency_model import PAPER_A100_LLAMA2_7B
-    from repro_torch.core.policies import FCFSPolicy
     from repro_torch.core.simulate import _warm, simulate_policy
     from repro_torch.kernels.impatience_scan import (
-        impatience_scan, impatience_scan_reference)
+        impatience_scan, impatience_scan_reference, ops)
     rows = [check_batch_scan(g, lo, plain_on_card=g is grids[0])
             for g, lo in zip(grids, s1_los)]
-    for (n_max, tau), r in fig4.items():
-        ora = simulate_policy(FCFSPolicy(n_max=n_max, tau=tau), 1 / 40, ln,
-                              PAPER_A100_LLAMA2_7B, num_requests=FIG4_N)
-        assert np.array_equal(r["waits"], ora["waits"]), (n_max, tau)
-    log(f"Fig 4: all {len(fig4)} FCFS cells' {FIG4_N} waits equal the oracle's")
 
     lanes, n, ms, plain_ms, bnd = rows[0]
     s1 = {"name": "batch_scan", "route": "cuda",
@@ -1405,48 +1410,55 @@ def _simulator_kernels_on_card(dev, grids, s1_los, fig4, fcfs_cells, heavy,
           "library_ms": None,
           "launch_ms": {g["key"]: r[2] for g, r in zip(grids, rows)}}
 
-    # S2: each impatient Fig 4 cell at the main path's shape [FIG4_N, 1],
-    # against the plain version run once over the four cells as lanes and
-    # against the counted launch's waits
-    cells = [(n_max, tau) for n_max, tau in fcfs_cells if tau is not None]
-    inter, service = [], []
-    for n_max, tau in cells:
-        wl = FCFSPolicy(n_max=n_max, tau=tau).sample_workload(
-            1 / 40, ln, FIG4_N, 0)
-        inter.append(wl.inter)
-        service.append(PAPER_A100_LLAMA2_7B.service_time(wl.tokens))
-    inter = torch.from_numpy(np.stack(inter, axis=1)).to(dev)
-    service = torch.from_numpy(np.stack(service, axis=1)).to(dev)
-    tau = torch.tensor([t for _, t in cells], dtype=torch.float64, device=dev)
-    (rw, rl), plain_ms = wall_ms(
-        lambda: impatience_scan_reference(inter, service, tau))
-    for j, cell in enumerate(cells):
-        w, lost = impatience_scan(inter[:, j:j + 1], service[:, j:j + 1],
-                                  tau[j:j + 1])
-        assert torch.equal(w[:, 0], rw[:, j]) and \
-            torch.equal(lost[:, 0], rl[:, j]), \
-            f"impatience_scan differs from its plain version at {cell}"
-        assert np.array_equal(_warm(w[:, 0].cpu().numpy()), fig4[cell]["waits"])
-    one = (inter[:, :1].contiguous(), service[:, :1].contiguous(), tau[:1])
+    # S2: the counted launch, a lane per impatient Fig 4 cell, at full
+    # length against the plain version on the card and against the oracle
+    # (each cell sampling its own workload); the closed-form cells' mean
+    # waits against the oracle's
+    launch = fig4["scan"]["impatience"]
+    args, (waits, lost) = launch["args"], launch["out"]
+    (rw, rl), plain_ms = wall_ms(lambda: impatience_scan_reference(*args))
+    assert torch.equal(waits, rw) and torch.equal(lost, rl), \
+        "impatience_scan differs from its plain version"
+    col = {cell: c for c, (cell, _) in enumerate(launch["lanes"])}
+    for cell, pol in fig4["policies"].items():
+        ora = simulate_policy(pol, 1 / 40, fig4["dist"], fig4["lat"],
+                              num_requests=FIG4_N)
+        assert fig4["waits"][cell][0] == ora["mean_wait"], cell
+        if cell in col:
+            assert np.array_equal(_warm(waits[:, col[cell]].cpu().numpy()),
+                                  ora["waits"]), cell
+    log(f"Fig 4: all {len(fig4['policies'])} FCFS cells' mean waits equal "
+        f"the oracle's; the {len(col)} lanes of the counted S2 launch equal "
+        f"the plain version's and the oracle's {FIG4_N} waits")
+    lanes = len(col)
+    one = tuple(a[..., :1].contiguous() for a in args)
+    laid, tau = ops.layout(*args[:2]), args[2].contiguous()
+    ms_kernel = event_ms(lambda: ops.launch(laid, tau, FIG4_N))
+    ms = event_ms(lambda: impatience_scan(*args))
     ms1 = event_ms(lambda: impatience_scan(*one))
-    ms = event_ms(lambda: impatience_scan(inter, service, tau))
-    lanes = len(cells)
     nbytes = lanes * FIG4_N * (8 + 8 + 8 + 1) + lanes * 8
     bnd = bound_ms(nbytes, 3 * lanes * FIG4_N, "float64")
-    log(f"S2 impatience_scan {lanes} lanes x {FIG4_N}: {ms:.3f} ms by CUDA "
-        f"events ({lanes * FIG4_N / ms / 1e6:.3f} G lane-requests/s), bound "
-        f"{bnd:.4f} ms (bytes; {100 * bnd / ms:.2f}% of it), plain "
-        f"{plain_ms:.1f} ms; 1 lane (the main path's launch) {ms1:.3f} ms; "
-        f"each cell's launch at [{FIG4_N}, 1] equals the plain version's "
-        f"lane at full length and the counted launch's waits")
+    chain = 1e3 * FIG4_N * S2_CHAIN_OPS * CHAIN_CYCLES / CHAIN_HZ
+    log(f"S2 impatience_scan {lanes} lanes x {FIG4_N} (the counted launch): "
+        f"{ms:.3f} ms by CUDA events ({1e6 * ms / FIG4_N:.1f} ns a request a "
+        f"lane, {lanes * FIG4_N / ms / 1e6:.3f} G lane-requests/s; the kernel "
+        f"alone on laid-out inputs {ms_kernel:.3f} ms; the first design "
+        f"{EARLIER_S2_MS[lanes]:.3f} ms, {1e6 * EARLIER_S2_MS[lanes] / FIG4_N:.1f}"
+        f" ns, PERF.md); 1 lane {ms1:.3f} ms ({1e6 * ms1 / FIG4_N:.1f} ns a "
+        f"request; the first design {EARLIER_S2_MS[1]:.3f}); bound "
+        f"{bnd:.4f} ms (bytes, {nbytes / 1e6:.1f} MB; {100 * bnd / ms:.2f}% "
+        f"of it); chain {chain:.3f} ms ({S2_CHAIN_OPS} dependent float64 "
+        f"additions and 2 selects a request, at {CHAIN_CYCLES} cycles an "
+        f"addition and {CHAIN_HZ / 1e9:.3f} GHz, both assumed; "
+        f"{100 * chain / ms:.1f}% of it); plain {plain_ms:.1f} ms")
     s2 = {"name": "impatience_scan", "route": "cuda",
           "source": "src/repro_torch/kernels/impatience_scan/csrc/"
                     "impatience_scan.cu",
           "replaces": "src/repro/core/fastsim.py:224 (_impatience_scan, a "
                       "lax.scan; no Pallas kernel)",
           "shape": [FIG4_N, lanes], "max_abs_err": 0.0, "ms": ms,
-          "ms_one_lane": ms1, "plain_ms": plain_ms, "bound_ms": bnd,
-          "bound_by": "bytes", "library_ms": None}
+          "kernel_ms": ms_kernel, "ms_one_lane": ms1, "plain_ms": plain_ms,
+          "bound_ms": bnd, "bound_by": "bytes", "library_ms": None}
     event_entries = check_event_cells(heavy, dev)
     next(e for e in event_entries if e["name"] == "srpt_scan")["in_path"] = \
         {"simulators": s5_path}

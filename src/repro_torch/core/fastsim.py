@@ -11,7 +11,7 @@ oracle, as in the reference.
   * ``"mg1"``          Lindley / workload recursion.  tau=None is the
     oracle's closed-form cumulative minimum (host NumPy, as the reference's
     fast path is); with impatience the workload recursion runs as kernel
-    S2 (``kernels/impatience_scan``), one lane per cell.
+    S2 (``kernels/impatience_scan``), a lane a block.
   * ``"batch_scan"``   dynamic / elastic batch formation as a per-request
     scan with an O(1) carry (start, count, token sum, token max): kernel
     S1 (``kernels/batch_scan``), one thread walking each lane, a lane a
@@ -27,7 +27,8 @@ oracle, as in the reference.
     column where it has one; the service law always sees the true tokens.
 
 ``sweep(policies, lam_grid, ...)`` stacks every (λ, policy) cell whose
-policy rides the batching scan as a lane of ONE S1 launch; the other
+policy rides the batching scan as a lane of ONE S1 launch, and every cell
+of an FCFS policy with impatience as a lane of ONE S2 launch; the other
 policies dispatch through ``KERNELS`` per cell, as the reference does.
 ``sweep_noise`` sweeps the (arrival rate, prediction noise) plane: when
 every policy rides SRPT (or multi-bin, or WAIT), all its cells are lanes
@@ -178,8 +179,13 @@ def _mg1_kernel(policy, lam, dist, lat, num_requests, seed, workload=None,
                           _f64(wl.inter, device)[:, None],
                           _f64(service, device)[:, None],
                           _f64([policy.tau], device))
-    waits_w = _warm(waits[:, 0].cpu().numpy())
-    lost_w = _warm(lost[:, 0].cpu().numpy())
+    return _impatience_stats(waits[:, 0].cpu().numpy(),
+                             lost[:, 0].cpu().numpy())
+
+
+def _impatience_stats(waits, lost) -> dict:
+    """One S2 lane's statistics from its waits and lost flags (numpy)."""
+    waits_w, lost_w = _warm(waits), _warm(lost)
     served = waits_w[~lost_w]
     return {
         "mean_wait": float(waits_w.mean()),
@@ -405,6 +411,34 @@ def scan_lane_inputs(policies: dict, lam_grid, dist,
     return lanes, arr, tok
 
 
+def impatience_lane_inputs(policies: dict, lam_grid, dist, lat,
+                           num_requests: int = 100_000, seed: int = 0):
+    """The lanes ``sweep`` stacks into its one S2 launch: every (policy, λ)
+    cell whose policy runs the ``mg1`` kernel with a ``tau``.  Returns
+    (lanes, inter, service, tau): a list of (name, lam_index), the [n,
+    lanes] float64 inter-arrival and service times, lanes minor as S2 takes
+    them (each lane's workload sampled by its own policy, so ``n_max``
+    clips per lane, and timed by the single-request law, as
+    :func:`simulate_policy_fast` times it), and the [lanes] patience."""
+    lanes, inter, service, tau = [], [], [], []
+    for name, pol in _instances(policies).items():
+        if pol.fast_kernel != "mg1" or pol.tau is None:
+            continue
+        law = single_from_batch(lat) if pol.uses_single_latency and \
+            isinstance(lat, BatchLatencyModel) else lat
+        for li, lam in enumerate(lam_grid):
+            wl = pol.sample_workload(lam, dist, num_requests, seed)
+            lanes.append((name, li))
+            inter.append(wl.inter)
+            service.append(np.asarray(law.service_time(wl.tokens), np.float64))
+            tau.append(float(pol.tau))
+    if not lanes:
+        empty = np.zeros((num_requests, 0))
+        return lanes, empty, empty, np.zeros(0)
+    return lanes, np.stack(inter, axis=1), np.stack(service, axis=1), \
+        np.asarray(tau, np.float64)
+
+
 def sweep(policies: dict, lam_grid, dist, lat,
           num_requests: int = 100_000, seed: int = 0, device=None,
           scan_out: Optional[dict] = None) -> dict:
@@ -412,19 +446,24 @@ def sweep(policies: dict, lam_grid, dist, lat,
     fast entry point.  ``policies``: name -> BatchPolicy (or legacy spec
     dict).  Policies riding the batching scan (``scan_lane() is not
     None``, no ``n_max``) are stacked as lanes of ONE S1 launch
-    (:func:`scan_lane_inputs`); every other policy dispatches through
-    ``KERNELS`` per (λ, policy) cell (the oracle when it has no kernel).
-    A ``scan_out`` dict is filled with that launch's ``lanes``, its inputs
-    ``arr``, ``tok`` and outputs ``starts``, ``closed`` ([n, lanes] numpy),
-    and under ``cells`` with each per-cell kernel launch, {(name, lam
-    index): ``launch_out``} (see :func:`simulate_policy_fast`), for a caller
-    that checks the kernels."""
+    (:func:`scan_lane_inputs`), FCFS policies with impatience as lanes of
+    ONE S2 launch (:func:`impatience_lane_inputs`); every other policy
+    dispatches through ``KERNELS`` per (λ, policy) cell (the oracle when it
+    has no kernel).  A ``scan_out`` dict is filled with the S1 launch's
+    ``lanes``, its inputs ``arr``, ``tok`` and outputs ``starts``,
+    ``closed`` ([n, lanes] numpy), under ``impatience`` with the S2
+    launch's ``launch_out`` (see :func:`simulate_policy_fast`; its tensors
+    as passed and returned) and its ``lanes``, and under ``cells`` with
+    each per-cell kernel launch, {(name, lam index): ``launch_out``}, for a
+    caller that checks the kernels."""
     device = resolve_device(device)
     lam_grid = list(lam_grid)
     insts = _instances(policies)
     lanes, arr, tok = scan_lane_inputs(insts, lam_grid, dist, num_requests,
                                        seed)
-    laned = {name for name, *_ in lanes}
+    imp, inter, service, tau = impatience_lane_inputs(
+        insts, lam_grid, dist, lat, num_requests, seed)
+    laned = {name for name, *_ in lanes} | {name for name, _ in imp}
     out = {name: [None] * len(lam_grid) for name in insts}
     cells = {}
     for name, pol in insts.items():
@@ -450,6 +489,17 @@ def sweep(policies: dict, lam_grid, dist, lat,
         if scan_out is not None:
             scan_out.update(lanes=lanes, arr=arr, tok=tok, starts=starts,
                             closed=closed)
+    if imp:
+        s2 = {"lanes": imp}
+        waits, lost = _launch(s2, "impatience_scan", impatience_scan,
+                              _f64(inter, device), _f64(service, device),
+                              _f64(tau, device))
+        waits, lost = waits.cpu().numpy(), lost.cpu().numpy()
+        for col, (name, li) in enumerate(imp):
+            out[name][li] = _impatience_stats(waits[:, col],
+                                              lost[:, col])["mean_wait"]
+        if scan_out is not None:
+            scan_out["impatience"] = s2
     return {k: np.asarray(v) for k, v in out.items()}
 
 

@@ -1,5 +1,6 @@
-"""Time variants of the simulator kernels S1 (``batch_scan``) and S4
-(``wait_scan``) on the card, to choose their shape constants.
+"""Time variants of the simulator kernels S1 (``batch_scan``), S2
+(``impatience_scan``) and S4 (``wait_scan``) on the card, to choose their
+shape constants.
 
 Each kernel's source fixes its shape constants as ``constexpr int NAME =
 value;`` lines.  This module writes copies of the source with other values
@@ -10,9 +11,10 @@ committed kernel.  Every variant's outputs must equal the committed
 kernel's, bit for bit, or the run fails; the committed kernel itself is
 held to its plain version by ``chip_smoke.py`` and the GPU tests.
 
-    PYTHONPATH=src python -m repro_torch.kernels.tune
+    PYTHONPATH=src python -m repro_torch.kernels.tune [kernel ...]
 
-Needs a CUDA device and ``nvcc``.
+(every kernel of ``GRIDS`` when none is named).  Needs a CUDA device and
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import ctypes
 import itertools
 import re
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -32,8 +35,10 @@ from repro_torch import kernels as K
 # the source's static_asserts, or it fails to build and is reported)
 GRIDS = {
     "batch_scan": {"STAGES": (2, 4, 8)},
+    "impatience_scan": {"TILE": (256, 512, 1024, 2048), "STAGES": (2, 4, 8)},
     "wait_scan": {"CHUNKS": (4, 8, 16), "AHEAD": (2, 4, 6)},
 }
+S2_RING_LIMIT = 227 * 1024     # a block's shared memory, bytes
 
 
 def variant_source(text: str, values: dict) -> str:
@@ -125,13 +130,54 @@ def _s4_inputs(dev):
     return out
 
 
+def _s2_inputs(dev):
+    """(label, args) of S2 launches at the main path's shapes: phase 7's
+    four impatient Fig 4 cells as one launch, and the first alone; args are
+    the kernel's laid-out inputs, tau and n."""
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.fastsim import impatience_lane_inputs
+    from repro_torch.core.latency_model import PAPER_A100_LLAMA2_7B
+    from repro_torch.core.policies import FCFSPolicy
+    from repro_torch.kernels.impatience_scan.ops import layout
+    n = 200_000
+    pols = {(n_max, tau): FCFSPolicy(n_max=n_max, tau=tau)
+            for n_max in (None, 1600) for tau in (30.0, 120.0)}
+    _, inter, service, tau = impatience_lane_inputs(
+        pols, [1 / 40], LogNormalTokens(7.0, 0.7), PAPER_A100_LLAMA2_7B, n)
+    out = []
+    for label, cut in (("Fig 4, 4 lanes x 200,000", slice(None)),
+                       ("one Fig 4 cell, 1 lane x 200,000", slice(0, 1))):
+        laid = layout(torch.from_numpy(inter[:, cut]).to(dev),
+                      torch.from_numpy(service[:, cut]).to(dev))
+        out.append((label, (*laid, torch.from_numpy(tau[cut]).to(dev), n)))
+    return out
+
+
+def _shape(name, args):
+    """(requests a lane, the shape of each output) of a launch: [n, lanes],
+    or for S2 [lanes, ld], lanes major as its kernel writes them."""
+    if name == "impatience_scan":
+        return args[3], tuple(args[0].shape)
+    return args[0].shape[0], tuple(args[0].shape)
+
+
 def _run(lib, name, args, outs):
-    """Launch kernel ``name`` of ``lib`` on the wrapper's arguments."""
+    """Launch kernel ``name`` of ``lib`` on the wrapper's arguments (S2: on
+    its laid-out inputs)."""
     from repro_torch.kernels.batch_scan.ops import _ARGTYPES as S1_ARGS
+    from repro_torch.kernels.impatience_scan.ops import _ARGTYPES as S2_ARGS
     from repro_torch.kernels.wait_scan.ops import _ARGTYPES as S4_ARGS
     fn = getattr(lib, name)
-    fn.argtypes = S1_ARGS if name == "batch_scan" else S4_ARGS
+    fn.argtypes = {"batch_scan": S1_ARGS, "impatience_scan": S2_ARGS,
+                   "wait_scan": S4_ARGS}[name]
     fn.restype = ctypes.c_int
+    if name == "impatience_scan":
+        inter, service, tau, n = args
+        status = fn(inter.data_ptr(), service.data_ptr(), inter.shape[1],
+                    tau.data_ptr(), *(o.data_ptr() for o in outs), n,
+                    tau.shape[0], K.stream_ptr(tau))
+        K.check_status(name, status)
+        return
     arr, tok, *rest = args
     n, lanes = arr.shape
     if name == "batch_scan":
@@ -167,6 +213,9 @@ def tune(name: str, dev) -> list:
         values = dict(zip(grid, combo))
         if "AHEAD" in values and values["CHUNKS"] - values["AHEAD"] < 2:
             continue                  # S4's step needs two landed chunks
+        if "TILE" in values and \
+                values["TILE"] * values["STAGES"] * 16 > S2_RING_LIMIT:
+            continue                  # S2's ring past shared memory
         sources[" ".join(f"{k}={v}" for k, v in values.items())] = \
             variant_source(text, values)
     t0 = time.perf_counter()
@@ -174,14 +223,14 @@ def tune(name: str, dev) -> list:
     print(f"{name}: {len(libs)} sources built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rows = []
-    inputs = _s1_inputs(dev) if name == "batch_scan" else _s4_inputs(dev)
+    inputs = {"batch_scan": _s1_inputs, "impatience_scan": _s2_inputs,
+              "wait_scan": _s4_inputs}[name](dev)
     for label, args in inputs:
-        arr = args[0]
-        n = arr.shape[0]
+        n, shape = _shape(name, args)
 
         def outputs():
-            return (torch.empty_like(arr),
-                    torch.empty(arr.shape, dtype=torch.uint8, device=dev))
+            return (torch.empty(shape, dtype=torch.float64, device=dev),
+                    torch.empty(shape, dtype=torch.uint8, device=dev))
         ref = outputs()
         _run(libs["committed"], name, args, ref)
         torch.cuda.synchronize()
@@ -205,7 +254,12 @@ def tune(name: str, dev) -> list:
     return rows
 
 
-def main() -> int:
+def main(names=None) -> int:
+    names = list(names or GRIDS)
+    unknown = set(names) - set(GRIDS)
+    if unknown:
+        print(f"tune: no grid for {sorted(unknown)}; have {sorted(GRIDS)}")
+        return 2
     if not torch.cuda.is_available():
         print("tune: no CUDA device")
         return 1
@@ -214,10 +268,10 @@ def main() -> int:
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
-    rows = [r for name in GRIDS for r in tune(name, dev)]
+    rows = [r for name in names for r in tune(name, dev)]
     bad = [r for r in rows if not r.get("equal_to_committed")]
     return 1 if bad else 0
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

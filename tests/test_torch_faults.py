@@ -260,6 +260,45 @@ def test_faulty_fleet_equals_reference(x64, rname, key):
         assert to["retries"] > 0
 
 
+def test_crash_tie_cell_parts_where_the_reference_parts(x64):
+    """chip_smoke's phase 8b(e) crash cell (least_work + dynamic b16, λ = 4,
+    R = 3, mtbf 60, mttr 20, 5,000 requests, seed 3).  A repair maps its
+    queued arrivals to one instant; the batching scan lets a request that
+    arrives at its batch's start join it, the oracle's idle server starts
+    the head alone (ROADMAP queue 3).  So each package's fast path parts
+    from its oracle here, and it must part at the same requests by the same
+    amounts in both: the port's oracle equals the reference's and the
+    port's fast path the reference's, bit for bit, over the whole lane."""
+    jd, td = ln()
+    jl, tl = lats()
+    cell = {"kind": "crash", "mtbf": 60.0, "mttr": 20.0}
+    jf, tf = j_faults.fault_from_spec(dict(cell)), \
+        t_faults.fault_from_spec(dict(cell))
+    jp, tp = j_pol.DynamicPolicy(16), t_pol.DynamicPolicy(16)
+    kw = dict(num_requests=5000, seed=3)
+    jo, jfast = (j_faults.simulate_fleet_faulty(
+        "least_work", jp, 4.0, 3, jd, jl, jf, fast=fast, **kw)
+        for fast in (False, True))
+    to = t_faults.simulate_fleet_faulty("least_work", tp, 4.0, 3, td, tl, tf,
+                                        **kw)
+    tfast = t_faults.simulate_fleet_faulty("least_work", tp, 4.0, 3, td, tl,
+                                           tf, fast=True, device="cpu", **kw)
+    _same_faulty(jo, to, exact=True)
+    _same_faulty(jfast, tfast, exact=True)
+    assert to["retries"] > 0
+
+    def parted(oracle, fast):
+        assert np.array_equal(oracle["served_mask"], fast["served_mask"])
+        w, f = oracle["waits_by_request"], fast["waits_by_request"]
+        at = np.flatnonzero(w != f)
+        return at, f[at] - w[at]
+
+    (j_at, j_by), (t_at, t_by) = parted(jo, jfast), parted(to, tfast)
+    assert np.array_equal(t_at, j_at) and np.array_equal(t_by, j_by)
+    assert len(t_at) == 3 and (t_by < 0).all()       # joined a batch early
+    assert np.max(np.abs(t_by)) == pytest.approx(0.878, abs=5e-4)
+
+
 def test_breakdown_wait_equals_reference():
     jd, td = ln()
     jl, tl = lats()

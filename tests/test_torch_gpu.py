@@ -609,27 +609,73 @@ def test_batch_scan_saturated_and_light_lanes_in_one_launch(cuda):
     assert (batches[2:] > 0.9 * n).all()             # nearly all alone
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("lanes", [1, 3, 64])
-def test_impatience_scan_kernel_bit_equal_to_plain(cuda, lanes):
-    from repro_torch.kernels.impatience_scan import (
-        impatience_scan, impatience_scan_reference)
-    n = 5003
-    rng = np.random.default_rng(lanes)
+# S2's shared-memory ring at its edges: n of 1, a tile T less one, T, T
+# plus one, past the ring's depth D, and a length that is no multiple of
+# anything; lanes of one block, a few, the sweeps' 64 and past 128; tau 30,
+# 1e12 (none lost) and 0 (all lost) side by side; inputs contiguous, every
+# other column of a wider tensor, lanes-major storage, and contiguous 8
+# bytes off 16-byte alignment.  (multiple of T, offset): n = mult * T + off
+S2_RING_NS = {"1": (0, 1), "T-1": (1, -1), "T": (1, 0), "T+1": (1, 1),
+              "D+T+3": (None, 3), "5003": (0, 5003)}
+
+
+def _impatience_inputs(n, lanes, seed):
+    """[n, lanes] inter-arrival times (the first 0, runs of zero gaps) and
+    service times of the paper's A100 law on integer token counts."""
+    rng = np.random.default_rng(seed)
     inter = rng.exponential(40.0, (n, lanes))
     inter[0] = 0.0
+    inter[rng.random((n, lanes)) < 0.05] = 0.0
     service = 1.79 + 0.021 * rng.integers(1, 3000, (n, lanes))
-    tau = np.where(np.arange(lanes) % 2 == 0, 30.0, 1e12)  # 1e12: none lost
-    args = [torch.from_numpy(x).to(cuda) for x in (inter, service, tau)]
+    return inter, service
+
+
+def _s2_view(x, layout, dev):
+    """The [n, lanes] array x on the card, stored as ``layout`` says."""
+    t = torch.from_numpy(x).to(dev)
+    if layout == "strided":                  # every other column of [n, 2L]
+        wide = torch.zeros(x.shape[0], 2 * x.shape[1], dtype=t.dtype,
+                           device=dev)
+        wide[:, ::2] = t
+        return wide[:, ::2]
+    if layout == "lanes_major":              # strides (1, n)
+        return t.t().contiguous().t()
+    if layout == "offset":                   # 8 bytes past an aligned start
+        flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "lanes_major",
+                                    "offset"])
+@pytest.mark.parametrize("lanes", [1, 3, 64, 130])
+@pytest.mark.parametrize("n_case", sorted(S2_RING_NS))
+def test_impatience_scan_kernel_bit_equal_to_plain(cuda, n_case, lanes,
+                                                   layout):
+    from repro_torch.kernels.impatience_scan import (
+        impatience_scan, impatience_scan_reference)
+    from repro_torch.kernels.impatience_scan.ops import ring_depth, tile
+    T, D = tile(), ring_depth()
+    assert D >= 2 * T >= 512
+    mult, plus = S2_RING_NS[n_case]
+    n = (D + T if mult is None else mult * T) + plus
+    inter, service = _impatience_inputs(n, lanes, seed=n + lanes)
+    tau = np.array([30.0, 1e12, 0.0])[np.arange(lanes) % 3]
+    args = [_s2_view(inter, layout, cuda), _s2_view(service, layout, cuda),
+            torch.from_numpy(tau).to(cuda)]
     before = K.LAUNCHES["impatience_scan"]
     waits, lost = impatience_scan(*args)
     torch.cuda.synchronize()
     assert K.LAUNCHES["impatience_scan"] == before + 1
-    ref_w, ref_l = impatience_scan_reference(*args)
-    assert torch.equal(waits, ref_w) and torch.equal(lost, ref_l)
-    assert not bool(lost[:, 1::2].any())
-    if lanes > 1:
-        assert bool(lost[:, 0].any())
+    assert waits.shape == (n, lanes) and waits.dtype == torch.float64
+    ref_w, ref_l = impatience_scan_reference(*(a.cpu() for a in args))
+    assert torch.equal(waits.cpu(), ref_w) and torch.equal(lost.cpu(), ref_l)
+    assert not bool(lost[:, 1::3].any())                 # tau 1e12
+    assert bool(lost[:, 2::3].all()) and not bool(waits[:, 2::3].any())
+    if n > 4000:
+        assert bool(lost[:, 0].any())                    # tau 30
 
 
 @pytest.mark.gpu
@@ -688,6 +734,39 @@ def test_fast_simulators_on_the_card_equal_the_oracle(cuda):
                                          num_requests=6000)
     for name in pols:
         assert np.array_equal(gpu[name], ora[name]), name
+
+
+@pytest.mark.gpu
+def test_sweep_runs_impatient_cells_as_one_launch(cuda):
+    """``fastsim.sweep`` on the card: every impatient FCFS cell a lane of
+    one S2 launch, equal to the oracle cell for cell; the cells without
+    tau take the closed form and launch nothing."""
+    from repro_torch.core import fastsim, simulate
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.latency_model import PAPER_A100_LLAMA2_7B
+    from repro_torch.core.policies import FCFSPolicy
+    ln, lat = LogNormalTokens(7.0, 0.7), PAPER_A100_LLAMA2_7B
+    pols = {f"n{n_max}_t{tau}": FCFSPolicy(n_max=n_max, tau=tau)
+            for n_max in (None, 1600) for tau in (30.0, 120.0, None)}
+    lams = [1 / 60, 1 / 40, 1 / 30]
+    before, got = dict(K.LAUNCHES), {}
+    gpu = fastsim.sweep(pols, lams, ln, lat, num_requests=6000, seed=2,
+                        scan_out=got)
+    assert K.LAUNCHES["impatience_scan"] == \
+        before.get("impatience_scan", 0) + 1
+    s2 = got["impatience"]
+    assert len(s2["lanes"]) == 4 * len(lams) and got["cells"] == {}
+    assert s2["out"][0].is_cuda and s2["out"][0].shape == (6000, 12)
+    ora = simulate.simulate_policy_sweep(lams, ln, lat, pols,
+                                         num_requests=6000, seed=2)
+    for name in pols:
+        assert np.array_equal(gpu[name], ora[name]), name
+    waits = s2["out"][0].cpu().numpy()
+    for col, (name, li) in enumerate(s2["lanes"]):
+        with simulate.no_warmup():
+            cell = simulate.simulate_policy(pols[name], lams[li], ln, lat,
+                                            num_requests=6000, seed=2)
+        assert np.array_equal(waits[:, col], cell["waits"]), (name, li)
 
 
 # ----------------------------------------------------------------------------

@@ -373,6 +373,90 @@ def test_sweep_hands_back_its_scan_launch():
     assert np.isfinite(tf["fix4"]).all()
 
 
+# FCFS cells of a sweep: with impatience, lanes of one S2 call (n_max
+# clipping each lane's own tokens); without, the closed form per cell
+FCFS_SWEEP = {"t30": dict(tau=30.0), "t120_n1600": dict(tau=120.0, n_max=1600),
+              "t60_n800": dict(tau=60.0, n_max=800), "n1600": dict(n_max=1600),
+              "plain": {}}
+
+
+@pytest.mark.parametrize("lams", [[1 / 40], [1 / 80, 1 / 40, 1 / 28]])
+def test_sweep_fcfs_cells_equal_reference_and_oracle(x64, lams):
+    """The impatient FCFS cells ride one plain S2 call; every cell's mean
+    wait equals the reference's sweep and the oracle's, bit for bit."""
+    jd, td = pair("LogNormalTokens", 7.0, 0.7)
+    jl, tl = j_lat.PAPER_A100_LLAMA2_7B, t_lat.PAPER_A100_LLAMA2_7B
+    jp = {k: j_pol.FCFSPolicy(**kw) for k, kw in FCFS_SWEEP.items()}
+    tp = {k: t_pol.FCFSPolicy(**kw) for k, kw in FCFS_SWEEP.items()}
+    tf = t_fast.sweep(tp, lams, td, tl, num_requests=3000, seed=4,
+                      device="cpu")
+    jf = j_fast.sweep(jp, lams, jd, jl, num_requests=3000, seed=4)
+    to = t_sim.simulate_policy_sweep(lams, td, tl, tp, num_requests=3000,
+                                     seed=4)
+    assert tf.keys() == jf.keys() == to.keys()
+    for name in FCFS_SWEEP:
+        assert tf[name].shape == (len(lams),)
+        assert np.array_equal(tf[name], jf[name]), name
+        assert np.array_equal(tf[name], to[name]), name
+
+
+def test_sweep_hands_back_its_impatience_launch():
+    """``scan_out["impatience"]`` holds the one S2 call: a lane per
+    impatient cell, in policy then λ order, each lane sampled by its own
+    policy and equal to the oracle's run of that cell; the cells without
+    tau go per cell and launch nothing."""
+    _, td = pair("LogNormalTokens", 7.0, 0.7)
+    tl = t_lat.PAPER_A100_LLAMA2_7B
+    tp = {k: t_pol.FCFSPolicy(**kw) for k, kw in FCFS_SWEEP.items()}
+    lams = [1 / 60, 1 / 30]
+    got = {}
+    tf = t_fast.sweep(tp, lams, td, tl, num_requests=2000, seed=1,
+                      device="cpu", scan_out=got)
+    s2 = got["impatience"]
+    assert s2["kernel"] == "impatience_scan" and got["cells"] == {}
+    assert s2["lanes"] == [(name, li) for name in ("t30", "t120_n1600",
+                                                   "t60_n800")
+                           for li in range(2)]
+    inter, service, tau = s2["args"]
+    waits, lost = s2["out"]
+    assert inter.shape == service.shape == waits.shape == (2000, 6)
+    assert lost.dtype == torch.bool and tau.shape == (6,)
+    for col, (name, li) in enumerate(s2["lanes"]):
+        pol = tp[name]
+        assert float(tau[col]) == pol.tau
+        wl = pol.sample_workload(lams[li], td, 2000, 1)
+        assert np.array_equal(inter[:, col].numpy(), wl.inter)
+        assert np.array_equal(service[:, col].numpy(),
+                              tl.service_time(wl.tokens))
+        with t_sim.no_warmup():
+            ora = t_sim.simulate_policy(pol, lams[li], td, tl,
+                                        num_requests=2000, seed=1)
+        assert np.array_equal(waits[:, col].numpy(), ora["waits"]), name
+        assert tf[name][li] == t_sim.simulate_policy(
+            pol, lams[li], td, tl, num_requests=2000, seed=1)["mean_wait"]
+    assert bool(lost[:, 0].any())                    # tau 30 loses some
+
+
+def test_impatience_layout_is_lanes_major():
+    """S2's layout: each lane's stream contiguous, ld n rounded up to a
+    multiple of 8, the input's values as they were; an aligned [n, 1]
+    column with n a multiple of 8 is its own view."""
+    from repro_torch.kernels.impatience_scan import ops
+    x = torch.arange(5 * 3, dtype=torch.float64).reshape(5, 3)
+    for a in (x, x[:, 1:2], x[:4, :1].contiguous(), x[1:, :2]):
+        for laid in ops.layout(a, a):
+            n, lanes = a.shape
+            assert laid.shape == (lanes, -(-n // 8) * 8)
+            assert laid.is_contiguous()
+            assert laid.data_ptr() % 16 == 0
+            assert torch.equal(laid[:, :n], a.t())
+    col = torch.zeros(16, 1, dtype=torch.float64)
+    assert ops.layout(col, col)[0].data_ptr() == col.data_ptr()
+    assert ops.layout(col[:6], col[:6])[0].shape == (1, 8)
+    off = torch.zeros(17, 1, dtype=torch.float64)[1:]     # 8-byte offset
+    assert ops.layout(off, off)[0].data_ptr() != off.data_ptr()
+
+
 # ----------------------------------------------------------------------------
 # Devices
 # ----------------------------------------------------------------------------
