@@ -31,6 +31,12 @@ Phases (any failure raises and the script exits non-zero):
      (``run_fleet_schedule``): least_work + SRPT with a noisy length
      predictor, and jsq + elastic; each fleet's split must equal
      ``FleetScheduler``'s on a ``ModelClock``;
+  8a(c). serve phase 4's stream through a resilient engine fleet on phase
+     4's engine (``run_fleet_schedule(..., kill_at=...)``: jsq, dynamic
+     b16, R = 3, replica 0 killed at the median arrival): every request
+     served once, none started on replica 0 after the kill, the final
+     replicas and report equal to ``ResilientFleetScheduler``'s on a
+     ``ModelClock`` of the same law;
   5. run the adaptive-control serving launcher
      (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width;
   7. run the paper's simulators (``repro_torch.core.fastsim``) on the card:
@@ -70,7 +76,16 @@ Phases (any failure raises and the script exits non-zero):
      dynamic sub-streams) to their plain versions at full length, and
      every S1 and S4 lane to the NumPy oracle, in a pool of host
      processes; time the S4 noise launch and print each S5 and S1 launch's
-     device time in the path (CUDA events) and their totals.
+     device time in the path (CUDA events) and their totals;
+  8c. run re-entrant sessions on the card (``repro_torch.core.sessions``,
+     the feedback fixed point with a kernel launch a pass): the reference
+     record ``pr9_sessions`` (``bench_sessions.py``: router x prefix
+     discount on S6 and S1, and the feedback amplification on S1), each
+     figure within 1e-9 s of the record and the benchmark's relations
+     asserted, then a 15,000-session single-server cell per batch kernel
+     (S1, S3, S4, S5) and session model (geometric, chain), each held to
+     the NumPy oracle on host processes within 1e-9 s, its passes and
+     launches printed, and every launch's device time in the path.
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after it.
 
@@ -873,6 +888,58 @@ def serve_fleet(engine, reqs):
             totals[k] = totals.get(k, 0) + v
     log(f"fleet walls: {', '.join(f'{k} {v:.2f} s' for k, v in walls.items())}")
     return totals
+
+
+def serve_resilient(engine, reqs):
+    """Phase 8a(c): the resilient engine fleet, jsq in front of three
+    dynamic-batching replicas (b16) sharing phase 4's engine, replica 0
+    killed at the stream's median arrival; victims picked on the priors'
+    batch law.  Every request must be served exactly once and none start
+    on replica 0 after the kill, and the final replicas and the report
+    must equal ``ResilientFleetScheduler``'s on a ``ModelClock`` of the
+    same law (the reference holds that equality, on the CPU)."""
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import DynamicPolicy, single_from_batch
+    from repro_torch.serving import ModelClock, run_fleet_schedule
+    from repro_torch.serving.resilience import ResilientFleetScheduler
+    lat = BatchLatencyModel(**PRIOR_BATCH)
+    pol = DynamicPolicy(b_max=engine.ecfg.max_batch)
+    kill_t = float(np.median([r.arrival for r in reqs]))
+    kw = dict(kill_at={0: kill_t}, seed=1)
+    launches, buckets, wall, res = serve(
+        engine, "resilient fleet jsq+dynamic", reqs, pol,
+        schedule=lambda: run_fleet_schedule("jsq", pol, engine, reqs, R=3,
+                                            lat=lat, **kw))
+    assert all(v["replays"] for v in buckets.values()), \
+        "resilient fleet: a bucket that ran never replayed a graph"
+    rep = res.resilience
+    assert rep.served + rep.shed + rep.failed == rep.arrived == len(reqs)
+    # exactly once: one run of every request across the replicas, each
+    # with a finite wait and a replica
+    assert rep.served == len(reqs) and not res.lost.any()
+    assert sum(res.batch_sizes) == len(reqs), "a request ran twice"
+    assert np.isfinite(res.waits).all() and (res.replica_of >= 0).all()
+    assert rep.retries > 0 and rep.kill_events, "the kill moved no request"
+    starts = np.array([r.arrival for r in reqs]) + res.waits
+    assert (starts[res.replica_of == 0] <= kill_t + 1e-9).all(), \
+        "a request started on replica 0 after its kill"
+    virtual = ResilientFleetScheduler(
+        "jsq", pol, ModelClock(single_from_batch(lat), lat), 3,
+        **kw).run(reqs)
+    assert np.array_equal(res.replica_of, virtual.replica_of), \
+        "the engine fleet's final replicas differ from the virtual fleet's"
+    assert vars(res.resilience) == vars(virtual.resilience), \
+        "the engine fleet's report differs from the virtual fleet's"
+    log(f"resilient fleet: replica 0 killed at {kill_t:.3f} s; final "
+        f"replicas {np.bincount(res.replica_of, minlength=3).tolist()}, "
+        f"retries {rep.retries}, kill events {rep.kill_events}, "
+        f"availability {[round(a, 4) for a in rep.availability]}, served "
+        f"{rep.served}/{rep.arrived}; equal to the virtual fleet's replicas "
+        f"and report; wall {wall:.2f} s; launches K1 "
+        f"{launches['ragged_decode_attention']}, K2 {launches['gather_rows']}"
+        f", K3 {launches['flash_attention']}, K4 "
+        f"{launches['fused_rmsnorm']}")
+    return launches
 
 
 # ----------------------------------------------------------------------------
@@ -1960,6 +2027,153 @@ def _noise_launches_on_card(s5, s3, s4):
                                 "ms": s4_ms}
 
 
+# ----------------------------------------------------------------------------
+# Phase 8c: re-entrant sessions (the feedback fixed point on the kernels)
+# ----------------------------------------------------------------------------
+
+SESS_LAT = dict(k1=0.05, k2=0.5, k3=0.0005, k4=0.02)
+# the single-server cells: a session cell per batch kernel at a load where
+# the fixed point converges in well under its 200 passes (the passes grow
+# with the horizon under load); WAIT has a 2 s timeout, without which each
+# batch waits on the last one's children and 200 passes do not converge.
+# 15,000 sessions keep phases 8a(c) and 8c near 100 s (at 20,000 they took
+# 113-128 s, the cells' host work growing with the turns)
+SESS_N, SESS_LAM, SESS_SEED = 15_000, 0.1, 5
+SESS_MODELS = {"geometric": ("geometric", {"p": 0.5, "think_mean": 2.0}),
+               "chain": ("chain", {"k": 3, "think": 1.0})}
+SESS_POLICIES = {"batch_scan": ("dynamic", {"b_max": 16}),
+                 "multibin_scan": ("multibin", {"num_bins": 4, "b_max": 16}),
+                 "wait_scan": ("wait", {"k": 16, "timeout": 2.0,
+                                        "b_max": 16}),
+                 "srpt_scan": ("srpt", {"b_max": 16})}
+
+
+def _session_cell(kernel, model, n, fast, device=None):
+    """One single-server session cell of phase 8c: the oracle
+    (``fast=False``, a worker of the host pool) or the kernels on
+    ``device``.  Returns (waits, passes, converged, mean wait)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import get_policy
+    from repro_torch.core.sessions import get_session, simulate_policy_sessions
+    kind, kw = SESS_POLICIES[kernel]
+    name, skw = SESS_MODELS[model]
+    res = simulate_policy_sessions(
+        get_policy(kind, **kw), SESS_LAM, LogNormalTokens(5.0, 0.6),
+        BatchLatencyModel(**SESS_LAT), n, SESS_SEED,
+        get_session(name, **skw), fast=fast, device=device)
+    return res["waits"], res["passes"], res["converged"], res["mean_wait"]
+
+
+def run_session_sims(dev):
+    """Phase 8c: the reference benchmark ``bench_sessions.py``'s record
+    ``pr9_sessions`` on the card (every fleet pass routed on S6 for
+    least_work and run on S1 a replica), then one single-server session
+    cell per batch kernel (S1, S3, S4, S5), each held to the oracle on
+    host processes.  Returns the path's launches."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.fastsim import (
+        simulate_fleet_fast, simulate_policy_fast)
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import DynamicPolicy
+    from repro_torch.core.sessions import GeometricSession
+    rec = json.loads((ROOT / "benchmarks" / "BENCH_simulators.json")
+                     .read_text())["pr9_sessions"]
+    dist, lat = LogNormalTokens(5.0, 0.6), BatchLatencyModel(**SESS_LAT)
+    pol, sm = DynamicPolicy(b_max=8), GeometricSession(p=0.5, think_mean=2.0)
+    with host_pool() as pool:
+        oracle = {(k, m): pool.submit(_session_cell, k, m, SESS_N, False)
+                  for m in SESS_MODELS for k in SESS_POLICIES}
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # (a) router x prefix discount, 500 sessions, seeds 5-9
+        by = {}
+        for row in rec["grid"]:
+            key = (row["router"], row["prefix_discount"])
+            before = dict(K.LAUNCHES)
+            runs = [simulate_fleet_fast(
+                row["router"], pol, 1.5, 3, dist, lat, num_requests=500,
+                seed=s, sessions=sm, prefix_discount=row["prefix_discount"],
+                device=dev) for s in (5, 6, 7, 8, 9)]
+            waits = [r["mean_wait"] for r in runs]
+            e2e = [r["sessions"]["mean_session_e2e"] for r in runs]
+            by[key] = {"mean_wait": float(np.mean(waits)),
+                       "mean_session_e2e": float(np.mean(e2e))}
+            launched = {SIM_TAGS[k]: v - before[k]
+                        for k, v in K.LAUNCHES.items() if v != before[k]}
+            np.testing.assert_allclose(waits, row["per_seed_wait"], rtol=0,
+                                       atol=1e-9, err_msg=str(key))
+            log(f"sessions {key[0]} gamma {key[1]}: mean wait "
+                f"{by[key]['mean_wait']:.6f} s (record "
+                f"{row['mean_wait']:.6f}), session e2e "
+                f"{by[key]['mean_session_e2e']:.6f} s (record "
+                f"{row['mean_session_e2e']:.6f}); passes "
+                f"{[r['passes'] for r in runs]} (converged "
+                f"{[r['converged'] for r in runs]}; the benchmark asserts "
+                f"none); launches {launched}")
+        aff, rnd = by[("session_affinity", 0.5)], by[("random", 0.5)]
+        assert aff["mean_wait"] < rnd["mean_wait"], (aff, rnd)
+        assert aff["mean_session_e2e"] < rnd["mean_session_e2e"], (aff, rnd)
+        assert by[("least_work", 0.0)]["mean_wait"] <= \
+            by[("session_affinity", 0.0)]["mean_wait"], by
+        assert aff["mean_wait"] < by[("session_affinity", 0.0)]["mean_wait"]
+        # (b) feedback amplification on one server, λ = 0.4, seed 3
+        amp = []
+        for row in rec["feedback_amplification"]:
+            r = simulate_policy_fast(
+                pol, 0.4, dist, lat, num_requests=500, seed=3, device=dev,
+                sessions=GeometricSession(p=row["p"], think_mean=2.0))
+            amp.append(r["mean_wait"])
+            assert abs(r["mean_wait"] - row["mean_wait"]) <= 1e-9, row
+        assert amp[0] < amp[1] < amp[2], amp
+        recorded = [r["mean_wait"] for r in rec["feedback_amplification"]]
+        log(f"sessions feedback amplification p 0, 0.3, 0.5: mean wait "
+            f"{[round(a, 6) for a in amp]} s (record "
+            f"{[round(a, 6) for a in recorded]}); the benchmark's four "
+            f"relations hold; every figure within 1e-9 s of the record")
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        # (c) a single-server cell per batch kernel, SESS_N sessions
+        cells, recs = {}, {k: PathLaunches(k) for k in SESS_POLICIES}
+        for k, rec_k in recs.items():
+            with rec_k:
+                for m in SESS_MODELS:
+                    before = K.LAUNCHES[k]
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    cells[k, m] = _session_cell(k, m, SESS_N, True, dev)
+                    torch.cuda.synchronize()
+                    cells[k, m] += (time.perf_counter() - t1,
+                                    K.LAUNCHES[k] - before)
+        cells_s = time.perf_counter() - t0 - grid_s
+        launches = dict(K.LAUNCHES)
+        t2 = time.perf_counter()
+        for (k, m), fut in oracle.items():
+            ow, op, oc, om = fut.result()
+            w, p, c, mean, sec, n = cells[k, m]
+            assert c and oc and p == op, (k, m, p, op)
+            assert n == p, f"{k} {m}: {n} launches for {p} passes"
+            err = float(np.max(np.abs(w - ow)))
+            assert err <= 1e-9, (k, m, err)
+            log(f"sessions {m} {SESS_POLICIES[k][0]} {SESS_POLICIES[k][1]}: "
+                f"{SESS_N} sessions, {len(w)} turns after warmup, converged "
+                f"in {p} passes, {n} {SIM_TAGS[k]} launches, mean wait "
+                f"{mean:.6f} s (oracle {om:.6f}), max |card - oracle| "
+                f"{err:.3g} s, {sec:.2f} s on the card")
+        oracle_wait_s = time.perf_counter() - t2
+    ms = {k: r.report("session simulators") for k, r in recs.items()}
+    log(f"phase 8c: the pr9_sessions grid {grid_s:.1f} s, the eight "
+        f"single-server cells {cells_s:.1f} s on the card "
+        f"({sum(sum(v['ms']) for v in ms.values()):.1f} ms of it in the "
+        f"kernels), then {oracle_wait_s:.1f} s more for the oracle on host "
+        f"processes")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2031,6 +2245,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["fleet serving"] = serve_fleet(engine, fleet_reqs)
     log(f"phase 8a (fleet serving) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["resilient fleet serving"] = serve_resilient(engine, reqs)
+    log(f"phase 8a(c) (resilient fleet serving) took "
+        f"{time.perf_counter() - t0:.1f} s")
     del engine
     torch.cuda.empty_cache()
     paths["launcher"] = serve_launcher(dev)
@@ -2042,6 +2260,10 @@ def main() -> int:
     (paths["fleet simulators"], s6, noise_s5, noise_s3, noise_s4,
      s1_path) = run_fleet_sims(dev)
     log(f"phase 8b (fleet simulators) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["session simulators"] = run_session_sims(dev)
+    log(f"phase 8c (session simulators) took "
+        f"{time.perf_counter() - t0:.1f} s")
     kernels.append(s6)
     next(k for k in kernels if k["name"] == "fused_rmsnorm")[
         "decode_step"] = k4_step

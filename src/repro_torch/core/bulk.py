@@ -21,8 +21,10 @@ copy of the part of ``repro.core.bulk`` the control plane reaches.
 * Server breakdowns (``breakdown_wait``): M/G/1 with interruptions, the
   analytic transfer for the crash fault model.
 
-The tandem and session forms wait for the layers they model (ROADMAP.md
-M7d, M7c).
+* Re-entrant sessions (``feedback_policy_delay``): the effective-λ
+  transfer λ_eff = λ·E[turns] lifted to any policy's closed form.
+
+The tandem form waits for the layer it models (ROADMAP.md M7d).
 """
 
 from __future__ import annotations
@@ -578,3 +580,34 @@ def breakdown_wait(dist: TokenDistribution, lat, lam: float,
                wait=None if base is None
                else float(base / a + (1.0 - a) * r))
     return out
+
+
+# ----------------------------------------------------------------------------
+# Re-entrant sessions (beyond paper; M/G/1 with feedback)
+# ----------------------------------------------------------------------------
+
+def feedback_policy_delay(policy, lam: float, dist: TokenDistribution,
+                          lat, sessions) -> dict:
+    """Per-visit mean queueing delay of a batched policy under
+    re-entrant sessions (:mod:`repro_torch.core.sessions`): a session of
+    K turns visits the queue K times, so the policy's own closed form is
+    evaluated at the effective arrival rate
+
+        λ_eff = λ · E[K]
+
+    with unchanged per-visit service moments: the transfer of
+    :func:`repro_torch.core.mg1.mg1_feedback_wait`, lifted to any policy
+    with an ``analytic_delay``.  Returns ``{"wait", "lam_eff",
+    "mean_turns", "stable"}`` with ``wait=None`` when the policy has no
+    closed form (``analytic_kind=None``)."""
+    from repro_torch.core.sessions import session_from_spec
+    model = session_from_spec(sessions)
+    mt = float(model.mean_turns())
+    lam_eff = lam * mt
+    wait = policy.analytic_delay(lam_eff, dist, lat)
+    return {
+        "wait": None if wait is None else float(wait),
+        "lam_eff": float(lam_eff),
+        "mean_turns": mt,
+        "stable": wait is not None and np.isfinite(wait),
+    }

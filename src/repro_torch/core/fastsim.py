@@ -51,9 +51,12 @@ samples its workload through the policy's ``sample_workload``, the same
 rng call order as the oracle and the reference, so equal seeds give equal
 trajectories, bit for bit.
 
-Not ported yet: sessions (ROADMAP.md M7c), memory budgets and the tandem
-loop (M7d), ``run_controlled`` (M7e), ``lane_scan=`` and ``srpt_loop=``
-(M9).
+Re-entrant sessions (``sessions=``) run the feedback fixed point of
+:mod:`repro_torch.core.sessions` with these kernels as its inner pass: one
+launch of S1, S3, S4 or S5 a pass and a replica, and S6 for the backlog
+routers of a fleet.  Not ported yet: memory budgets and the tandem loop
+(ROADMAP.md M7d), ``run_controlled`` (M7e), ``lane_scan=`` and
+``srpt_loop=`` (M9).
 """
 
 from __future__ import annotations
@@ -117,7 +120,8 @@ def simulate_policy_fast(policy: BatchPolicy, lam: float,
                          dist: Optional[TokenDistribution], lat,
                          num_requests: int = 200_000, seed: int = 0,
                          workload=None, fault_trace=None, traffic=None,
-                         sessions=None, memory=None, device=None,
+                         sessions=None, prefix_discount: float = 0.0,
+                         memory=None, device=None,
                          launch_out: Optional[dict] = None) -> dict:
     """Fast twin of :func:`repro_torch.core.simulate.simulate_policy`:
     dispatch to the policy's kernel, or run the oracle when the policy has
@@ -130,9 +134,28 @@ def simulate_policy_fast(policy: BatchPolicy, lam: float,
     transform arithmetic is the SAME host code
     (``simulate._with_fault_trace``), only the inner fault-free run is the
     kernel.  ``traffic`` warps the arrivals on the host before the kernel
-    sees the workload; a null model never warps."""
-    check_no_m7_layers(sessions=sessions, memory=memory)
+    sees the workload; a null model never warps.
+
+    ``sessions`` re-enters completed turns exactly like the oracle twin's
+    parameter: the same feedback fixed point
+    (:func:`repro_torch.core.sessions.simulate_policy_sessions`) runs with
+    the kernels as its inner pass, a launch a pass (``launch_out`` is
+    then not filled); a null model takes the session-free path."""
+    check_no_m7_layers(memory=memory)
     device = resolve_device(device)
+    if sessions is not None:
+        from repro_torch.core.sessions import (session_from_spec,
+                                               simulate_policy_sessions)
+        model = session_from_spec(sessions)
+        if not model.is_null:
+            if workload is not None:
+                raise ValueError("sessions= expands its own workload; "
+                                 "pass lam/num_requests/seed instead of "
+                                 "workload=")
+            return simulate_policy_sessions(
+                policy, lam, dist, lat, num_requests, seed, model,
+                fault_trace=fault_trace, traffic=traffic,
+                prefix_discount=prefix_discount, fast=True, device=device)
     if policy.uses_single_latency and isinstance(lat, BatchLatencyModel):
         lat = single_from_batch(lat)
     if traffic is not None:
@@ -639,7 +662,8 @@ def masked_backlog_route(arrivals, work, up, R: int, device=None,
 def simulate_fleet_fast(router, policy: BatchPolicy, lam: float, R: int,
                         dist: Optional[TokenDistribution], lat,
                         num_requests: int = 100_000, seed: int = 0,
-                        traffic=None, sessions=None, memory=None,
+                        traffic=None, sessions=None,
+                        prefix_discount: float = 0.0, memory=None,
                         device=None, launch_out: Optional[dict] = None) -> dict:
     """Fast twin of :func:`repro_torch.core.fleet.route_oracle`: the
     router's split is identical (state-dependent assignment on kernel S6),
@@ -647,12 +671,25 @@ def simulate_fleet_fast(router, policy: BatchPolicy, lam: float, R: int,
     single-server kernel (the oracle when it has none).  ``traffic``
     modulates the arrival stream before routing, exactly like the oracle
     twin's parameter.  A ``launch_out`` dict is filled with the routing
-    launch (see :func:`backlog_route`).  Sessions and memory budgets are
-    not ported yet and raise (ROADMAP.md M7c, M7d)."""
+    launch (see :func:`backlog_route`).  ``sessions`` /
+    ``prefix_discount`` re-enter completed turns through the fleet
+    feedback fixed point
+    (:func:`repro_torch.core.sessions.simulate_fleet_sessions`) with the
+    kernels as the inner pass (``launch_out`` is then not filled).  Memory
+    budgets are not ported yet and raise (ROADMAP.md M7d)."""
     from repro_torch.core.fleet import router_from_spec, run_fleet
-    check_no_m7_layers(sessions=sessions, memory=memory)
+    check_no_m7_layers(memory=memory)
     device = resolve_device(device)
     router = router_from_spec(router)
+    if sessions is not None:
+        from repro_torch.core.sessions import (session_from_spec,
+                                               simulate_fleet_sessions)
+        model = session_from_spec(sessions)
+        if not model.is_null:
+            return simulate_fleet_sessions(
+                router, policy, lam, R, dist, lat, num_requests, seed,
+                model, prefix_discount=prefix_discount, traffic=traffic,
+                fast=True, device=device)
     fw = router.fleet_workload(policy, lam, dist, lat, num_requests, seed,
                                R, fast=True, traffic=traffic, device=device,
                                launch_out=launch_out)

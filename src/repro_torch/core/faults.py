@@ -15,8 +15,7 @@ injected into the simulator and analytic layers —
     availability-discounted :func:`effective_lambda` transfer.
 
 The serving layer's resilience path (drain, re-dispatch, hedging, dedup
-on real schedulers and engines) is not ported yet (ROADMAP.md M7b, serving
-resilience).
+on real schedulers and engines) is :mod:`repro_torch.serving.resilience`.
 
 Registered models (``FAULTS``):
 
@@ -478,8 +477,8 @@ def replay_backlog(arrivals, work, rep, R: int,
     assignments (Lindley decay + add assigned work), evaluated at time
     ``t`` (default: just after the last arrival).  Used to route retry
     re-dispatches against the live backlog state and to estimate
-    per-request waits for SLO hedging (the serving layer's resilience
-    path, not ported yet)."""
+    per-request waits for SLO hedging
+    (:mod:`repro_torch.serving.resilience`)."""
     v = np.zeros(R)
     t_prev = 0.0
     for a, w, r in zip(arrivals, work, rep):

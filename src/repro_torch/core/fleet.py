@@ -574,16 +574,29 @@ def run_fleet(fw: FleetWorkload, policy: BatchPolicy, lat,
 def route_oracle(router, policy: BatchPolicy, lam: float, R: int,
                  dist: Optional[TokenDistribution], lat,
                  num_requests: int = 100_000, seed: int = 0,
-                 traffic=None, sessions=None, memory=None) -> dict:
+                 traffic=None, sessions=None,
+                 prefix_discount: float = 0.0, memory=None) -> dict:
     """Fleet reference oracle: route, then reuse the single-server
     reference event loops (``repro_torch.core.simulate``) per replica,
     unchanged.  ``router``: a RoutingPolicy, registry name, or spec.
-    ``traffic`` modulates the arrival stream before routing.  Host NumPy:
-    it takes no device.  ``sessions`` and ``memory`` are not ported yet
-    and raise (ROADMAP.md M7c, M7d)."""
+    ``traffic`` modulates the arrival stream before routing.
+    ``sessions`` / ``prefix_discount`` re-enter completed turns through
+    the fleet feedback fixed point
+    (:func:`repro_torch.core.sessions.simulate_fleet_sessions`); a null
+    model takes the session-free path.  Host NumPy: it takes no device.
+    ``memory`` is not ported yet and raises (ROADMAP.md M7d)."""
     from repro_torch.core.simulate import simulate_policy
-    check_no_m7_layers(sessions=sessions, memory=memory)
+    check_no_m7_layers(memory=memory)
     router = router_from_spec(router)
+    if sessions is not None:
+        from repro_torch.core.sessions import (session_from_spec,
+                                               simulate_fleet_sessions)
+        model = session_from_spec(sessions)
+        if not model.is_null:
+            return simulate_fleet_sessions(
+                router, policy, lam, R, dist, lat, num_requests, seed,
+                model, prefix_discount=prefix_discount, traffic=traffic,
+                fast=False)
     fw = router.fleet_workload(policy, lam, dist, lat, num_requests, seed, R,
                                traffic=traffic)
     return run_fleet(fw, policy, lat, dist,

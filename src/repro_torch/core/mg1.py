@@ -1,6 +1,6 @@
 """M/G/1 FCFS queueing delay with max-token clipping (paper §III-A, Eqs
-1-5): a copy of ``repro.core.mg1`` without the session feedback form
-(``mg1_feedback_wait`` waits for the sessions port, ROADMAP.md M7c).
+1-5), and its feedback form for re-entrant sessions: a copy of
+``repro.core.mg1``.
 
 The Pollaczek-Khinchine mean waiting time
 
@@ -56,3 +56,18 @@ def wait_curve(dist: TokenDistribution, lat: LatencyModel, lam: float,
                n_max_grid) -> np.ndarray:
     """E[W] as a function of the max-token limit (paper Fig 4a)."""
     return np.array([mg1_wait(dist, lat, lam, int(n)).wait for n in n_max_grid])
+
+
+def mg1_feedback_wait(dist: TokenDistribution, lat: LatencyModel, lam: float,
+                      sessions, n_max: Optional[int] = None) -> MG1Result:
+    """M/G/1 with feedback (re-entrant sessions): a session of K turns
+    visits the queue K times, so the server sees the effective arrival
+    rate λ_eff = λ·E[K] with unchanged per-visit service moments.
+    Takács' feedback decomposition reduces the per-visit mean wait to
+    P-K at λ_eff (exact for Poisson re-entry; the think-time delays of
+    :mod:`repro_torch.core.sessions` push re-arrivals toward Poisson, the
+    Kleinrock independence approximation).  ``sessions`` is a session
+    model, name, or spec; stability is ρ_eff = λ·E[K]·E[S] < 1."""
+    from repro_torch.core.sessions import session_from_spec
+    model = session_from_spec(sessions)
+    return mg1_wait(dist, lat, lam * model.mean_turns(), n_max)

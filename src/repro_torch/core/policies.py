@@ -62,8 +62,8 @@ class Workload:
     tokens: np.ndarray            # float64 output-token counts (clipped)
     inter: Optional[np.ndarray] = None   # inter-arrival times (FCFS oracle)
     predicted: Optional[np.ndarray] = None   # predictor output (float64)
-    # session id and 1-based turn index per row: None until re-entrant
-    # sessions are ported (ROADMAP.md M7c); the routers read ``session``
+    # re-entrant sessions (repro_torch.core.sessions): session id and
+    # 1-based turn index per row; None on session-free streams
     session: Optional[np.ndarray] = None
     turn: Optional[np.ndarray] = None
 

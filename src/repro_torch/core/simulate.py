@@ -20,10 +20,11 @@ Waits are queueing delays (arrival -> service start), matching the paper.
 These loops are host NumPy and favour obviousness over speed: they are
 the oracle that :mod:`repro_torch.core.fastsim` (kernels S1-S5 on the
 card) is held to, trajectory for trajectory.  Fault traces (the
-operational-time transform of :mod:`repro_torch.core.faults`) and traffic
-models (:mod:`repro_torch.core.traffic`) wrap the loops unchanged;
-sessions and KV-memory budgets raise ``NotImplementedError`` (ROADMAP.md
-M7c, M7d).
+operational-time transform of :mod:`repro_torch.core.faults`), traffic
+models (:mod:`repro_torch.core.traffic`) and re-entrant sessions (the
+feedback fixed point of :mod:`repro_torch.core.sessions`) wrap the loops
+unchanged; KV-memory budgets raise ``NotImplementedError`` (ROADMAP.md
+M7d).
 """
 
 from __future__ import annotations
@@ -64,11 +65,9 @@ def _warm(arr, frac=0.1):
     return np.asarray(arr[k:])
 
 
-def check_no_m7_layers(sessions=None, memory=None):
-    """Raise for a session model or a memory budget: those layers around
-    the event loops are not ported yet."""
-    if sessions is not None:
-        not_ported("sessions (re-entrant turns)", "M7c (sessions)")
+def check_no_m7_layers(memory=None):
+    """Raise for a memory budget: that layer around the event loops is
+    not ported yet."""
     if memory is not None:
         not_ported("a KV-memory budget (the prefill/decode tandem)",
                    "M7d (KV memory)")
@@ -89,7 +88,7 @@ def simulate_policy(policy: BatchPolicy, lam: float,
                     num_requests: int = 200_000, seed: int = 0,
                     workload: Optional[Workload] = None,
                     fault_trace=None, traffic=None, sessions=None,
-                    memory=None) -> dict:
+                    prefix_discount: float = 0.0, memory=None) -> dict:
     """Run ``policy`` through its reference event loop.  ``lat`` is the
     policy's latency law (``LatencyModel`` for single-service policies,
     ``BatchLatencyModel`` otherwise — a batch law handed to a
@@ -109,8 +108,28 @@ def simulate_policy(policy: BatchPolicy, lam: float,
 
     ``traffic`` (a :mod:`repro_torch.core.traffic` model, name or spec)
     warps the sampled arrivals through the model's time-rescaling
-    transform; a null model leaves the trajectory bit-identical."""
-    check_no_m7_layers(sessions=sessions, memory=memory)
+    transform; a null model leaves the trajectory bit-identical.
+
+    ``sessions`` (a :mod:`repro_torch.core.sessions` model, name or spec)
+    makes requests re-enter: completed turns re-arrive at ``completion +
+    think`` through the feedback fixed point of
+    :func:`repro_torch.core.sessions.simulate_policy_sessions`, whose
+    turns >= 2 serve ``tokens·(1−prefix_discount)``.  A null model takes
+    the session-free path."""
+    check_no_m7_layers(memory=memory)
+    if sessions is not None:
+        from repro_torch.core.sessions import (session_from_spec,
+                                               simulate_policy_sessions)
+        model = session_from_spec(sessions)
+        if not model.is_null:
+            if workload is not None:
+                raise ValueError("sessions= expands its own workload; "
+                                 "pass lam/num_requests/seed instead of "
+                                 "workload=")
+            return simulate_policy_sessions(
+                policy, lam, dist, lat, num_requests, seed, model,
+                fault_trace=fault_trace, traffic=traffic,
+                prefix_discount=prefix_discount, fast=False)
     if policy.uses_single_latency and isinstance(lat, BatchLatencyModel):
         lat = single_from_batch(lat)
     wl = workload if workload is not None else \

@@ -1,16 +1,14 @@
 """Poisson request workloads for serving: a copy of the reference
 package's ``Request`` and ``make_request_stream`` (``repro.data.pipeline``)
-with modulated traffic and without the session expansion (ROADMAP.md M7c).
-The rng call order is the reference's, so equal seeds and an equal
-``dist`` give equal streams."""
+with modulated traffic and the multi-turn session expansion.  The rng
+call order is the reference's, so equal seeds and an equal ``dist`` give
+equal streams."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
-
-from repro_torch.core.policies import not_ported
 
 
 @dataclasses.dataclass
@@ -57,10 +55,16 @@ def make_request_stream(num: int, lam: float, dist, vocab: int,
     spec) modulates the arrival RATE: the stationary arrivals are drawn in
     the exact historical rng call order, then pushed through the model's
     time-rescaling warp, so tokens and prompts are bit-identical with
-    modulation on or off.  ``sessions`` (multi-turn expansion) is not
-    ported yet and raises."""
-    if sessions is not None:
-        not_ported("the multi-turn session expansion", "M7c (sessions)")
+    modulation on or off.
+
+    ``sessions`` (a :mod:`repro_torch.core.sessions` model, registry name
+    or spec) expands the ``num`` base requests into multi-turn sessions:
+    the base stream above is drawn first (turn-1 rows reuse it verbatim),
+    then turns >= 2 draw their lengths and prompts from the salted session
+    lanes; a null model returns the session-free list.  Expanded arrivals
+    are the lower bound ``base + cumulative think``; a session-aware
+    scheduler re-enqueues each turn at its predecessor's finish +
+    ``think``."""
     rng = np.random.default_rng(seed)
     arrivals = np.cumsum(rng.exponential(1.0 / lam, num))
     if traffic is not None:
@@ -78,4 +82,39 @@ def make_request_stream(num: int, lam: float, dist, vocab: int,
             prompt_tokens=rng.integers(0, vocab, plen).astype(np.int32),
             target_output_tokens=int(max(outs[i], 1)),
         ))
-    return reqs
+    if sessions is None:
+        return reqs
+    from repro_torch.core.sessions import (_PROMPT_LANE, _TOKENS_LANE,
+                                           _session_rng, plan_sessions,
+                                           session_from_spec)
+    model = session_from_spec(sessions)
+    if model.is_null:
+        return reqs
+    plan = plan_sessions(model, num, seed)
+    trng = _session_rng(seed, _TOKENS_LANE)
+    prng = _session_rng(seed, _PROMPT_LANE)
+    extra_outs = dist.sample(trng, int((plan.turn >= 2).sum()))
+    cs = np.cumsum(plan.think)
+    out_reqs, j = [], 0
+    for s in range(num):
+        base = reqs[s]
+        for t in range(int(plan.turns[s])):
+            row = int(plan.offsets[s]) + t
+            if t == 0:
+                req = dataclasses.replace(
+                    base, rid=row, session=s, turn=1, think=0.0)
+            else:
+                plen = int(prng.integers(*prompt_len_range))
+                req = Request(
+                    rid=row,
+                    arrival=float(base.arrival + cs[row]
+                                  - cs[plan.offsets[s]]),
+                    prompt_tokens=prng.integers(0, vocab, plen)
+                    .astype(np.int32),
+                    target_output_tokens=int(max(extra_outs[j], 1)),
+                    session=s, turn=t + 1,
+                    think=float(plan.think[row]),
+                )
+                j += 1
+            out_reqs.append(req)
+    return out_reqs

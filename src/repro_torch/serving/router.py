@@ -23,9 +23,12 @@ replica its slice, so routing (``least_work`` backlogs) and membership
 Routing runs the host NumPy recursion, as the reference's serving layer
 does (``router.assign`` without ``fast``).
 
-The resilience path (``faults=`` and its knobs: kill, shed, hedge) is not
-ported yet (ROADMAP.md M7b, serving resilience), nor are per-replica KV
-budgets (M7d) or sessions (M7c); each raises ``NotImplementedError``.
+``faults=`` or any resilience knob (``kill_at``, ``shed_prob``,
+``hedge_slo``, ...) reroutes both through the fault-aware twins of
+:mod:`repro_torch.serving.resilience`; ``FleetScheduler.run_sessions``
+runs re-entrant sessions (:mod:`repro_torch.core.sessions`) with a routing
+pass per fixed-point iteration.  Per-replica KV budgets (ROADMAP.md M7d)
+raise ``NotImplementedError``.
 
 :func:`summarize_fleet` reports aggregate + per-replica serving metrics.
 """
@@ -42,16 +45,14 @@ from repro_torch.core.policies import (
     BatchPolicy, ContinuousPolicy, Workload, not_ported)
 from repro_torch.data.pipeline import Request
 from repro_torch.serving.metrics import summarize
+from repro_torch.serving.resilience import (
+    ResilientFleetScheduler, run_resilient_engine_fleet)
 from repro_torch.serving.scheduler import (
     ModelClock, PolicyScheduler, ScheduleResult, _request_predictions,
     run_engine_schedule)
 
 
-def _check_ported(faults, fault_kw, memory):
-    if faults is not None or fault_kw:
-        not_ported("the serving resilience path (faults= and its knobs "
-                   "kill_at, shed_prob, hedge_slo, ...)",
-                   "M7b, serving resilience")
+def _check_ported(memory):
     if memory is not None:
         not_ported("per-replica KV budgets (memory=)", "M7d (KV memory)")
 
@@ -69,6 +70,9 @@ class FleetScheduleResult:
     makespan: float              # latest replica makespan
     replica_of: np.ndarray
     per_replica: List[ScheduleResult]
+    # per-session accounting (repro_torch.core.sessions); None on
+    # session-free runs
+    sessions: Optional[dict] = None
 
 
 def _fleet_predictions(policy, predictor, predict_seed: int,
@@ -144,12 +148,15 @@ class FleetScheduler:
     (policies are stateless between runs, so one instance serves all
     replicas).  ``predictor`` overrides the policy's length predictor
     exactly like :class:`~repro_torch.serving.scheduler.PolicyScheduler`'s
-    parameter."""
+    parameter.  ``faults`` (a fault model, name or spec) or any knob of
+    :class:`~repro_torch.serving.resilience.ResilientFleetScheduler`
+    (``kill_at``, ``shed_prob``, ``hedge_slo``, ...) makes :meth:`run`
+    the fault-aware twin; without them it keeps the fault-free body."""
 
     def __init__(self, router, policy: BatchPolicy, clock: ModelClock,
                  R: int, predictor=None, predict_seed: int = 0,
                  faults=None, memory=None, **fault_kw):
-        _check_ported(faults, fault_kw, memory)
+        _check_ported(memory)
         assert R >= 1
         self.router = router_from_spec(router)
         self.policy = policy
@@ -157,9 +164,16 @@ class FleetScheduler:
         self.R = int(R)
         self.predictor = predictor
         self.predict_seed = predict_seed
+        self.faults = faults
+        self.fault_kw = fault_kw
 
     def run(self, reqs: List[Request]) -> FleetScheduleResult:
         pol = self.policy
+        if self.faults is not None or self.fault_kw:
+            return ResilientFleetScheduler(
+                self.router, pol, self.clock, self.R,
+                predictor=self.predictor, predict_seed=self.predict_seed,
+                faults=self.faults, **self.fault_kw).run(reqs)
 
         def runner(r, sub, predicted):
             if isinstance(pol, ContinuousPolicy):
@@ -177,7 +191,142 @@ class FleetScheduler:
 
     def run_sessions(self, reqs: List[Request],
                      prefix_discount: float = 0.0) -> FleetScheduleResult:
-        not_ported("the session-aware fleet timeline", "M7c (sessions)")
+        """Session-aware fleet timeline: the feedback fixed point of
+        :mod:`repro_torch.core.sessions` with a routing pass per
+        iteration: turn t+1 re-enters the GLOBAL queue at turn t's
+        completion + ``think`` and is re-routed (sticky routers key on
+        the session column).  ``prefix_discount`` γ: a turn >= 2 landing
+        on its parent's replica finds the session's KV there and serves
+        ``tokens·(1−γ)``; on any other replica the full length is served.
+        A stream with no multi-turn rows takes the plain :meth:`run`
+        path.  The resilience path is not composed with sessions."""
+        if all(r.turn <= 1 for r in reqs):
+            return self.run(reqs)
+        if self.faults is not None or self.fault_kw:
+            raise ValueError("sessions are not composed with the serving "
+                             "resilience path; construct the "
+                             "FleetScheduler without faults/knobs")
+        from repro_torch.core.sessions import (
+            _MAX_PASSES, _TOL, _cascade_cancel, _session_summary,
+            check_policy_supports_sessions, plan_from_requests)
+        pol = self.policy
+        check_policy_supports_sessions(pol)
+        router = self.router
+        m = len(reqs)
+        turn = np.array([r.turn for r in reqs], np.int64)
+        plan, order_sm, lb = plan_from_requests(reqs)
+        ns_full = np.array([pol.clip(r.target_output_tokens) for r in reqs],
+                           np.float64)
+        predicted, _ = _fleet_predictions(pol, self.predictor,
+                                          self.predict_seed, ns_full, reqs)
+        prompts = [r.prompt_tokens for r in reqs]
+        tok_true = np.array([r.target_output_tokens for r in reqs],
+                            np.int64)
+        disc_tok = tok_true.copy()
+        if prefix_discount > 0.0:
+            later = turn > 1
+            disc_tok[later] = np.maximum(
+                1, np.round(tok_true[later]
+                            * (1.0 - prefix_discount)).astype(np.int64))
+        arr = lb.copy()
+        child = np.nonzero(plan.parent >= 0)[0]
+        cancelled = np.zeros(m, bool)
+        lost = np.zeros(m, bool)
+        rep_row = np.full(m, -1, np.int64)
+        ids = np.arange(m)
+        w_row = np.zeros(m)
+        e2e_row = np.zeros(m)
+        comp = np.full(m, np.inf)
+        per: List[Optional[ScheduleResult]] = []
+        sizes: List[int] = []
+        makespan = 0.0
+        canc_pass = cancelled
+        seen_states = set()
+        for _ in range(_MAX_PASSES):
+            canc_pass = cancelled   # the set that defines this pass's ids
+            active = np.nonzero(~cancelled)[0]
+            ids = active[np.lexsort((active, arr[active]))]
+            ridx = order_sm[ids]
+            wl = Workload(
+                arrivals=arr[ids], tokens=ns_full[ridx],
+                predicted=None if predicted is None else predicted[ridx],
+                session=plan.session[ids], turn=plan.turn[ids])
+            work = router.routing_work(wl, getattr(self.clock, "single",
+                                                   None),
+                                       self.predict_seed,
+                                       prompts=[prompts[i] for i in ridx])
+            rep_s = np.asarray(router.assign(wl.arrivals, work, self.R,
+                                             self.predict_seed,
+                                             sessions=wl.session), np.int64)
+            new_rep = np.full(m, -1, np.int64)
+            new_rep[ids] = rep_s
+            sticky = np.zeros(m, bool)
+            sticky[child] = (new_rep[child] >= 0) & \
+                (new_rep[child] == new_rep[plan.parent[child]])
+            comp = np.full(m, np.inf)
+            w_row = np.zeros(m)
+            e2e_row = np.zeros(m)
+            lost_row = np.zeros(m, bool)
+            per = []
+            sizes = []
+            makespan = 0.0
+            for r in range(self.R):
+                mask = rep_s == r
+                sub_p = ids[mask]
+                if not len(sub_p):
+                    per.append(None)
+                    continue
+                sub_r = order_sm[sub_p]
+                sub_reqs = [dataclasses.replace(
+                    reqs[i], arrival=float(arr[p]),
+                    target_output_tokens=int(
+                        disc_tok[i] if sticky[p] else tok_true[i]))
+                    for p, i in zip(sub_p, sub_r)]
+                res = PolicyScheduler(
+                    pol, self.clock,
+                    predict_seed=self.predict_seed).run(
+                    sub_reqs, predicted=(None if predicted is None
+                                         else predicted[sub_r]))
+                per.append(res)
+                srv = ~res.lost
+                comp[sub_p[srv]] = arr[sub_p[srv]] + res.e2e[srv]
+                w_row[sub_p] = res.waits
+                e2e_row[sub_p] = res.e2e
+                lost_row[sub_p] = res.lost
+                sizes += list(res.batch_sizes)
+                makespan = max(makespan, res.makespan)
+            new_cancelled = _cascade_cancel(plan, lost_row)
+            new_arr = arr.copy()
+            new_arr[child] = comp[plan.parent[child]] + plan.think[child]
+            unresolved = child[~np.isfinite(new_arr[child])]
+            new_arr[unresolved] = lb[unresolved]
+            new_arr[new_cancelled] = lb[new_cancelled]
+            live = child[~new_cancelled[child]]
+            delta = float(np.max(np.abs(new_arr[live] - arr[live]))) \
+                if len(live) else 0.0
+            stable = (np.array_equal(new_cancelled, cancelled)
+                      and np.array_equal(lost_row, lost)
+                      and np.array_equal(new_rep, rep_row))
+            arr, cancelled, lost, rep_row = (new_arr, new_cancelled,
+                                             lost_row, new_rep)
+            if stable and delta <= _TOL:
+                break
+            if not stable:
+                # shedding can cycle the lost/cancel sets (no fixed
+                # point); a repeated set state never converges
+                state = (new_cancelled.tobytes(), lost_row.tobytes(),
+                         new_rep.tobytes())
+                if state in seen_states:
+                    break
+                seen_states.add(state)
+        # report the last SIMULATED pass's cancel set: identical on a
+        # converged break, self-consistent on pass exhaustion
+        cancelled = canc_pass
+        return FleetScheduleResult(
+            w_row[ids], e2e_row[ids], lost[ids], sizes, makespan,
+            rep_row[ids], per,
+            sessions=_session_summary(plan, arr, w_row, comp, cancelled,
+                                      lost))
 
 
 def run_fleet_schedule(router, policy: BatchPolicy,
@@ -196,8 +345,19 @@ def run_fleet_schedule(router, policy: BatchPolicy,
     are virtual, so batches are simply replica-tagged work on the same
     hardware).  ``lat`` (a ``BatchLatencyModel``/``LatencyModel``)
     calibrates the router's work units in seconds; without it the backlog
-    routers fall back to raw predicted tokens as the work unit."""
-    _check_ported(faults, fault_kw, memory)
+    routers fall back to raw predicted tokens as the work unit.
+
+    ``faults`` (a :mod:`repro_torch.core.faults` model, name or spec) or
+    any resilience knob (``kill_at``, ``shed_prob``, ``hedge_slo``, ...)
+    reroutes through
+    :func:`repro_torch.serving.resilience.run_resilient_engine_fleet`;
+    without them the fault-free body runs."""
+    _check_ported(memory)
+    if faults is not None or fault_kw:
+        return run_resilient_engine_fleet(
+            router, policy, engines, reqs, R=R, lat=lat,
+            predictor=predictor, predict_seed=predict_seed,
+            faults=faults, **fault_kw)
     if isinstance(engines, (list, tuple)):
         engine_of = list(engines)
         if R is None:

@@ -1,6 +1,8 @@
 """Virtual-timeline schedulers and the engine layer: a copy of
-``repro.serving.scheduler`` without memory budgets (ROADMAP.md M7d) and
-sessions (M7c); each raises ``NotImplementedError``.
+``repro.serving.scheduler`` without memory budgets (ROADMAP.md M7d), which
+raise ``NotImplementedError``.  ``PolicyScheduler.run_sessions`` drives
+re-entrant sessions (:mod:`repro_torch.core.sessions`) on the virtual
+timeline.
 
 A :class:`~repro_torch.core.policies.BatchPolicy` bound to a clock walks
 the virtual timeline: the next batch starts at max(server_free, trigger),
@@ -108,6 +110,9 @@ class ScheduleResult:
     lost: np.ndarray            # impatience abandonments (bool)
     batch_sizes: List[int]
     makespan: float
+    # per-session accounting (repro_torch.core.sessions); None on
+    # session-free runs
+    sessions: Optional[dict] = None
 
 
 class PolicyScheduler:
@@ -172,9 +177,104 @@ class PolicyScheduler:
             t_free = start + h
         return ScheduleResult(waits, e2e, lost, sizes, t_free)
 
-    def run_sessions(self, reqs: List[Request], predicted=None,
+    def run_sessions(self, reqs: List[Request],
+                     predicted: Optional[np.ndarray] = None,
                      prefix_discount: float = 0.0) -> ScheduleResult:
-        not_ported("the session-aware timeline", "M7c (sessions)")
+        """Session-aware timeline: turn t+1 of a session re-enters the
+        queue at turn t's completion + ``think`` (the feedback fixed
+        point of :mod:`repro_torch.core.sessions`, with :meth:`run` as
+        the inner pass).  A stream with no multi-turn rows takes the
+        plain :meth:`run` path.
+
+        ``prefix_discount`` γ models KV/prefix reuse: on a single
+        scheduler every turn returns to the same engine, whose KV cache
+        keeps the session prefix, so turns >= 2 serve ``tokens·(1−γ)``
+        (membership predictions stay undiscounted).  Impatience (tau)
+        sheds turns; a lost turn ends its session: descendant turns never
+        arrive and are left out of the returned arrays
+        (``sessions['turns_cancelled']`` counts them), so arrived ==
+        served + lost."""
+        if all(r.turn <= 1 for r in reqs):
+            return self.run(reqs, predicted)
+        from repro_torch.core.sessions import (
+            _MAX_PASSES, _TOL, _cascade_cancel, _session_summary,
+            check_policy_supports_sessions, plan_from_requests)
+        pol = self.policy
+        check_policy_supports_sessions(pol)
+        m = len(reqs)
+        turn = np.array([r.turn for r in reqs], np.int64)
+        plan, order_sm, lb = plan_from_requests(reqs)
+        if predicted is None:
+            ns_full = np.array(
+                [pol.clip(r.target_output_tokens) for r in reqs],
+                np.float64)
+            predicted = _request_predictions(
+                pol, self.predictor, self.predict_seed, ns_full, reqs)
+        tok_true = np.array([r.target_output_tokens for r in reqs],
+                            np.int64)
+        eff_tok = tok_true.copy()
+        if prefix_discount > 0.0:
+            later = turn > 1
+            eff_tok[later] = np.maximum(
+                1, np.round(tok_true[later]
+                            * (1.0 - prefix_discount)).astype(np.int64))
+        # plan row p <-> request index order_sm[p]
+        arr = lb.copy()
+        child = np.nonzero(plan.parent >= 0)[0]
+        cancelled = np.zeros(m, bool)
+        lost = np.zeros(m, bool)
+        res = None
+        w_row = np.zeros(m)
+        comp = np.full(m, np.inf)
+        canc_pass = cancelled
+        seen_states = set()
+        for _ in range(_MAX_PASSES):
+            canc_pass = cancelled   # the set that defines this pass's ids
+            active = np.nonzero(~cancelled)[0]
+            ids = active[np.lexsort((active, arr[active]))]
+            ridx = order_sm[ids]
+            pass_reqs = [dataclasses.replace(
+                reqs[i], arrival=float(arr[p]),
+                target_output_tokens=int(eff_tok[i]))
+                for p, i in zip(ids, ridx)]
+            res = self.run(pass_reqs,
+                           predicted=(None if predicted is None
+                                      else predicted[ridx]))
+            comp = np.full(m, np.inf)
+            w_row = np.zeros(m)
+            w_row[ids] = res.waits
+            srv = ~res.lost
+            comp[ids[srv]] = arr[ids[srv]] + res.e2e[srv]
+            lost_row = np.zeros(m, bool)
+            lost_row[ids] = res.lost
+            new_cancelled = _cascade_cancel(plan, lost_row)
+            new_arr = arr.copy()
+            new_arr[child] = comp[plan.parent[child]] + plan.think[child]
+            unresolved = child[~np.isfinite(new_arr[child])]
+            new_arr[unresolved] = lb[unresolved]
+            new_arr[new_cancelled] = lb[new_cancelled]
+            live = child[~new_cancelled[child]]
+            delta = float(np.max(np.abs(new_arr[live] - arr[live]))) \
+                if len(live) else 0.0
+            stable = (np.array_equal(new_cancelled, cancelled)
+                      and np.array_equal(lost_row, lost))
+            arr, cancelled, lost = new_arr, new_cancelled, lost_row
+            if stable and delta <= _TOL:
+                break
+            if not stable:
+                # shedding can cycle the lost/cancel sets (no fixed
+                # point); a repeated set state never converges
+                state = (new_cancelled.tobytes(), lost_row.tobytes())
+                if state in seen_states:
+                    break
+                seen_states.add(state)
+        # report the last SIMULATED pass's cancel set: identical on a
+        # converged break, self-consistent on pass exhaustion
+        cancelled = canc_pass
+        return ScheduleResult(
+            res.waits, res.e2e, res.lost, res.batch_sizes, res.makespan,
+            sessions=_session_summary(plan, arr, w_row, comp, cancelled,
+                                      lost))
 
 
 class FCFSScheduler(PolicyScheduler):

@@ -8,8 +8,9 @@ Fault epochs, masks, assignments and the oracle's waits must be EQUAL
 (``np.array_equal``).  The fast path (``device="cpu"``) equals the port's
 own oracle and the reference's compiled path within ``SCAN_ATOL`` = 1e-10
 s, with equal assignments, retries and served sets; the analytic forms
-agree within 1e-12 relative.  The serving layer's resilience path is not
-ported yet and is not tested here (ROADMAP.md M7b, serving resilience).
+agree within 1e-12 relative.  The serving layer's resilience path
+(``repro_torch.serving.resilience``) is tested in
+``tests/test_torch_resilience.py``.
 
 The reference's compiled scans run under ``jax.experimental.enable_x64``,
 which JAX 0.9 removed; the ``x64`` fixture puts back a shim with

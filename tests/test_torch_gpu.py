@@ -1263,3 +1263,99 @@ def test_sweep_noise_on_the_card_equals_cpu(cuda, policy):
     assert K.LAUNCHES[name] == before + 1
     assert got["kernel"] == name and got["args"][0].shape == (5000, 6)
     assert got["cells"] == [(li, si) for li in range(2) for si in range(3)]
+
+
+# ----------------------------------------------------------------------------
+# Re-entrant sessions (one kernel launch a fixed-point pass) and the
+# resilient engine fleet
+# ----------------------------------------------------------------------------
+
+SESSION_POLICIES = {"batch_scan": ("dynamic", {"b_max": 16}),
+                    "multibin_scan": ("multibin", {"num_bins": 4,
+                                                   "b_max": 16}),
+                    "wait_scan": ("wait", {"k": 16, "timeout": 2.0,
+                                           "b_max": 16}),
+                    "srpt_scan": ("srpt", {"b_max": 16})}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["geometric", "chain"])
+@pytest.mark.parametrize("kernel", sorted(SESSION_POLICIES))
+def test_session_cells_on_the_card_equal_cpu_and_oracle(cuda, kernel, model):
+    """``simulate_policy_sessions(fast=True)`` on the card launches the
+    policy's kernel once a pass and equals the same call on the CPU (the
+    plain versions) and the oracle."""
+    from repro_torch.core import sessions
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import get_policy
+    kind, kw = SESSION_POLICIES[kernel]
+    pol = get_policy(kind, **kw)
+    sm = {"geometric": sessions.GeometricSession(p=0.5, think_mean=2.0),
+          "chain": sessions.ChainSession(k=3, think=1.0)}[model]
+    args = (pol, 0.1, LogNormalTokens(5.0, 0.6),
+            BatchLatencyModel(0.05, 0.5, 0.0005, 0.02), 400, 5, sm)
+    before = K.LAUNCHES[kernel]
+    gpu = sessions.simulate_policy_sessions(*args, fast=True)
+    assert K.LAUNCHES[kernel] == before + gpu["passes"]
+    cpu = sessions.simulate_policy_sessions(*args, fast=True, device="cpu")
+    ora = sessions.simulate_policy_sessions(*args)
+    assert gpu["converged"] and gpu["passes"] == cpu["passes"]
+    assert np.array_equal(gpu["waits"], cpu["waits"])
+    np.testing.assert_allclose(gpu["waits"], ora["waits"], rtol=0, atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_fleet_session_cell_launches_backlog_scan(cuda):
+    """A ``least_work`` fleet session cell routes every pass on S6 and runs
+    every replica on S1, equal to the same call on the CPU."""
+    from repro_torch.core import fastsim
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import DynamicPolicy
+    args = ("least_work", DynamicPolicy(b_max=8), 1.5, 3,
+            LogNormalTokens(5.0, 0.6),
+            BatchLatencyModel(0.05, 0.5, 0.0005, 0.02))
+    kw = dict(num_requests=300, seed=5, prefix_discount=0.5,
+              sessions={"name": "geometric", "p": 0.5, "think_mean": 2.0})
+    before = dict(K.LAUNCHES)
+    gpu = fastsim.simulate_fleet_fast(*args, **kw)
+    assert K.LAUNCHES["backlog_scan"] - before["backlog_scan"] == \
+        gpu["passes"]
+    assert K.LAUNCHES["batch_scan"] > before["batch_scan"]
+    cpu = fastsim.simulate_fleet_fast(*args, device="cpu", **kw)
+    assert np.array_equal(gpu["replica_of"], cpu["replica_of"])
+    assert np.array_equal(gpu["waits"], cpu["waits"])
+
+
+@pytest.mark.gpu
+def test_resilient_engine_fleet_card_equals_cpu(cuda):
+    """``run_fleet_schedule(..., kill_at=...)`` on the small fp32 engine:
+    the card and the CPU give the same final replica of every request and
+    the same report (victims are picked on the batch law's virtual clock;
+    only the waits are wall clock)."""
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import DynamicPolicy
+    from repro_torch.data.pipeline import make_request_stream
+    from repro_torch.serving import run_fleet_schedule
+    gpu, cpu = _small_engines(cuda)
+    reqs = make_request_stream(24, 4.0, LogNormalTokens(2.5, 0.6,
+                                                        support=40),
+                               vocab=512, prompt_len_range=(3, 40), seed=5)
+    kill = {0: float(np.median([r.arrival for r in reqs]))}
+    lat = BatchLatencyModel(0.05, 0.5, 0.0005, 0.02)
+    out, launches = _launch_delta(lambda: [
+        run_fleet_schedule("jsq", DynamicPolicy(b_max=8), eng, reqs, R=3,
+                           lat=lat, kill_at=kill, seed=1)
+        for eng in (gpu, cpu)])
+    g, c = out
+    for name in ("ragged_decode_attention", "flash_attention",
+                 "fused_rmsnorm"):
+        assert launches.get(name, 0) > 0, name
+    assert np.array_equal(g.replica_of, c.replica_of)
+    assert vars(g.resilience) == vars(c.resilience)
+    rep = g.resilience
+    assert rep.kill_events and rep.retries > 0
+    assert rep.served == rep.arrived == len(reqs)
+    assert np.isfinite(g.waits).all() and (g.replica_of >= 0).all()

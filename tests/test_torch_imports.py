@@ -36,7 +36,8 @@ def test_port_files_found():
                 "core/fastsim.py", "kernels/batch_scan/ops.py",
                 "kernels/impatience_scan/ops.py", "core/predictors.py",
                 "core/traffic.py", "core/faults.py", "core/fleet.py",
-                "serving/router.py", "kernels/backlog_scan/ops.py"):
+                "serving/router.py", "kernels/backlog_scan/ops.py",
+                "core/sessions.py", "serving/resilience.py"):
         assert port / rel in PORT_FILES, rel
 
 

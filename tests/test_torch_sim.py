@@ -371,15 +371,12 @@ def test_registry_and_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="M7d"):
         t_pol.ElasticPolicy().stage_split(np.ones(3), lats()[1])
     td, tl = dists("uniform")[1], lats()[1]
-    for layer, item in (("sessions", "M7c"), ("memory", "M7d")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_sim.simulate_policy(t_pol.DynamicPolicy(), 0.3, td, tl,
-                                  num_requests=100, **{layer: object()})
+    with pytest.raises(NotImplementedError, match="M7d"):
+        t_sim.simulate_policy(t_pol.DynamicPolicy(), 0.3, td, tl,
+                              num_requests=100, memory=object())
     tc = _clocks()[1]
     with pytest.raises(NotImplementedError, match="M7d"):
         t_sched.PolicyScheduler(t_pol.DynamicPolicy(), tc, memory=1000)
-    with pytest.raises(NotImplementedError, match="M7c"):
-        t_sched.PolicyScheduler(t_pol.DynamicPolicy(), tc).run_sessions([])
 
 
 def test_oracle_runs_on_the_host_without_a_gpu(monkeypatch):
