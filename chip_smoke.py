@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the ten hand-written kernels from
+  1. build the eleven hand-written kernels from
      ``src/repro_torch/kernels/*/csrc`` with nvcc into ``build/kernels/``,
      one nvcc per source, all started together, and print
      the registers, shared memory and spills ptxas reports for the two
-     attention kernels, K4 and the six simulator kernels;
+     attention kernels, K4 and the seven simulator kernels;
   2. hold each serving kernel against its plain PyTorch version on the card, at the
      shapes qwen2.5-3b serving gives it, and time kernel, plain version,
      one PyTorch library call and the bound (K3 also as TFLOP/s and share
@@ -37,6 +37,11 @@ Phases (any failure raises and the script exits non-zero):
      served once, none started on replica 0 after the kill, the final
      replicas and report equal to ``ResilientFleetScheduler``'s on a
      ``ModelClock`` of the same law;
+  4m. serve phase 4's stream under a KV budget of ``KV_BUDGET`` tokens
+     (``memory=``): ``run_engine_schedule`` with elastic b16 (K1-K4), then
+     ``run_fleet_schedule`` jsq + dynamic b16 with R = 2; every admitted
+     batch's real footprint within the budget, requests deferred on the
+     single engine, the engine's own KV peak within the budget;
   5. run the adaptive-control serving launcher
      (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width;
   7. run the paper's simulators (``repro_torch.core.fastsim``) on the card:
@@ -85,7 +90,17 @@ Phases (any failure raises and the script exits non-zero):
      asserted, then a 15,000-session single-server cell per batch kernel
      (S1, S3, S4, S5) and session model (geometric, chain), each held to
      the NumPy oracle on host processes within 1e-9 s, its passes and
-     launches printed, and every launch's device time in the path.
+     launches printed, and every launch's device time in the path;
+  8d. run the memory-gated tandem on the card (``memory=``; kernel S7,
+     ``tandem_scan``): the reference record ``pr10_memory``
+     (``bench_memory.py``: the budget sweep, a launch a cell and then the
+     nine cells as nine lanes of one launch, the null cells on S1, and the
+     control cell's aware and blind recommendations on the tandem oracle),
+     every integer equal to the record and every wait within 1e-9 s, then
+     one 150,000-request lane and the reference test's least_work fleet
+     cell (S6, then S7 a replica); every cell held to the oracle and every
+     S7 launch bit for bit to its plain version on host processes, S7
+     timed by CUDA events beside its bytes bound.
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after it.
 
@@ -943,6 +958,81 @@ def serve_resilient(engine, reqs):
 
 
 # ----------------------------------------------------------------------------
+# Phase 4m: serving under a KV budget
+# ----------------------------------------------------------------------------
+
+# KV tokens a replica may hold: 1,024 tokens of qwen2.5-3b's bf16 cache (36
+# layers x K and V x 2 KV heads x 128) are 37.7 MB.  Phase 4's stream has
+# footprints (prompt + output tokens) of 286.8 on average and 618 at most,
+# 9,178 in all, over 9.2 s of arrivals.  The budget holds the largest request
+# and three or four average ones.  Batches form on wall clock: replaying the
+# formation with an assumed step time (0.005 + 0.0001 b s, about phase 4's
+# 6 ms a step at bucket 16) cuts batches at 2,048 tokens (9 requests
+# deferred) but not at half that step time, while 1,024 defers requests at
+# any step time from 0.3x to 2x of it (3 to 98).
+KV_BUDGET = 1024
+
+
+def serve_memory(engine, reqs):
+    """Phase 4m: phase 4's stream served under a KV budget of ``KV_BUDGET``
+    tokens, ``run_engine_schedule`` with elastic b16 (K1-K4; admission on
+    each request's real footprint, members that do not fit deferred to the
+    next batch), then ``run_fleet_schedule`` jsq + dynamic b16 with R = 2,
+    every replica its own budget.  Asserts that every admitted batch fits
+    the budget, that the single engine defers requests, and that the
+    engine's own tracked KV peak stays within the budget."""
+    from repro_torch.core.latency_model import LatencyModel
+    from repro_torch.core.policies import DynamicPolicy, ElasticPolicy
+    from repro_torch.serving import run_engine_schedule, run_fleet_schedule
+    cfg = engine.cfg
+    cap = engine.ecfg.max_batch
+    fp = np.array([len(r.prompt_tokens) + r.target_output_tokens
+                   for r in reqs], np.float64)
+    kv_bytes = KV_BUDGET * cfg.num_layers * 2 * cfg.num_kv_heads * \
+        cfg.head_dim * 2
+    assert fp.max() <= KV_BUDGET, "the budget cannot hold the largest request"
+    log(f"KV budget {KV_BUDGET} tokens ({kv_bytes / 1e6:.1f} MB of bf16 KV); "
+        f"footprints mean {fp.mean():.1f}, max {fp.max():.0f}, sum "
+        f"{fp.sum():.0f}")
+    arr = np.array([r.arrival for r in reqs])
+    totals = {}
+    for name, pol, schedule in (
+            ("elastic", ElasticPolicy(b_max=cap),
+             lambda p: run_engine_schedule(p, engine, reqs,
+                                           memory=KV_BUDGET)),
+            ("fleet jsq+dynamic R=2", DynamicPolicy(b_max=cap),
+             lambda p: run_fleet_schedule(
+                 "jsq", p, engine, reqs, R=2,
+                 lat=LatencyModel(**PRIOR_SINGLE), memory=KV_BUDGET))):
+        engine.kv_peak = 0             # the engine's own ledger, this run
+        launches, _, wall, res = serve(engine, f"kv budget {name}", reqs,
+                                       pol, schedule=lambda: schedule(pol))
+        mem = res.memory
+        # a batch's members share its start; batches start apart
+        starts = np.round(arr + res.waits, 9)
+        rep = getattr(res, "replica_of", np.zeros(len(reqs), np.int64))
+        worst = max(fp[(starts == t) & (rep == r)].sum()
+                    for t, r in set(zip(starts, rep)))
+        assert worst <= KV_BUDGET, f"{name}: a batch of {worst} KV tokens"
+        assert mem["kv_peak"] <= KV_BUDGET and \
+            mem["allocated"] == mem["freed"] == fp.sum(), (name, mem)
+        engine_peak = engine.kv_report()["kv_peak"]
+        assert 0 < engine_peak <= KV_BUDGET, (name, engine_peak)
+        if name == "elastic":
+            assert mem["deferred_requests"] > 0, "the budget cut no batch"
+            assert launches["gather_rows"] > 0, "no fused compaction ran"
+        log(f"kv budget {name}: batch sizes {res.batch_sizes}, deferred "
+            f"requests {mem['deferred_requests']}, kv_peak "
+            f"{mem['kv_peak']:.0f} (largest batch {worst:.0f}; the engine's "
+            f"own peak {engine_peak}), utilization {mem['utilization']:.4f}, "
+            f"allocated {mem['allocated']:.0f} = freed {mem['freed']:.0f}, "
+            f"mean wait {res.waits.mean():.3f} s, wall {wall:.2f} s")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+# ----------------------------------------------------------------------------
 # Phase 5: the adaptive-control serving launcher
 # ----------------------------------------------------------------------------
 
@@ -1020,7 +1110,8 @@ def wall_ms(fn):
 
 # the simulator kernels' tags in the log
 SIM_TAGS = {"batch_scan": "S1", "impatience_scan": "S2", "multibin_scan": "S3",
-            "wait_scan": "S4", "srpt_scan": "S5", "backlog_scan": "S6"}
+            "wait_scan": "S4", "srpt_scan": "S5", "backlog_scan": "S6",
+            "tandem_scan": "S7"}
 
 
 class PathLaunches:
@@ -2174,6 +2265,311 @@ def run_session_sims(dev):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# Phase 8d: the tandem simulators (kernel S7)
+# ----------------------------------------------------------------------------
+
+# benchmarks/bench_memory.py (record pr10_memory): the serve-all tandem
+# (dynamic, no cap), uniform(1..1000), λ = 0.1, 20,000 requests a seed
+MEM_LAT = dict(k1=0.05, k2=0.5, k3=0.0005, k4=0.02)
+MEM_SINGLE = dict(a=0.0212, c=1.79)
+MEM_LAM, MEM_N, MEM_SEEDS = 0.1, 20_000, (1, 2, 3)
+MEM_BUDGETS = (2000.25, 4000.25, 8000.25)
+MEM_GATE = 4000.25                   # the control cell's budget
+MEM_LONG_N = 150_000                 # the one long lane, seed 0
+# the reference test's fleet cell (tests/test_memory.py): least_work +
+# dynamic, λ = 0.3, R = 2, 6,000 requests, seed 9, M = 1777.25
+MEM_FLEET = dict(lam=0.3, R=2, n=6_000, seed=9, M=1777.25)
+S7_REPLACES = ("src/repro/core/fastsim.py:784 (_tandem_loop, a "
+               "lax.while_loop; no Pallas kernel)")
+
+
+def _tandem_oracle(n, seed, memory, lam=MEM_LAM):
+    """The tandem oracle on one pr10 cell (a worker of ``host_pool``): its
+    warm waits and occupancy block."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.distributions import UniformTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import DynamicPolicy
+    from repro_torch.core.simulate import simulate_policy
+    r = simulate_policy(DynamicPolicy(None), lam, UniformTokens(1000),
+                        BatchLatencyModel(**MEM_LAT), num_requests=n,
+                        seed=seed, memory=memory)
+    return r["waits"], r["memory"]
+
+
+def _tandem_fleet_oracle():
+    """The fleet cell on ``route_oracle`` (a worker of ``host_pool``): each
+    replica's warm waits and occupancy block."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.distributions import UniformTokens
+    from repro_torch.core.fleet import route_oracle
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import DynamicPolicy
+    f = MEM_FLEET
+    r = route_oracle("least_work", DynamicPolicy(None), f["lam"], f["R"],
+                     UniformTokens(1000), BatchLatencyModel(**MEM_LAT),
+                     num_requests=f["n"], seed=f["seed"], memory=f["M"])
+    return [(p["waits"], p["memory"]) for p in r["per_replica"]]
+
+
+def _tandem_plain(args):
+    """S7's plain version on one launch's inputs (a worker of
+    ``host_pool``): numpy in, numpy out."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.kernels.tandem_scan import tandem_scan_reference
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = tandem_scan_reference(*(
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        for a in args))
+    return [t.numpy() for t in out], time.perf_counter() - t0
+
+
+def _tandem_same(out, ref, what):
+    """An S7 launch's outputs (numpy) equal to its plain version's: every
+    per-lane figure, and each lane's first nb batches."""
+    starts, ends, dends, nb, *lane = out
+    r_starts, r_ends, r_dends, r_nb, *r_lane = ref
+    assert np.array_equal(nb, r_nb), f"{what}: batch counts differ"
+    for x, y in zip(lane, r_lane):
+        assert np.array_equal(x, y), f"{what}: per-lane figures differ"
+    for c, k in enumerate(nb):
+        for x, y in ((starts, r_starts), (ends, r_ends), (dends, r_dends)):
+            assert np.array_equal(x[:k, c], y[:k, c]), f"{what}: lane {c}"
+
+
+def _tandem_bytes(args, nb):
+    """Bytes an S7 launch must move: arrivals, tokens and prefix sums read
+    once, the per-lane inputs, three figures a batch and four a lane
+    written."""
+    n, lanes = args[0].shape
+    return lanes * (16 * n + 8 * (n + 1) + 16 + 32) + 24 * int(np.sum(nb))
+
+
+def run_tandem_sims(dev):
+    """Phase 8d: the reference record ``pr10_memory`` on the card (the
+    budget sweep a launch of S7 a cell, then its nine cells as nine lanes
+    of one launch; the null cells on S1; the control cell's aware and blind
+    recommendations on the tandem oracle), one 150,000-request lane and
+    the reference test's least_work fleet cell (S6, then S7 a replica).
+    Every S7 launch is held bit for bit to its plain version on host
+    processes (one on the card, timed) and every cell to the oracle.
+    Returns (the path's launches, the S7 JSON entry)."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core.bulk import tandem_bound
+    from repro_torch.core.control import AdaptiveController
+    from repro_torch.core.distributions import UniformTokens
+    from repro_torch.core.fastsim import (
+        simulate_fleet_fast, simulate_policy_fast, tandem_lanes)
+    from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
+    from repro_torch.core.memory import MemoryBudget
+    from repro_torch.core.policies import (
+        DynamicPolicy, ElasticPolicy, FixedPolicy)
+    from repro_torch.kernels.tandem_scan import (
+        tandem_scan, tandem_scan_reference)
+    rec = json.loads((ROOT / "benchmarks" / "BENCH_simulators.json")
+                     .read_text())["pr10_memory"]
+    dist, lat = UniformTokens(1000), BatchLatencyModel(**MEM_LAT)
+    pol = DynamicPolicy(None)
+    with host_pool() as pool:
+        oracle = {(M, s): pool.submit(_tandem_oracle, MEM_N, s, M)
+                  for M in MEM_BUDGETS for s in MEM_SEEDS}
+        long_oracle = pool.submit(_tandem_oracle, MEM_LONG_N, 0, MEM_GATE)
+        fleet_oracle = pool.submit(_tandem_fleet_oracle)
+        rec_s7 = PathLaunches("tandem_scan")
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with rec_s7:
+            # (a) the budget sweep: a launch a cell, then one of nine lanes
+            cells = {(M, s): simulate_policy_fast(
+                pol, MEM_LAM, dist, lat, num_requests=MEM_N, seed=s,
+                memory=M, device=dev)
+                for M in MEM_BUDGETS + (None,) for s in MEM_SEEDS}
+            wls = {s: pol.sample_workload(MEM_LAM, dist, MEM_N, s)
+                   for s in MEM_SEEDS}
+            nine = tandem_lanes([(wls[s], MemoryBudget(M), None)
+                                 for M in MEM_BUDGETS for s in MEM_SEEDS],
+                                lat, dev)
+            # (b) the control cell, on the tandem oracle
+            ctl = _memory_control(AdaptiveController, LatencyModel(
+                **MEM_SINGLE), lat, dist, dev, simulate_policy_fast,
+                (DynamicPolicy, ElasticPolicy, FixedPolicy))
+            # (c) one long lane
+            long = simulate_policy_fast(pol, MEM_LAM, dist, lat,
+                                        num_requests=MEM_LONG_N, seed=0,
+                                        memory=MEM_GATE, device=dev)
+            # (d) the reference test's fleet cell
+            f = MEM_FLEET
+            fleet = simulate_fleet_fast(
+                "least_work", pol, f["lam"], f["R"], dist, lat,
+                num_requests=f["n"], seed=f["seed"], memory=f["M"],
+                device=dev)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        s7 = rec_s7.launches
+        assert launches["tandem_scan"] == len(s7) == 9 + 1 + 1 + f["R"], \
+            launches
+        assert launches["batch_scan"] == 3 and launches["backlog_scan"] == 1
+        in_path = rec_s7.report("tandem simulators")
+        # every S7 launch against its plain version on host processes
+        host = [[a.cpu().numpy() if torch.is_tensor(a) else a
+                 for a in lo["args"]] for lo in s7]
+        outs = [[t.cpu().numpy() for t in lo["out"]] for lo in s7]
+        plains = pool.map(_tandem_plain, host)
+
+        # the record: every cell's integers and kv_peak, per-seed waits
+        # within 1e-9 s, the tandem bound's arms
+        by_m = {}
+        for row in rec["budget_sweep"]:
+            M = row["memory"]
+            waits = [cells[M, s]["mean_wait"] for s in MEM_SEEDS]
+            np.testing.assert_allclose(waits, row["per_seed_wait"], rtol=0,
+                                       atol=1e-9, err_msg=str(M))
+            by_m[M] = float(np.mean(waits))
+            if M is None:
+                continue
+            for s, occ in zip(MEM_SEEDS, row["occupancy"]):
+                mem = cells[M, s]["memory"]
+                for k in ("blocked_batches", "deferred_requests", "kv_peak",
+                          "utilization"):
+                    assert mem[k] == occ[k], (M, s, k, mem[k], occ[k])
+            tb = tandem_bound(dist, lat, MEM_LAM, memory=M)
+            for k, v in row["tandem_bound"].items():
+                assert tb[k] == v or abs(tb[k] - v) <= 1e-12 * abs(v), (M, k)
+            log(f"tandem M={M}: mean wait {by_m[M]:.9f} s (record "
+                f"{row['mean_wait']:.9f}); per seed blocked batches "
+                f"{[cells[M, s]['memory']['blocked_batches'] for s in MEM_SEEDS]}"
+                f", deferred {[cells[M, s]['memory']['deferred_requests'] for s in MEM_SEEDS]}"
+                f", kv_peak {[cells[M, s]['memory']['kv_peak'] for s in MEM_SEEDS]}"
+                f", all equal to the record; tandem bound "
+                f"{tb['wait_bound']:.6f} s (b_mem {tb['b_mem']})")
+        log(f"tandem M=None (S1): mean wait {by_m[None]:.9f} s (record "
+            f"{rec['budget_sweep'][-1]['mean_wait']:.9f})")
+        assert all(by_m[M] > by_m[None] for M in MEM_BUDGETS), by_m
+        assert by_m[2000.25] > by_m[8000.25], by_m
+        for j, (M, s) in enumerate((M, s) for M in MEM_BUDGETS
+                                   for s in MEM_SEEDS):
+            one, lane = cells[M, s], nine[j]
+            assert np.array_equal(one["waits"], lane["waits"]) and \
+                one["memory"] == lane["memory"], (M, s)
+        log("tandem: the nine cells as nine lanes of one S7 launch equal the "
+            "nine single-lane launches, waits and occupancy")
+        # the oracle on host processes
+        for (M, s), fut in oracle.items():
+            ow, om = fut.result()
+            assert np.array_equal(cells[M, s]["waits"], ow) and \
+                cells[M, s]["memory"] == om, (M, s)
+        ow, om = long_oracle.result()
+        assert np.array_equal(long["waits"], ow) and long["memory"] == om
+        for p, (ow, om) in zip(fleet["per_replica"], fleet_oracle.result()):
+            assert np.array_equal(p["waits"], ow) and p["memory"] == om
+        log(f"tandem fleet least_work R={f['R']} M={f['M']}: replica requests "
+            f"{fleet['replica_counts']}, mean wait {fleet['mean_wait']:.6f} s,"
+            f" blocked batches {fleet['memory']['blocked_batches']}, deferred "
+            f"{fleet['memory']['deferred_requests']}; per-replica waits and "
+            f"occupancy equal to route_oracle's")
+        plain_s = []
+        for j, (out, (ref, sec)) in enumerate(zip(outs, plains)):
+            _tandem_same(out, ref, f"S7 launch {j}")
+            plain_s.append(sec)
+        log(f"tandem: all {len(s7)} S7 launches equal their plain versions "
+            f"(host processes, {sum(plain_s):.1f} s of plain loops), every "
+            f"cell, the long lane and both replicas equal the oracle; the "
+            f"path took {path_s:.1f} s on the card")
+    # timings on the entry cell (M = 4000.25, seed 1: one lane of 20,000,
+    # as simulate_policy_fast launches it), the nine-lane launch and the
+    # long lane, by CUDA events on each launch's own inputs
+    entry = 3                                   # M = 4000.25, seed 1
+    rows = {}
+    for label, j in (("entry", entry), ("nine lanes", 9),
+                     ("long lane", 10)):
+        args = s7[j]["args"]
+        n, lanes = args[0].shape
+        ms = event_ms(lambda: tandem_scan(*args))
+        nbytes = _tandem_bytes(args, outs[j][3])
+        rows[label] = {"shape": [n, lanes], "ms": ms,
+                       "ns_per_request": 1e6 * ms / n,
+                       "ns_per_lane_request": 1e6 * ms / (n * lanes),
+                       "batches": int(np.sum(outs[j][3])),
+                       "bound_ms": bound_ms(nbytes, 0, "float64")}
+    e_args = s7[entry]["args"]
+    plain_out, plain_ms = wall_ms(lambda: tandem_scan_reference(*e_args))
+    _tandem_same(outs[entry], [t.cpu().numpy() for t in plain_out],
+                 "S7 entry on the card")
+    for label, r in rows.items():
+        log(f"S7 tandem_scan {label} {r['shape']}: {r['ms']:.3f} ms by CUDA "
+            f"events ({r['ns_per_request']:.1f} ns a request, "
+            f"{r['ns_per_lane_request']:.1f} ns a lane-request; "
+            f"{r['batches']} batches), bound {r['bound_ms']:.5f} ms (bytes; "
+            f"{100 * r['bound_ms'] / r['ms']:.3f}% of it)")
+    log(f"S7 plain version on the card, entry cell: {plain_ms:.1f} ms; "
+        f"equal to the kernel")
+    log(f"tandem control λ={MEM_LAM} M={MEM_GATE}: {ctl}")
+    e = rows["entry"]
+    return launches, {
+        "name": "tandem_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/tandem_scan/csrc/tandem_scan.cu",
+        "replaces": S7_REPLACES, "shape": e["shape"], "max_abs_err": 0.0,
+        "ms": e["ms"], "ns_per_request": e["ns_per_request"],
+        "plain_ms": plain_ms, "bound_ms": e["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "nine_lanes": rows["nine lanes"],
+        "long_lane": rows["long lane"], "in_path": {"tandem simulators":
+                                                    in_path}}
+
+
+def _memory_control(controller, single, lat, dist, dev, fast, policies):
+    """The record's control cell: the budget-blind and the memory-aware
+    controller fed the same organic stream (bench_memory.py), each
+    recommendation deployed under the gate's budget for seeds 1-3 (on the
+    tandem oracle, as fixed and elastic run it); each field and wait
+    within 1e-9 s of the record.  Returns a line for the log."""
+    rec = json.loads((ROOT / "benchmarks" / "BENCH_simulators.json")
+                     .read_text())["pr10_memory"]["control"]
+    dynamic, elastic, fixed = policies
+
+    def fed(memory=None):
+        ctrl = controller(single, lat, theta=1.0, memory=memory)
+        rng = np.random.default_rng(0)
+        t = 0.0
+        for _ in range(1500):
+            t += rng.exponential(1.0 / MEM_LAM)
+            ctrl.observe_arrival(t)
+            ctrl.observe_completion(int(rng.integers(1, 1001)))
+        return ctrl.recommendation(force=True)
+
+    def deploy(r):
+        return (fixed(b=r.b_max) if r.policy == "fixed" else
+                elastic(b_max=r.b_max) if r.policy == "elastic" else
+                dynamic(b_max=r.b_max))
+
+    blind, aware = fed(), fed(memory=MEM_GATE)
+    assert (aware.policy, aware.b_max, aware.details["b_mem"]) == \
+        (rec["aware"]["policy"], rec["aware"]["b_max"],
+         rec["aware"]["b_mem"]), aware
+    assert (blind.policy, blind.b_max) == (rec["blind"]["policy"],
+                                           rec["blind"]["b_max"]), blind
+    assert aware.details["memory_binding"] and aware.memory_budget == MEM_GATE
+    got = []
+    for row in rec["per_seed"]:
+        kw = dict(num_requests=MEM_N, seed=row["seed"], memory=MEM_GATE,
+                  device=dev)
+        w_b = fast(deploy(blind), MEM_LAM, dist, lat, **kw)["mean_wait"]
+        w_a = fast(deploy(aware), MEM_LAM, dist, lat, **kw)["mean_wait"]
+        assert abs(w_b - row["blind_wait"]) <= 1e-9, (row, w_b)
+        assert abs(w_a - row["aware_wait"]) <= 1e-9, (row, w_a)
+        assert w_a < w_b
+        got.append((row["seed"], round(w_a, 6), round(w_b, 6)))
+    return (f"aware {aware.policy} b_max {aware.b_max} (b_mem "
+            f"{aware.details['b_mem']}), blind {blind.policy} b_max "
+            f"{blind.b_max}, as recorded; per seed (seed, aware, blind wait "
+            f"s) {got}, each within 1e-9 s of the record")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2207,7 +2603,7 @@ def main() -> int:
         f"(wall {time.perf_counter() - t0:.1f} s, parallel)")
     for name in ("flash_attention", "ragged_decode_attention", "fused_rmsnorm",
                  "batch_scan", "impatience_scan", "multibin_scan", "wait_scan",
-                 "srpt_scan", "backlog_scan"):
+                 "srpt_scan", "backlog_scan", "tandem_scan"):
         for line in ptxas_report(K.build_log(name)):
             log(f"ptxas {name}: {line}")
 
@@ -2249,6 +2645,10 @@ def main() -> int:
     paths["resilient fleet serving"] = serve_resilient(engine, reqs)
     log(f"phase 8a(c) (resilient fleet serving) took "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["serving under a KV budget"] = serve_memory(engine, reqs)
+    log(f"phase 4m (serving under a KV budget) took "
+        f"{time.perf_counter() - t0:.1f} s")
     del engine
     torch.cuda.empty_cache()
     paths["launcher"] = serve_launcher(dev)
@@ -2264,6 +2664,10 @@ def main() -> int:
     paths["session simulators"] = run_session_sims(dev)
     log(f"phase 8c (session simulators) took "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["tandem simulators"], s7 = run_tandem_sims(dev)
+    log(f"phase 8d (tandem simulators) took {time.perf_counter() - t0:.1f} s")
+    kernels.append(s7)
     kernels.append(s6)
     next(k for k in kernels if k["name"] == "fused_rmsnorm")[
         "decode_step"] = k4_step

@@ -10,8 +10,10 @@
 #                  and the multi-bin, WAIT and SRPT envelopes
 #   policies       every serving discipline, defined once for every layer
 #   simulate       the NumPy event-loop oracle validating every formula (paper SV)
-#   fastsim        the simulators on the card: kernels S1-S5, and the fleet's
-#                  backlog routing on kernel S6
+#   fastsim        the simulators on the card: kernels S1-S5, the fleet's
+#                  backlog routing on kernel S6 and the memory-gated tandem on S7
+#   memory         KV-memory budgets and the prefill/decode tandem (its oracle,
+#                  admission and occupancy accounting)
 #   predictors     length predictors (oracle / noise models / learned head /
 #                  prompt features) driving SRPT ordering, multi-bin routing
 #                  and least_work fleet dispatch

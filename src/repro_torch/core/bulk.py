@@ -21,10 +21,10 @@ copy of the part of ``repro.core.bulk`` the control plane reaches.
 * Server breakdowns (``breakdown_wait``): M/G/1 with interruptions, the
   analytic transfer for the crash fault model.
 
+* The prefill/decode tandem under a KV budget (``tandem_bound``): the
+  decomposition by which resource binds.
 * Re-entrant sessions (``feedback_policy_delay``): the effective-λ
   transfer λ_eff = λ·E[turns] lifted to any policy's closed form.
-
-The tandem form waits for the layer it models (ROADMAP.md M7d).
 """
 
 from __future__ import annotations
@@ -523,6 +523,80 @@ def srpt_bound(dist: TokenDistribution, lat: BatchLatencyModel, lam: float,
         "residual_arm": float(residual),
         "edges": [float(e) for e in edges],
         "stable": lam * alpha_top < 1.0,
+    }
+
+
+# ----------------------------------------------------------------------------
+# Prefill/decode tandem with a KV-memory budget: decomposition bound
+# ----------------------------------------------------------------------------
+
+def tandem_bound(dist: TokenDistribution, lat: BatchLatencyModel, lam: float,
+                 memory=None, quantile: float = 1.0) -> dict:
+    """Mean-delay envelope for the memory-gated prefill/decode tandem
+    (:mod:`repro_torch.core.memory`), decomposed by which resource binds:
+
+    * **Slack arm** (budget never binds).  The pipelined tandem starts
+      every batch no later than the serial single-stage system would
+      (prefill frees before the decode tail), so with unconstrained
+      memory the serial dynamic-batching envelope
+      (:func:`dynamic_batching_bound`) dominates.  This is the
+      ``wait_bound`` for a null budget.
+
+    * **Memory arm** (budget binds).  The SERIAL-gated envelope: pad
+      every request to the ``quantile``-capped max support ``L_q``, cap
+      batches at ``b_mem = floor(M / footprint(L_q))`` — the largest
+      batch GUARANTEED to fit (``MemoryBudget.max_batch``) — and admit
+      only after the previous batch completes and frees its KV, so the
+      capped clearing amortizes to ``alpha' = k1 + k3 L_q + (k2 + k4
+      L_q)/b_mem``, ``beta = k2 + k4 L_q``, bounded by Inoue's Eq 16.
+      This is the constrained ``wait_bound``; the slack arm is reported
+      alongside as the M -> inf reference (it is NOT valid when memory
+      binds: the gate forces smaller batches than serve-all forms, and
+      constrained cells simulate above it).
+
+    A finding the validation suite pins down: pipelining is NOT
+    uniformly dominated by this serial coupling.  At *intermediate*
+    budgets the prefill stage races ahead of the slow decode stage,
+    fills the budget with the KV of admitted-but-undecoded batches, and
+    subsequent admissions fragment into small, poorly amortized batches
+    — the simulated tandem then sits ABOVE the serial envelope (e.g.
+    lam=0.12, M=8000 on the standard UNI/LAT constants) while remaining
+    stable.  The bound therefore certifies the admission-dominated
+    regime (small ``b_mem``, where gated admission serializes the
+    pipeline and the coupling is tight); the reference's
+    ``tests/test_memory.py`` validates multi-seed dominance and tightness there, plus the
+    instability flag where the worst-case certificate ``lam * alpha' <
+    1`` fails (the cell may still simulate stably — mixed-size batches
+    pack better than the ``L_q`` worst case — but no envelope guarantee
+    exists, and the bound is inf)."""
+    from repro_torch.core.memory import memory_from_spec
+    budget = memory_from_spec(memory)
+    slack = dynamic_batching_bound(dist, lat, lam, quantile=quantile)
+    if budget.is_null:
+        return {
+            "wait_bound": slack["wait_bound"],
+            "slack_arm": slack["wait_bound"],
+            "memory_arm": None,
+            "b_mem": None,
+            "quantile": float(quantile),
+            "stable": slack["stable"],
+        }
+    b_mem = budget.max_batch(dist, quantile)
+    lq = float(dist.max_order_stat_limit(quantile))
+    # the prompt enters the FOOTPRINT (via max_batch) but not the decode
+    # clock: H depends on generated tokens only
+    beta = lat.k2 + lat.k4 * lq
+    alpha_p = lat.k1 + lat.k3 * lq + beta / b_mem
+    mem_arm = inoue_bound(lam, alpha_p, beta)
+    return {
+        "wait_bound": float(mem_arm),
+        "slack_arm": slack["wait_bound"],
+        "memory_arm": float(mem_arm),
+        "b_mem": int(b_mem),
+        "alpha": float(alpha_p),
+        "beta": float(beta),
+        "quantile": float(quantile),
+        "stable": lam * alpha_p < 1.0,
     }
 
 

@@ -1,5 +1,5 @@
 """Adaptive control plane: a copy of ``repro.core.control``'s
-``AdaptiveController`` with no KV budget.
+``AdaptiveController``.
 
 ``AdaptiveController`` watches the live request stream (arrival times,
 completed output-token counts), maintains an empirical output-token
@@ -31,11 +31,14 @@ configuration from the paper's models:
                  heavy tails, 'jsq' otherwise; enabled by
                  ``max_replicas > 1``, and discounted by the availability
                  learned from ``observe_episode``
+  * ``memory_budget`` — the KV-memory axis (``memory=``,
+                 :mod:`repro_torch.core.memory`): b_max is capped at the
+                 effective b(M), and where the gate binds formation is
+                 throttled to a fixed batch
 
 The serving loop polls ``recommendation()`` between batches; hysteresis
-avoids thrashing.  The KV-memory axis (``memory``) is not ported yet
-(ROADMAP.md M7d) and raises ``NotImplementedError``; the closed-loop
-``simulate_controlled`` is M7e.
+avoids thrashing.  The closed-loop ``simulate_controlled`` is not ported
+yet (ROADMAP.md M7e).
 """
 
 from __future__ import annotations
@@ -45,7 +48,6 @@ from collections import deque
 from typing import Optional
 
 from repro_torch.core.bulk import optimal_fixed_batch, optimize_bin_edges
-from repro_torch.core.policies import not_ported
 from repro_torch.core.distributions import EmpiricalTokens, TokenDistribution
 from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
 from repro_torch.core.policy_opt import (
@@ -69,6 +71,11 @@ class Recommendation:
     shed_prob: float = 0.0              # admission drop prob. keeping the
     #                                     fleet under target util
     memory_budget: Optional[float] = None   # per-replica KV-token capacity
+    #                                     the recommendation was sized for;
+    #                                     b_max is then capped at the
+    #                                     effective b(M) (memory.MemoryBudget
+    #                                     .max_batch) so recommended batches
+    #                                     always fit the budget
 
 
 def tail_index(dist: TokenDistribution) -> float:
@@ -85,9 +92,8 @@ class AdaptiveController:
                  heavy_tail_scv: float = 0.5, b_search: int = 64,
                  num_bins: int = 4, length_predictor: str = "oracle",
                  max_replicas: int = 1, replica_target_util: float = 0.7,
-                 memory=None):
-        if memory is not None:
-            not_ported("the controller's KV-memory axis", "M7d (KV memory)")
+                 memory=None, memory_quantile: float = 1.0,
+                 prefix_discount: float = 0.0):
         # which length predictor backs length-based routing; validated
         # against the registry so recommendations stay actionable
         from repro_torch.core.predictors import PREDICTORS
@@ -99,6 +105,12 @@ class AdaptiveController:
         if not 0.0 < replica_target_util < 1.0:
             raise ValueError(f"replica_target_util must be in (0, 1), got "
                              f"{replica_target_util}")
+        if not 0.0 < memory_quantile <= 1.0:
+            raise ValueError(f"memory_quantile must be in (0, 1], got "
+                             f"{memory_quantile}")
+        if not 0.0 <= prefix_discount < 1.0:
+            raise ValueError(f"prefix_discount must be in [0, 1), got "
+                             f"{prefix_discount}")
         self.single_lat = single_lat
         self.batch_lat = batch_lat
         self.theta = theta
@@ -112,6 +124,16 @@ class AdaptiveController:
         self.length_predictor = length_predictor
         self.max_replicas = int(max_replicas)
         self.replica_target_util = float(replica_target_util)
+        # KV-memory axis (repro_torch.core.memory): recommendations trade
+        # batch size against KV headroom by capping b_max at the effective
+        # b(M).  ``prefix_discount`` gamma composes with sessions' KV reuse:
+        # a reused prefix holds only (1-gamma) of its prompt tokens, so the
+        # per-request footprint shrinks and b(M) grows accordingly.
+        from repro_torch.core.memory import memory_from_spec
+        budget = memory_from_spec(memory)
+        self.memory = None if budget.is_null else budget
+        self.memory_quantile = float(memory_quantile)
+        self.prefix_discount = float(prefix_discount)
         self._tokens = deque(maxlen=window)
         self._arrivals = deque(maxlen=window)
         self._episodes = deque(maxlen=window)   # (up_seconds, down_seconds)
@@ -196,6 +218,44 @@ class AdaptiveController:
                 # tail: route by predicted length instead (bin_edges below)
                 policy = "multibin"
 
+        # KV-memory axis (repro_torch.core.memory): trade batch size
+        # against KV headroom.  The effective b(M) = floor(M /
+        # footprint(L_q)) caps b_max so a recommended batch always FITS the
+        # budget.  When the gate BINDS (the tandem bound's memory arm
+        # dominates its slack arm), serve-all formation is the wrong
+        # discipline: the prefill stage races ahead of decode, fills the
+        # budget, and admissions fragment into small poorly-amortized
+        # batches.  The controller then throttles formation with a count
+        # trigger sized so TWO batches in flight (one decoding, one
+        # prefilled) fit worst-case: b_pipe = max(1, b_mem // 2), refined
+        # by the fixed-batch optimizer below that cap.  Sessions' prefix
+        # reuse (gamma) shrinks the footprint, so a cache-heavy workload
+        # earns a larger b(M).
+        b_mem = None
+        mem_binding = False
+        if self.memory is not None:
+            from repro_torch.core.bulk import tandem_bound
+            budget = self.memory
+            if self.prefix_discount > 0.0:
+                budget = dataclasses.replace(
+                    budget, prompt_tokens=budget.prompt_tokens
+                    * (1.0 - self.prefix_discount))
+            tb = tandem_bound(clipped, self.batch_lat, lam, memory=budget,
+                              quantile=self.memory_quantile)
+            b_mem = tb["b_mem"]
+            b_max = b_mem if b_max is None else min(b_max, b_mem)
+            # the memory arm approaches the slack arm from above as the
+            # budget loosens (it carries an extra beta/b_mem amortization
+            # term), so "binding" needs a margin, not a plain comparison
+            mem_binding = (not tb["stable"]
+                           or tb["memory_arm"] >= 1.5 * tb["slack_arm"])
+            if mem_binding:
+                b_pipe = max(1, b_mem // 2)
+                fb = optimal_fixed_batch(clipped, self.batch_lat, lam,
+                                         b_max=b_pipe)
+                policy = "fixed"
+                b_max = fb["b_star"]
+
         # fleet axis (repro_torch.core.fleet): smallest replica count
         # keeping per-replica batched utilization under target; a heavy
         # tail wants length-aware dispatch (predicted-work balancing), a
@@ -220,9 +280,11 @@ class AdaptiveController:
             lam_hat=lam, replicas=replicas, router=router,
             availability=avail,
             shed_prob=self.shed_probability(lam, clipped),
+            memory_budget=(float(self.memory.capacity)
+                           if self.memory is not None else None),
             details={"scv": scv, "objective": ch.objective,
                      "expected_wait": ch.wait, "loss_frac": ch.loss_frac,
-                     "b_mem": None, "memory_binding": False},
+                     "b_mem": b_mem, "memory_binding": mem_binding},
             # multibin and least_work route on predicted length: name the
             # predictor that should feed them
             predictor=(self.length_predictor

@@ -54,9 +54,16 @@ trajectories, bit for bit.
 Re-entrant sessions (``sessions=``) run the feedback fixed point of
 :mod:`repro_torch.core.sessions` with these kernels as its inner pass: one
 launch of S1, S3, S4 or S5 a pass and a replica, and S6 for the backlog
-routers of a fleet.  Not ported yet: memory budgets and the tandem loop
-(ROADMAP.md M7d), ``run_controlled`` (M7e), ``lane_scan=`` and
-``srpt_loop=`` (M9).
+routers of a fleet.
+
+KV-memory budgets (``memory=``) switch batch service to the prefill/decode
+tandem of :mod:`repro_torch.core.memory`: dynamic formation (the
+non-elastic ``batch_scan`` lane) runs the tandem as kernel S7
+(``kernels/tandem_scan``), with or without a fault trace; elastic and the
+batch-event policies (fixed, multi-bin, WAIT, SRPT) run the tandem oracle on
+the host, as the reference dispatches them (their per-request releases and
+non-contiguous batches have no compiled twin there either).  Not ported
+yet: ``run_controlled`` (M7e), ``lane_scan=`` and ``srpt_loop=`` (M9).
 """
 
 from __future__ import annotations
@@ -72,14 +79,14 @@ from repro_torch.core.policies import (
     BatchPolicy, DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy,
     not_ported, policy_from_spec, single_from_batch)
 from repro_torch.core.simulate import (
-    _warm, _with_fault_trace, check_no_m7_layers, simulate_fixed_batching,
-    simulate_policy)
+    _warm, _with_fault_trace, simulate_fixed_batching, simulate_policy)
 from repro_torch.kernels import resolve_device
 from repro_torch.kernels.backlog_scan import backlog_scan
 from repro_torch.kernels.batch_scan import NO_CAP, batch_scan
 from repro_torch.kernels.impatience_scan import impatience_scan
 from repro_torch.kernels.multibin_scan import multibin_scan
 from repro_torch.kernels.srpt_scan import srpt_scan
+from repro_torch.kernels.tandem_scan import tandem_scan
 from repro_torch.kernels.wait_scan import wait_scan
 
 KERNELS: Dict[str, Callable] = {}
@@ -140,14 +147,35 @@ def simulate_policy_fast(policy: BatchPolicy, lam: float,
     parameter: the same feedback fixed point
     (:func:`repro_torch.core.sessions.simulate_policy_sessions`) runs with
     the kernels as its inner pass, a launch a pass (``launch_out`` is
-    then not filled); a null model takes the session-free path."""
-    check_no_m7_layers(memory=memory)
+    then not filled); a null model takes the session-free path.
+
+    ``memory`` switches batch service to the prefill/decode tandem with
+    KV-budget admission, exactly like the oracle twin's parameter: the
+    dynamic (``batch_scan``, non-elastic) lane launches kernel S7
+    (bit-equal trajectories); elastic and the batch-event policies run the
+    tandem oracle on the host, the reference's dispatch by policy.  A
+    null budget takes the budget-free path."""
+    mem = None
+    if memory is not None:
+        from repro_torch.core.memory import (check_policy_supports_memory,
+                                             memory_from_spec)
+        mem = memory_from_spec(memory)
+        if mem.is_null:
+            mem = None
+        else:
+            check_policy_supports_memory(policy)
     device = resolve_device(device)
     if sessions is not None:
         from repro_torch.core.sessions import (session_from_spec,
                                                simulate_policy_sessions)
         model = session_from_spec(sessions)
         if not model.is_null:
+            if mem is not None:
+                raise ValueError(
+                    "sessions= x memory= is not supported: turn re-entry "
+                    "holds KV across think times (a different occupancy "
+                    "law); run the tandem on the expanded per-turn stream "
+                    "instead")
             if workload is not None:
                 raise ValueError("sessions= expands its own workload; "
                                  "pass lam/num_requests/seed instead of "
@@ -165,12 +193,27 @@ def simulate_policy_fast(policy: BatchPolicy, lam: float,
             wl = workload if workload is not None else \
                 policy.sample_workload(lam, dist, num_requests, seed)
             workload = warp_workload(wl, tm, seed)
+    lane = policy.scan_lane()
+    if mem is not None and (lane is None or lane[0]):
+        # elastic (per-request release times) and the batch-event policies
+        # (non-contiguous membership): the tandem oracle, as the reference
+        # dispatches them; traffic already applied
+        return simulate_policy(policy, lam, dist, lat,
+                               num_requests=num_requests, seed=seed,
+                               workload=workload, fault_trace=fault_trace,
+                               memory=mem)
     if policy.fast_kernel is None:
         return simulate_policy(policy, lam, dist, lat,
                                num_requests=num_requests, seed=seed,
                                workload=workload, fault_trace=fault_trace)
 
     def run(wl):
+        if mem is not None:
+            # the batch_scan lane's tandem: one lane of kernel S7
+            wl = wl if wl is not None else \
+                policy.sample_workload(lam, dist, num_requests, seed)
+            return tandem_lanes([(wl, mem, policy.b_max)], lat, device,
+                                launch_out)[0]
         return KERNELS[policy.fast_kernel](
             policy, lam, dist, lat, num_requests, seed, workload=wl,
             device=device, launch_out=launch_out)
@@ -401,6 +444,70 @@ def _srpt_kernel(policy, lam, dist, lat, num_requests, seed, workload=None,
     out = _launch(launch_out, "srpt_scan", srpt_scan, arr, tok, order,
                   _i64([_cap(policy.b_max)], device), *_law(lat))
     return _event_stats(out, wl.arrivals)
+
+
+# ----------------------------------------------------------------------------
+# Prefill/decode tandem under a KV budget (kernel S7)
+# ----------------------------------------------------------------------------
+
+def tandem_lanes(cells, lat, device=None,
+                 launch_out: Optional[dict] = None) -> list:
+    """Kernel S7 over stacked lanes: the memory-gated tandem of dynamic
+    formation with padded decode, one lane a cell.  ``cells`` is a list of
+    (workload, :class:`~repro_torch.core.memory.MemoryBudget`, b_max)
+    (b_max None or 0 for no cap, as the oracle reads it); lanes of fewer
+    requests are padded with +inf arrivals.  The footprint prefix sums are
+    summed on the host with ``np.cumsum``, in the order of the oracle's
+    running total.  Returns each lane's statistics, those of the tandem
+    oracle (``waits`` warm-trimmed, ``memory`` the occupancy block); a
+    ``launch_out`` dict is filled with the launch (see :func:`_launch`)."""
+    from repro_torch.core.memory import occupancy_stats
+    device = resolve_device(device)
+    L = max([len(wl.arrivals) for wl, _, _ in cells], default=0)
+    lanes = len(cells)
+    arr = np.full((L, lanes), np.inf)
+    tok = np.zeros((L, lanes))
+    fp_cum = np.full((L + 1, lanes), np.inf)
+    fp_cum[0] = 0.0
+    fps = []
+    for c, (wl, budget, _) in enumerate(cells):
+        n = len(wl.arrivals)
+        fp = budget.footprint(wl.tokens)
+        if n and float(fp.max()) > budget.capacity:
+            raise ValueError(
+                f"memory budget {budget.capacity} cannot hold the largest "
+                f"single request (footprint {float(fp.max())}); no schedule "
+                "exists")
+        arr[:n, c], tok[:n, c] = wl.arrivals, wl.tokens
+        # +inf past n keeps the admission search off the padding
+        fp_cum[1:n + 1, c] = np.cumsum(fp)
+        fps.append(fp)
+    caps = [float(budget.capacity) for _, budget, _ in cells]
+    b_max = [float(bm) if bm else NO_CAP for _, _, bm in cells]
+    out = _launch(launch_out, "tandem_scan", tandem_scan, _f64(arr, device),
+                  _f64(tok, device), _f64(fp_cum, device), _f64(caps, device),
+                  _f64(b_max, device), *_law(lat))
+    starts, ends, dends, nbs, blocked, blocked_t, deferred = (
+        t.cpu().numpy() for t in out)
+    stats = []
+    for c, (wl, _, _) in enumerate(cells):
+        nb, n = int(nbs[c]), len(wl.arrivals)
+        sizes = np.diff(ends[:nb, c], prepend=0)
+        starts_req = np.repeat(starts[:nb, c], sizes)  # batches are contiguous
+        comps_req = np.repeat(dends[:nb, c], sizes)
+        w = _warm(starts_req - wl.arrivals)
+        mem = occupancy_stats(starts_req, comps_req, fps[c], caps[c])
+        mem["blocked_batches"] = int(blocked[c])
+        mem["blocked_time"] = float(blocked_t[c])
+        mem["deferred_requests"] = int(deferred[c])
+        stats.append({
+            "mean_wait": float(w.mean()) if w.size else 0.0,
+            "p95_wait": float(np.percentile(w, 95)) if w.size else 0.0,
+            "mean_batch": float(n / max(nb, 1)),
+            "waits": w,
+            "memory": mem,
+        })
+    return stats
 
 
 # ----------------------------------------------------------------------------
@@ -675,10 +782,12 @@ def simulate_fleet_fast(router, policy: BatchPolicy, lam: float, R: int,
     ``prefix_discount`` re-enter completed turns through the fleet
     feedback fixed point
     (:func:`repro_torch.core.sessions.simulate_fleet_sessions`) with the
-    kernels as the inner pass (``launch_out`` is then not filled).  Memory
-    budgets are not ported yet and raise (ROADMAP.md M7d)."""
+    kernels as the inner pass (``launch_out`` is then not filled).
+    ``memory`` gives EACH replica its own KV budget (capacity is
+    per-replica HBM, not a fleet pool) through the unchanged single-server
+    tandem: kernel S7 a replica for dynamic batching.  A session fleet
+    runs without it, as the reference's does (ROADMAP.md queue 3)."""
     from repro_torch.core.fleet import router_from_spec, run_fleet
-    check_no_m7_layers(memory=memory)
     device = resolve_device(device)
     router = router_from_spec(router)
     if sessions is not None:
@@ -695,4 +804,5 @@ def simulate_fleet_fast(router, policy: BatchPolicy, lam: float, R: int,
                                launch_out=launch_out)
     return run_fleet(fw, policy, lat, dist,
                      lambda pol, wl: simulate_policy_fast(
-                         pol, lam, dist, lat, workload=wl, device=device))
+                         pol, lam, dist, lat, workload=wl, memory=memory,
+                         device=device))

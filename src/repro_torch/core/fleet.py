@@ -87,7 +87,6 @@ from repro_torch.core.distributions import TokenDistribution
 from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
 from repro_torch.core.policies import (
     BatchPolicy, FCFSPolicy, Workload, single_from_batch)
-from repro_torch.core.simulate import check_no_m7_layers
 
 # Salt for router rng streams (random assignment, power-of-d candidates):
 # independent of both the workload stream and the predictor stream.
@@ -556,6 +555,22 @@ def _aggregate(per: List[Optional[dict]], fw: FleetWorkload) -> dict:
         # total requests / total batches across the fleet
         nb = sum(len(p["waits"]) / max(p["mean_batch"], 1e-12) for p in live)
         out["mean_batch"] = float(waits.size / max(nb, 1e-12))
+    if live and all("memory" in p for p in live):
+        ms = [p["memory"] for p in live]
+        ws = np.array([max(len(p["waits"]), 1) for p in live], np.float64)
+        out["memory"] = {
+            "capacity": ms[0]["capacity"],           # per-replica budget
+            "kv_peak": max(m["kv_peak"] for m in ms),
+            "kv_mean": float(np.average([m["kv_mean"] for m in ms],
+                                        weights=ws)),
+            "utilization": max(m["utilization"] for m in ms),
+            "allocated": float(sum(m["allocated"] for m in ms)),
+            "freed": float(sum(m["freed"] for m in ms)),
+            "blocked_batches": int(sum(m["blocked_batches"] for m in ms)),
+            "blocked_time": float(sum(m["blocked_time"] for m in ms)),
+            "deferred_requests": int(sum(m["deferred_requests"]
+                                         for m in ms)),
+        }
     return out
 
 
@@ -584,9 +599,10 @@ def route_oracle(router, policy: BatchPolicy, lam: float, R: int,
     the fleet feedback fixed point
     (:func:`repro_torch.core.sessions.simulate_fleet_sessions`); a null
     model takes the session-free path.  Host NumPy: it takes no device.
-    ``memory`` is not ported yet and raises (ROADMAP.md M7d)."""
+    ``memory`` gives EACH replica its own KV budget (per-replica HBM)
+    through the unchanged single-server tandem oracle; a session fleet
+    runs without it, as the reference's does (ROADMAP.md queue 3)."""
     from repro_torch.core.simulate import simulate_policy
-    check_no_m7_layers(memory=memory)
     router = router_from_spec(router)
     if sessions is not None:
         from repro_torch.core.sessions import (session_from_spec,
@@ -601,7 +617,7 @@ def route_oracle(router, policy: BatchPolicy, lam: float, R: int,
                                traffic=traffic)
     return run_fleet(fw, policy, lat, dist,
                      lambda pol, wl: simulate_policy(
-                         pol, lam, dist, lat, workload=wl))
+                         pol, lam, dist, lat, workload=wl, memory=memory))
 
 
 # ----------------------------------------------------------------------------

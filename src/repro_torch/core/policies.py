@@ -26,9 +26,8 @@ the workload's PREDICTED-length column (:mod:`repro_torch.core.predictors`),
 while clipping and the service law keep the true lengths.
 
 Consumers dispatch structurally: ``simulate_policy`` on ``oracle_kind``,
-``fastsim`` on ``fast_kernel``.  Not ported yet, and raising
-``NotImplementedError``: the tandem ``stage_split`` (ROADMAP.md M7d, KV
-memory).
+``fastsim`` on ``fast_kernel``; the prefill/decode tandem of
+:mod:`repro_torch.core.memory` on ``stage_split``.
 """
 
 from __future__ import annotations
@@ -397,7 +396,13 @@ class BatchPolicy:
         return h, np.full(len(ns), h)
 
     def stage_split(self, ns: np.ndarray, lat):
-        not_ported("the prefill/decode tandem split", "M7d (KV memory)")
+        """Tandem split of the batch law (:mod:`repro_torch.core.memory`):
+        (prefill seconds, per-request decode offsets from prefill end),
+        with prefill + max(offsets) == ``batch_time`` exactly.  Default:
+        padded semantics, everyone decodes to the batch max."""
+        pf = float(lat.prefill_time(len(ns)))
+        h = self.batch_time(ns, lat)
+        return pf, np.full(len(ns), h - pf)
 
     # -------------------- analytics --------------------
     def analytic_delay(self, lam: float, dist: TokenDistribution,
@@ -550,6 +555,16 @@ class ElasticPolicy(DynamicPolicy):
         offsets = np.empty(len(ns))
         offsets[order] = comp
         return float(comp.max()), offsets
+
+    def stage_split(self, ns, lat):
+        # Eq 26 early exit: per-request completions (sorted ascending in
+        # length) measured from the shared prefill end
+        comp = lat.elastic_completion_times(ns)
+        order = np.argsort(ns, kind="stable")
+        offsets = np.empty(len(ns))
+        offsets[order] = comp
+        pf = float(lat.prefill_time(len(ns)))
+        return pf, offsets - pf
 
     def scan_lane(self):
         return (True, self.b_max)

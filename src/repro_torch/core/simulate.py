@@ -23,8 +23,8 @@ card) is held to, trajectory for trajectory.  Fault traces (the
 operational-time transform of :mod:`repro_torch.core.faults`), traffic
 models (:mod:`repro_torch.core.traffic`) and re-entrant sessions (the
 feedback fixed point of :mod:`repro_torch.core.sessions`) wrap the loops
-unchanged; KV-memory budgets raise ``NotImplementedError`` (ROADMAP.md
-M7d).
+unchanged; a KV-memory budget swaps the batch loop for the prefill/decode
+tandem of :func:`repro_torch.core.memory.tandem_oracle`.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from repro_torch.core.distributions import TokenDistribution
 from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
 from repro_torch.core.policies import (
     BatchPolicy, DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy,
-    Workload, not_ported, policy_from_spec, single_from_batch)
+    Workload, policy_from_spec, single_from_batch)
 
 
 # Warmup trimming is host-side in every oracle AND every fastsim kernel
@@ -63,14 +63,6 @@ def _warm(arr, frac=0.1):
         return np.asarray(arr)
     k = int(len(arr) * frac)
     return np.asarray(arr[k:])
-
-
-def check_no_m7_layers(memory=None):
-    """Raise for a memory budget: that layer around the event loops is
-    not ported yet."""
-    if memory is not None:
-        not_ported("a KV-memory budget (the prefill/decode tandem)",
-                   "M7d (KV memory)")
 
 
 ORACLES: Dict[str, Callable] = {}
@@ -115,13 +107,35 @@ def simulate_policy(policy: BatchPolicy, lam: float,
     think`` through the feedback fixed point of
     :func:`repro_torch.core.sessions.simulate_policy_sessions`, whose
     turns >= 2 serve ``tokens·(1−prefix_discount)``.  A null model takes
-    the session-free path."""
-    check_no_m7_layers(memory=memory)
+    the session-free path.
+
+    ``memory`` (a :class:`repro_torch.core.memory.MemoryBudget`, bare
+    capacity number, or spec dict) switches batch service to the
+    prefill/decode TANDEM with KV-budget admission
+    (:func:`repro_torch.core.memory.tandem_oracle`).  A null budget
+    (capacity None/inf) takes the budget-free path, bit for bit: an
+    unconstrained tandem pipeline is a different (faster) system than the
+    serial ``H(b, l)`` gate, not a degenerate case of it."""
+    mem = None
+    if memory is not None:
+        from repro_torch.core.memory import (check_policy_supports_memory,
+                                             memory_from_spec)
+        mem = memory_from_spec(memory)
+        if mem.is_null:
+            mem = None
+        else:
+            check_policy_supports_memory(policy)
     if sessions is not None:
         from repro_torch.core.sessions import (session_from_spec,
                                                simulate_policy_sessions)
         model = session_from_spec(sessions)
         if not model.is_null:
+            if mem is not None:
+                raise ValueError(
+                    "sessions= x memory= is not supported: turn re-entry "
+                    "holds KV across think times (a different occupancy "
+                    "law); run the tandem on the expanded per-turn stream "
+                    "instead")
             if workload is not None:
                 raise ValueError("sessions= expands its own workload; "
                                  "pass lam/num_requests/seed instead of "
@@ -137,11 +151,18 @@ def simulate_policy(policy: BatchPolicy, lam: float,
     if traffic is not None:
         from repro_torch.core.traffic import warp_workload
         wl = warp_workload(wl, traffic, seed)
+    if mem is not None:
+        from repro_torch.core.memory import tandem_oracle
 
-    def run(w):
-        return ORACLES[policy.oracle_kind](policy, w, lat, dist)
+        def run(w):
+            return tandem_oracle(policy, w, lat, dist, mem)
+    else:
+        def run(w):
+            return ORACLES[policy.oracle_kind](policy, w, lat, dist)
 
     if fault_trace is not None and not fault_trace.empty:
+        # the operational-time transform composes: the tandem (and its KV
+        # admission clock) runs on the server's cumulative-capacity time
         return _with_fault_trace(run, wl, fault_trace)
     return run(wl)
 

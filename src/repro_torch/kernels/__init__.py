@@ -42,13 +42,15 @@ SOURCES = {
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "fused_rmsnorm": _PKG / "rmsnorm" / "csrc" / "fused_rmsnorm.cu",
     # the port's own kernels: the simulators' per-request recursions (S1,
-    # S2), batch-event loops (S3-S5) and the fleet's routing scan (S6)
+    # S2), batch-event loops (S3-S5), the fleet's routing scan (S6) and the
+    # memory-gated tandem loop (S7)
     "batch_scan": _PKG / "batch_scan" / "csrc" / "batch_scan.cu",
     "impatience_scan": _PKG / "impatience_scan" / "csrc" / "impatience_scan.cu",
     "multibin_scan": _PKG / "multibin_scan" / "csrc" / "multibin_scan.cu",
     "wait_scan": _PKG / "wait_scan" / "csrc" / "wait_scan.cu",
     "srpt_scan": _PKG / "srpt_scan" / "csrc" / "srpt_scan.cu",
     "backlog_scan": _PKG / "backlog_scan" / "csrc" / "backlog_scan.cu",
+    "tandem_scan": _PKG / "tandem_scan" / "csrc" / "tandem_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -66,6 +68,7 @@ EXTRA_FLAGS = {
     "wait_scan": ("-Xptxas=-v",),
     "srpt_scan": ("-Xptxas=-v",),
     "backlog_scan": ("-Xptxas=-v",),
+    "tandem_scan": ("-Xptxas=-v",),
 }
 
 LAUNCHES: Dict[str, int] = collections.Counter()

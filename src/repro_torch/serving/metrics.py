@@ -1,9 +1,9 @@
 """Serving metrics: a copy of ``repro.serving.metrics``.  The paper's
 evaluation axis is latency (queueing delay, loss fraction); we add standard
 serving percentiles.  The fault, memory and session blocks read attributes
-that only the resilience (``serving/resilience.py``), memory (ROADMAP.md
-M7d) and session (``core/sessions.py``) layers set; a result without them
-skips them."""
+that only the resilience (``serving/resilience.py``), memory
+(``core/memory.py``) and session (``core/sessions.py``) layers set; a result
+without them skips them."""
 
 from __future__ import annotations
 

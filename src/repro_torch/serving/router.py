@@ -27,8 +27,9 @@ does (``router.assign`` without ``fast``).
 ``hedge_slo``, ...) reroutes both through the fault-aware twins of
 :mod:`repro_torch.serving.resilience`; ``FleetScheduler.run_sessions``
 runs re-entrant sessions (:mod:`repro_torch.core.sessions`) with a routing
-pass per fixed-point iteration.  Per-replica KV budgets (ROADMAP.md M7d)
-raise ``NotImplementedError``.
+pass per fixed-point iteration.  ``memory=`` gives each replica its own KV
+budget (:mod:`repro_torch.core.memory`); it is not composed with the
+resilience path, nor with sessions.
 
 :func:`summarize_fleet` reports aggregate + per-replica serving metrics.
 """
@@ -42,7 +43,7 @@ import numpy as np
 
 from repro_torch.core.fleet import router_from_spec
 from repro_torch.core.policies import (
-    BatchPolicy, ContinuousPolicy, Workload, not_ported)
+    BatchPolicy, ContinuousPolicy, Workload)
 from repro_torch.data.pipeline import Request
 from repro_torch.serving.metrics import summarize
 from repro_torch.serving.resilience import (
@@ -50,11 +51,6 @@ from repro_torch.serving.resilience import (
 from repro_torch.serving.scheduler import (
     ModelClock, PolicyScheduler, ScheduleResult, _request_predictions,
     run_engine_schedule)
-
-
-def _check_ported(memory):
-    if memory is not None:
-        not_ported("per-replica KV budgets (memory=)", "M7d (KV memory)")
 
 
 @dataclasses.dataclass
@@ -73,6 +69,35 @@ class FleetScheduleResult:
     # per-session accounting (repro_torch.core.sessions); None on
     # session-free runs
     sessions: Optional[dict] = None
+    # fleet KV-occupancy accounting (repro_torch.core.memory); None on
+    # budget-free runs
+    memory: Optional[dict] = None
+
+
+def _fleet_memory(per) -> Optional[dict]:
+    """Fleet roll-up of per-replica KV accounting: each replica has its
+    OWN budget (per-replica HBM, not a pooled resource), so peaks and
+    utilizations take the worst replica and token/event counts sum."""
+    live = [p for p in per if p is not None]
+    ms = [getattr(p, "memory", None) for p in live]
+    if not ms or any(m is None for m in ms):
+        return None
+    ws = np.array([max(len(p.waits), 1) for p in live], np.float64)
+    out = {
+        "capacity": ms[0]["capacity"],
+        "kv_peak": max(m["kv_peak"] for m in ms),
+        "kv_mean": float(np.average([m["kv_mean"] for m in ms],
+                                    weights=ws)),
+        "utilization": max(m["utilization"] for m in ms),
+        "allocated": float(sum(m["allocated"] for m in ms)),
+        "freed": float(sum(m["freed"] for m in ms)),
+        "deferred_requests": int(sum(m.get("deferred_requests", 0)
+                                     for m in ms)),
+    }
+    if all("blocked_batches" in m for m in ms):
+        out["blocked_batches"] = int(sum(m["blocked_batches"] for m in ms))
+        out["blocked_time"] = float(sum(m["blocked_time"] for m in ms))
+    return out
 
 
 def _fleet_predictions(policy, predictor, predict_seed: int,
@@ -108,7 +133,8 @@ def _merge_replicas(reqs, rep, per, n_total) -> FleetScheduleResult:
         lost[gi] = res.lost
         sizes += list(res.batch_sizes)
         makespan = max(makespan, res.makespan)
-    return FleetScheduleResult(waits, e2e, lost, sizes, makespan, rep, per)
+    return FleetScheduleResult(waits, e2e, lost, sizes, makespan,
+                               rep, per, memory=_fleet_memory(per))
 
 
 def _route_and_dispatch(router, policy: BatchPolicy, reqs: List[Request],
@@ -151,12 +177,13 @@ class FleetScheduler:
     parameter.  ``faults`` (a fault model, name or spec) or any knob of
     :class:`~repro_torch.serving.resilience.ResilientFleetScheduler`
     (``kill_at``, ``shed_prob``, ``hedge_slo``, ...) makes :meth:`run`
-    the fault-aware twin; without them it keeps the fault-free body."""
+    the fault-aware twin; without them it keeps the fault-free body.
+    ``memory`` gives every replica its own copy of a KV budget (its own
+    HBM): each runs :class:`PolicyScheduler`'s memory-gated tandem."""
 
     def __init__(self, router, policy: BatchPolicy, clock: ModelClock,
                  R: int, predictor=None, predict_seed: int = 0,
                  faults=None, memory=None, **fault_kw):
-        _check_ported(memory)
         assert R >= 1
         self.router = router_from_spec(router)
         self.policy = policy
@@ -166,6 +193,19 @@ class FleetScheduler:
         self.predict_seed = predict_seed
         self.faults = faults
         self.fault_kw = fault_kw
+        from repro_torch.core.memory import (
+            check_policy_supports_memory, memory_from_spec)
+        budget = memory_from_spec(memory)
+        if budget.is_null:
+            self.memory = None
+        else:
+            check_policy_supports_memory(policy)
+            if faults is not None or fault_kw:
+                raise ValueError(
+                    "memory= is not composed with the serving resilience "
+                    "path; use the core layers (simulate/fastsim) for "
+                    "faults x memory")
+            self.memory = budget
 
     def run(self, reqs: List[Request]) -> FleetScheduleResult:
         pol = self.policy
@@ -181,7 +221,8 @@ class FleetScheduler:
                 # has no formation(); admission is FCFS, prediction-free)
                 return pol.scheduler(self.clock).run(sub)
             return PolicyScheduler(pol, self.clock,
-                                   predict_seed=self.predict_seed).run(
+                                   predict_seed=self.predict_seed,
+                                   memory=self.memory).run(
                 sub, predicted=predicted)
 
         return _route_and_dispatch(self.router, pol, reqs,
@@ -206,6 +247,11 @@ class FleetScheduler:
             raise ValueError("sessions are not composed with the serving "
                              "resilience path; construct the "
                              "FleetScheduler without faults/knobs")
+        if self.memory is not None:
+            raise ValueError(
+                "sessions x memory is not supported: turn re-entry holds "
+                "KV across think times, which the per-batch "
+                "allocate/release ledger does not model")
         from repro_torch.core.sessions import (
             _MAX_PASSES, _TOL, _cascade_cancel, _session_summary,
             check_policy_supports_sessions, plan_from_requests)
@@ -351,8 +397,16 @@ def run_fleet_schedule(router, policy: BatchPolicy,
     any resilience knob (``kill_at``, ``shed_prob``, ``hedge_slo``, ...)
     reroutes through
     :func:`repro_torch.serving.resilience.run_resilient_engine_fleet`;
-    without them the fault-free body runs."""
-    _check_ported(memory)
+    without them the fault-free body runs.
+
+    ``memory`` (budget spec, :mod:`repro_torch.core.memory`): each replica
+    admits against its OWN KV budget via
+    :func:`~repro_torch.serving.scheduler.run_engine_schedule`'s
+    real-footprint gate (not composed with the resilience path)."""
+    if memory is not None and (faults is not None or fault_kw):
+        raise ValueError(
+            "memory= is not composed with the serving resilience path; "
+            "use the core layers (simulate/fastsim) for faults x memory")
     if faults is not None or fault_kw:
         return run_resilient_engine_fleet(
             router, policy, engines, reqs, R=R, lat=lat,
@@ -370,7 +424,7 @@ def run_fleet_schedule(router, policy: BatchPolicy,
     def runner(r, sub, predicted):
         return run_engine_schedule(policy, engine_of[r], sub,
                                    predict_seed=predict_seed,
-                                   predicted=predicted)
+                                   predicted=predicted, memory=memory)
 
     return _route_and_dispatch(router, policy, reqs, lat, predictor,
                                predict_seed, R, runner)

@@ -1,8 +1,9 @@
 """Virtual-timeline schedulers and the engine layer: a copy of
-``repro.serving.scheduler`` without memory budgets (ROADMAP.md M7d), which
-raise ``NotImplementedError``.  ``PolicyScheduler.run_sessions`` drives
+``repro.serving.scheduler``.  ``PolicyScheduler.run_sessions`` drives
 re-entrant sessions (:mod:`repro_torch.core.sessions`) on the virtual
-timeline.
+timeline; ``memory=`` runs the memory-gated prefill/decode tandem of
+:mod:`repro_torch.core.memory` on it, and gates the engine layer's
+admission on each request's real KV footprint.
 
 A :class:`~repro_torch.core.policies.BatchPolicy` bound to a clock walks
 the virtual timeline: the next batch starts at max(server_free, trigger),
@@ -45,7 +46,7 @@ import numpy as np
 from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
 from repro_torch.core.policies import (
     BatchPolicy, DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy,
-    MultiBinPolicy, SRPTPolicy, WaitPolicy, not_ported)
+    MultiBinPolicy, SRPTPolicy, WaitPolicy)
 from repro_torch.data.pipeline import Request
 
 
@@ -113,6 +114,9 @@ class ScheduleResult:
     # per-session accounting (repro_torch.core.sessions); None on
     # session-free runs
     sessions: Optional[dict] = None
+    # KV-occupancy accounting (repro_torch.core.memory); None on
+    # budget-free runs
+    memory: Optional[dict] = None
 
 
 class PolicyScheduler:
@@ -125,14 +129,16 @@ class PolicyScheduler:
     ``predictor`` overrides the policy's own length predictor for this
     scheduler (None keeps it); formation sees the PREDICTED lengths while
     clipping and the service clock keep the true ``target_output_tokens``.
-    ``predict_seed`` keys the predictor's rng stream.  A KV-memory budget
-    is not ported yet and raises (ROADMAP.md M7d)."""
+    ``predict_seed`` keys the predictor's rng stream.
+
+    ``memory`` (a :class:`repro_torch.core.memory.MemoryBudget`, capacity
+    number, or spec dict; None = unconstrained) switches the timeline to
+    the memory-gated prefill/decode tandem of
+    :func:`repro_torch.core.memory.tandem_oracle`, driven through this
+    clock's batch law; a null budget keeps the single-stage path."""
 
     def __init__(self, policy: BatchPolicy, clock: ModelClock,
                  predictor=None, predict_seed: int = 0, memory=None):
-        if memory is not None:
-            not_ported("a KV-memory budget (the prefill/decode tandem)",
-                       "M7d (KV memory)")
         self.policy = policy
         self.clock = clock
         if predictor is not None:
@@ -140,6 +146,14 @@ class PolicyScheduler:
             predictor = predictor_from_spec(predictor)
         self.predictor = predictor
         self.predict_seed = predict_seed
+        from repro_torch.core.memory import (
+            check_policy_supports_memory, memory_from_spec)
+        budget = memory_from_spec(memory)
+        if budget.is_null:
+            self.memory = None
+        else:
+            check_policy_supports_memory(policy)
+            self.memory = budget
 
     def run(self, reqs: List[Request],
             predicted: Optional[np.ndarray] = None) -> ScheduleResult:
@@ -160,6 +174,9 @@ class PolicyScheduler:
         if predicted is None:
             predicted = _request_predictions(
                 pol, self.predictor, self.predict_seed, ns, reqs)
+        if self.memory is not None:
+            return self._run_tandem(arr, ns, (
+                None if predicted is None else predicted[:n]))
         fs = pol.formation(arr, ns, predicted=(
             None if predicted is None else predicted[:n]))
         t_free = 0.0
@@ -176,6 +193,25 @@ class PolicyScheduler:
             sizes.append(len(idx))
             t_free = start + h
         return ScheduleResult(waits, e2e, lost, sizes, t_free)
+
+    def _run_tandem(self, arr: np.ndarray, ns: np.ndarray,
+                    predicted: Optional[np.ndarray]) -> ScheduleResult:
+        """Memory-gated tandem timeline: the one oracle loop
+        (:func:`repro_torch.core.memory.tandem_oracle`) driven through this
+        scheduler's clock, so the serving layer inherits admission,
+        deferral and occupancy accounting with no second implementation."""
+        import types
+        from repro_torch.core.memory import tandem_oracle
+        wl = types.SimpleNamespace(arrivals=arr, tokens=ns,
+                                   predicted=predicted)
+        res = tandem_oracle(self.policy, wl, self.clock.batch, None,
+                            self.memory)
+        waits = res["waits_all"]
+        comp = res["completions"]
+        return ScheduleResult(
+            waits, comp - arr, np.zeros(len(arr), bool),
+            res["batch_sizes"], float(comp.max()) if len(comp) else 0.0,
+            memory=res["memory"])
 
     def run_sessions(self, reqs: List[Request],
                      predicted: Optional[np.ndarray] = None,
@@ -196,6 +232,11 @@ class PolicyScheduler:
         served + lost."""
         if all(r.turn <= 1 for r in reqs):
             return self.run(reqs, predicted)
+        if self.memory is not None:
+            raise ValueError(
+                "sessions x memory is not supported: turn re-entry holds "
+                "KV across think times, which the per-batch "
+                "allocate/release ledger does not model")
         from repro_torch.core.sessions import (
             _MAX_PASSES, _TOL, _cascade_cancel, _session_summary,
             check_policy_supports_sessions, plan_from_requests)
@@ -439,11 +480,23 @@ def run_engine_schedule(policy: BatchPolicy, engine, reqs: List[Request],
     spec; None keeps ``policy.predictor``) feeds formation's membership
     and ordering with PREDICTED lengths; the engine still decodes each
     request to its true ``target_output_tokens``.  ``predicted`` bypasses
-    the resolution with an explicit column (the fleet layer).  Memory
-    budgets are not ported yet and raise (ROADMAP.md M7d)."""
-    if memory is not None:
-        not_ported("run_engine_schedule: a KV-memory budget",
-                   "M7d (KV memory)")
+    the resolution with an explicit column (the fleet layer).
+
+    ``memory`` (budget spec, :mod:`repro_torch.core.memory`) gates
+    admission on the REAL KV footprint: prompt length + target output
+    tokens per member.  Engine batches run serially to completion (one
+    device, cache freed between calls), so unlike the pipelined virtual
+    tandem the alive KV between batches is zero and admission reduces to
+    capping each batch's total footprint at the budget: members beyond the
+    longest admissible prefix are deferred via ``formation.rewind`` and
+    re-offered at the next trigger.  The engine's own occupancy
+    (``Engine.kv_report``) cross-checks the ledger."""
+    from repro_torch.core.memory import (
+        check_policy_supports_memory, memory_from_spec, occupancy_stats)
+    budget = memory_from_spec(memory)
+    mem = None if budget.is_null else budget
+    if mem is not None:
+        check_policy_supports_memory(policy)
     clock = EngineClock(engine)
     n = policy.schedule_length(len(reqs))
     arr = np.array([r.arrival for r in reqs[:n]])
@@ -452,7 +505,20 @@ def run_engine_schedule(policy: BatchPolicy, engine, reqs: List[Request],
     elastic = isinstance(policy, ElasticPolicy)
     waits = np.zeros(n)
     e2e = np.zeros(n)
+    starts = np.zeros(n)
+    comps = np.zeros(n)
     sizes = []
+    deferred = 0
+    fp = None
+    if mem is not None:
+        # the REAL footprint: actual prompt length (not the budget's
+        # scalar prompt_tokens stand-in) + generated tokens
+        fp = ns + np.array(
+            [len(reqs[i].prompt_tokens) for i in range(n)], np.float64)
+        if n and float(fp.max()) > float(budget.capacity):
+            raise ValueError(
+                f"kv budget {budget.capacity} cannot hold the largest "
+                f"single request (footprint {float(fp.max())})")
     if predicted is None:
         predicted = _request_predictions(policy, predictor, predict_seed,
                                          ns, reqs)
@@ -461,13 +527,33 @@ def run_engine_schedule(policy: BatchPolicy, engine, reqs: List[Request],
     t_free = 0.0
     while (nb := fs.next_batch(t_free)) is not None:
         start, idx = nb
+        if mem is not None:
+            cum, admit = 0.0, 0
+            for i in idx:
+                if cum + fp[i] <= float(budget.capacity):
+                    cum += fp[i]
+                    admit += 1
+                else:
+                    break
+            if admit < len(idx):
+                fs.rewind(len(idx) - admit)
+                deferred += len(idx) - admit
+                idx = idx[:admit]
         comp, total = clock.run_batch([reqs[i] for i in idx], elastic,
                                       policy.n_max)
         waits[idx] = start - arr[idx]
         e2e[idx] = waits[idx] + np.asarray(comp)[:len(idx)]
+        starts[idx] = start
+        comps[idx] = start + np.asarray(comp)[:len(idx)]
         sizes.append(len(idx))
         t_free = start + total
-    return ScheduleResult(waits, e2e, np.zeros(n, bool), sizes, t_free)
+    memrep = None
+    if mem is not None:
+        memrep = occupancy_stats(starts, comps, fp,
+                                 float(budget.capacity), served=n)
+        memrep["deferred_requests"] = deferred
+    return ScheduleResult(waits, e2e, np.zeros(n, bool), sizes, t_free,
+                          memory=memrep)
 
 
 def run_schedule(scheduler, reqs: List[Request]) -> ScheduleResult:

@@ -159,8 +159,15 @@ def test_controller_recommendations_equal_reference(elastic):
 
 def test_controller_parts_not_ported_raise():
     lat = (TLM.LatencyModel(**SINGLE), TLM.BatchLatencyModel(**BATCH))
-    with pytest.raises(NotImplementedError, match="M7d"):
-        TC.AdaptiveController(*lat, memory=4096.0)
+    # the KV-memory axis is ported: a bad spec raises as the reference
+    # does, a budget sizes the warmup recommendation as the reference's
+    jlat = (JLM.LatencyModel(**SINGLE), JLM.BatchLatencyModel(**BATCH))
+    for mod, law in ((JC, jlat), (TC, lat)):
+        with pytest.raises(ValueError, match="cannot build a MemoryBudget"):
+            mod.AdaptiveController(*law, memory=object())
+    jr = JC.AdaptiveController(*jlat, memory=4096.0).recommendation()
+    tr = TC.AdaptiveController(*lat, memory=4096.0).recommendation()
+    assert dataclasses.asdict(tr) == dataclasses.asdict(jr)
     with pytest.raises(ValueError, match="not in"):
         TC.AdaptiveController(*lat, length_predictor="psychic")
     # the fleet and predictor axes are ported (tests/test_torch_fleet.py)

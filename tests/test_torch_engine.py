@@ -183,10 +183,57 @@ def test_run_engine_schedule_equals_reference(cfgs, jax_engines, monkeypatch,
     assert tr.makespan == jr.makespan
 
 
+# a KV budget of 40 tokens cuts batches of this stream (footprints: prompt
+# of 3-11 tokens plus up to 12 output tokens)
+@pytest.mark.parametrize("name,kw,memory", [
+    ("dynamic", {"b_max": 4}, 40.0), ("elastic", {"b_max": 4}, 40.0),
+    ("srpt", {"b_max": 4}, 40.0), ("wait", {"k": 3, "b_max": 4}, 33.25),
+    ("dynamic", {"b_max": 4}, np.inf)])
+def test_run_engine_schedule_memory_equals_reference(cfgs, jax_engines,
+                                                     monkeypatch, name, kw,
+                                                     memory):
+    for mod in (jax_engine_mod, torch_engine_mod):
+        ticks = iter(range(10 ** 6))
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(
+            perf_counter=lambda t=ticks: float(next(t))))
+    teng = _port_engine(cfgs, jax_engines)
+    treqs = _stream(make_request_stream)
+    tr = run_engine_schedule(get_policy(name, **kw), teng, treqs,
+                             memory=memory)
+    jr = jax_schedule(jax_get_policy(name, **kw), jax_engines["fused"],
+                      _stream(jax_stream), memory=memory)
+    assert tr.batch_sizes == jr.batch_sizes
+    np.testing.assert_array_equal(tr.waits, jr.waits)
+    np.testing.assert_array_equal(tr.e2e, jr.e2e)
+    assert tr.makespan == jr.makespan
+    assert tr.memory == jr.memory
+    if np.isinf(memory):
+        assert tr.memory is None
+        return
+    # every admitted batch's real footprint fits the budget
+    fp = [len(r.prompt_tokens) + r.target_output_tokens for r in treqs]
+    start = np.round(tr.waits + [r.arrival for r in treqs], 9)
+    for t in np.unique(start):
+        assert sum(f for f, s in zip(fp, start) if s == t) <= memory
+    assert tr.memory["kv_peak"] <= memory
+    assert tr.memory["allocated"] == tr.memory["freed"] == sum(fp)
+    if name == "dynamic":
+        assert tr.memory["deferred_requests"] > 0
+
+
 def test_schedule_refuses_unported_options(cfgs, jax_engines):
     eng = _port_engine(cfgs, jax_engines)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md M7d"):
-        run_engine_schedule(get_policy("dynamic"), eng, [], memory=100)
+    # memory budgets are ported: a bad spec raises as the reference does,
+    # and an empty stream schedules nothing under a budget
+    for schedule, policy, engine in (
+            (jax_schedule, jax_get_policy("dynamic"), jax_engines["fused"]),
+            (run_engine_schedule, get_policy("dynamic"), eng)):
+        with pytest.raises(ValueError, match="cannot build a MemoryBudget"):
+            schedule(policy, engine, [], memory=object())
+    res = run_engine_schedule(get_policy("dynamic"), eng, [], memory=100)
+    jres = jax_schedule(jax_get_policy("dynamic"), jax_engines["fused"], [],
+                        memory=100)
+    assert res.batch_sizes == [] and res.memory == jres.memory
     # predictions are ported: an empty stream schedules nothing
     res = run_engine_schedule(get_policy("srpt", predictor="oracle"), eng, [],
                               predictor="lognormal_noise")

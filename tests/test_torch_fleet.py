@@ -534,22 +534,32 @@ def test_fleet_scheduler_equals_reference(rname):
                    t_router.FleetScheduler(rname, tp, tc, 2).run(treqs))
 
 
-def test_fleet_layers_refuse_what_is_not_ported():
+def test_fleet_layers_refuse_what_is_not_ported(x64):
     td, tl = dists("uniform")[1], lats()[1]
     tc = _clocks()[1]
     pol = t_pol.DynamicPolicy(8)
-    with pytest.raises(NotImplementedError, match="M7d"):
-        t_router.FleetScheduler("jsq", pol, tc, 2, memory=4000.0)
-    with pytest.raises(NotImplementedError, match="M7d"):
-        t_router.run_fleet_schedule("jsq", pol, object(), [], R=2,
-                                    memory=4000.0)
-    with pytest.raises(NotImplementedError, match="M7d"):
-        t_fleet.route_oracle("jsq", pol, 0.3, 2, td, tl, num_requests=100,
-                             memory=object())
-    with pytest.raises(NotImplementedError, match="M7d"):
-        t_fast.simulate_fleet_fast("jsq", pol, 0.3, 2, td, tl,
-                                   num_requests=100, device="cpu",
-                                   memory=object())
+    # per-replica KV budgets are ported: each layer raises the reference's
+    # ValueError for a bad spec or for faults x memory
+    jd, jl = dists("uniform")[0], lats()[0]
+    jc = _clocks()[0]
+    jpol = j_pol.DynamicPolicy(8)
+    for router, fleet, fast, p, c, d, l, kw in (
+            (j_router, j_fleet, j_fast, jpol, jc, jd, jl, {}),
+            (t_router, t_fleet, t_fast, pol, tc, td, tl, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="cannot build a MemoryBudget"):
+            router.FleetScheduler("jsq", p, c, 2, memory=object())
+        with pytest.raises(ValueError, match="resilience"):
+            router.FleetScheduler("jsq", p, c, 2, memory=4000.0,
+                                  faults="crash")
+        with pytest.raises(ValueError, match="resilience"):
+            router.run_fleet_schedule("jsq", p, object(), [], R=2,
+                                      memory=4000.0, kill_at=1.0)
+        with pytest.raises(ValueError, match="cannot build a MemoryBudget"):
+            fleet.route_oracle("jsq", p, 0.3, 2, d, l, num_requests=100,
+                               memory=object())
+        with pytest.raises(ValueError, match="cannot build a MemoryBudget"):
+            fast.simulate_fleet_fast("jsq", p, 0.3, 2, d, l,
+                                     num_requests=100, memory=object(), **kw)
 
 
 @pytest.fixture(scope="module")
@@ -618,6 +628,40 @@ def test_run_fleet_schedule_equals_reference_engine(engines, monkeypatch,
                                       predictor=predictor)
     assert np.array_equal(tr2.replica_of, tr.replica_of)
     assert tr2.batch_sizes == tr.batch_sizes
+
+
+@pytest.mark.parametrize("rname,pname", [("jsq", "dynamic"),
+                                         ("least_work", "elastic")])
+def test_run_fleet_schedule_memory_equals_reference_engine(
+        engines, monkeypatch, rname, pname):
+    """Per-replica KV budgets on the engine layer: each replica admits
+    against its own budget of 33.25 tokens (real footprints: prompt plus
+    output), the split, schedule and memory roll-up equal to the
+    reference's on the shared fake clock."""
+    jeng, teng = engines
+    for mod in (j_engine_mod, t_engine_mod):
+        ticks = iter(range(10 ** 6))
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(
+            perf_counter=lambda t=ticks: float(next(t))))
+    jd, td = (m.LogNormalTokens(log_mean=1.5, log_std=0.6, support=12)
+              for m in (j_dist, t_dist))
+    jreqs = j_pipe.make_request_stream(12, 8.0, jd, vocab=512,
+                                       prompt_len_range=(3, 12), seed=7)
+    treqs = t_pipe.make_request_stream(12, 8.0, td, vocab=512,
+                                       prompt_len_range=(3, 12), seed=7)
+    jl, tl = lats(HT)
+    jp, tp = pols(pname, b_max=4)
+    jr = j_router.run_fleet_schedule(rname, jp, jeng, jreqs, R=2, lat=jl,
+                                     memory=33.25)
+    tr = t_router.run_fleet_schedule(rname, tp, teng, treqs, R=2, lat=tl,
+                                     memory=33.25)
+    assert np.array_equal(tr.replica_of, jr.replica_of)
+    _same_schedule(jr, tr)
+    assert tr.memory == jr.memory
+    assert [p.memory for p in tr.per_replica] == \
+        [p.memory for p in jr.per_replica]
+    assert tr.memory["capacity"] == 33.25 and tr.memory["kv_peak"] <= 33.25
+    assert t_router.summarize_fleet(tr) == j_router.summarize_fleet(jr)
 
 
 # ----------------------------------------------------------------------------

@@ -8,8 +8,8 @@ file imports no JAX, so it runs on a machine that has only the port:
 Tolerances: 2e-5 in fp32; in bf16 4e-3 plus 8e-3 relative, one bf16 ulp
 of the output (both sides compute in fp32 and differ only in the final
 rounding); the gather, the fused norm's residual sum, the simulators'
-float64 scans and batch-event loops (S1-S5) and the fleet's routing scan
-(S6) are bit-equal."""
+float64 scans and batch-event loops (S1-S5), the fleet's routing scan
+(S6) and the memory-gated tandem loop (S7) are bit-equal."""
 
 import contextlib
 
@@ -1359,3 +1359,170 @@ def test_resilient_engine_fleet_card_equals_cpu(cuda):
     assert rep.kill_events and rep.retries > 0
     assert rep.served == rep.arrived == len(reqs)
     assert np.isfinite(g.waits).all() and (g.replica_of >= 0).all()
+
+
+# ----------------------------------------------------------------------------
+# The memory-gated tandem loop (S7 tandem_scan): float64, equal bit for bit
+# to its plain version, a lane's batches compared up to its batch count
+# ----------------------------------------------------------------------------
+
+def _tandem_inputs(ns, caps, b_maxs, seed, prompt=0.0, tok=None):
+    """Lanes of ``ns`` requests (padded to the longest with +inf arrivals
+    and +inf prefix sums), arrivals with runs of ties, integer tokens,
+    footprint prefix sums summed on the host; as float64 CPU tensors."""
+    rng = np.random.default_rng(seed)
+    L, lanes = max(ns), len(ns)
+    arr = np.full((L, lanes), np.inf)
+    toks = np.zeros((L, lanes))
+    fp_cum = np.full((L + 1, lanes), np.inf)
+    fp_cum[0] = 0.0
+    for c, n in enumerate(ns):
+        gaps = rng.exponential(1.0 / (0.05 + 0.3 * c), n)
+        gaps[0] = 0.0
+        gaps[rng.random(n) < 0.05] = 0.0
+        arr[:n, c] = np.cumsum(gaps)
+        toks[:n, c] = rng.integers(1, 1001, n) if tok is None else tok
+        fp_cum[1:n + 1, c] = np.cumsum(toks[:n, c] + prompt)
+    caps = [max(cap, float((toks[:n, c] + prompt).max()))
+            for c, (n, cap) in enumerate(zip(ns, caps))]
+    return [torch.from_numpy(np.asarray(x, np.float64))
+            for x in (arr, toks, fp_cum, caps, b_maxs)]
+
+
+def _tandem_equal(got, ref):
+    """Kernel and plain outputs equal: per lane its first nb batches and
+    every per-lane figure."""
+    starts, ends, dends, nb, blocked, blocked_t, deferred = \
+        (t.cpu() for t in got)
+    r_starts, r_ends, r_dends, r_nb, *r_lane = ref
+    assert torch.equal(nb, r_nb)
+    for x, y in zip((blocked, blocked_t, deferred), r_lane):
+        assert torch.equal(x, y)
+    for c, k in enumerate(nb.tolist()):
+        for x, y in ((starts, r_starts), (ends, r_ends), (dends, r_dends)):
+            assert torch.equal(x[:k, c], y[:k, c]), c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 1000, 2 ** 17 + 3])
+def test_tandem_scan_kernel_bit_equal_to_plain(cuda, n):
+    """Four lanes: the largest footprint as budget, two fractional
+    budgets, one that never binds; caps of none, 8, none and 3."""
+    from repro_torch.kernels.batch_scan import NO_CAP
+    from repro_torch.kernels.tandem_scan import (
+        tandem_scan, tandem_scan_reference)
+    args = _tandem_inputs([n] * 4, [0.0, 1777.25, 4000.25, 1e12],
+                          [NO_CAP, 8.0, NO_CAP, 3.0], seed=n % 97)
+    lat = (0.05, 0.5, 0.0005, 0.02)
+    before = K.LAUNCHES["tandem_scan"]
+    got = tandem_scan(*(a.to(cuda) for a in args), *lat)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["tandem_scan"] == before + 1
+    ref = tandem_scan_reference(*args, *lat)
+    _tandem_equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_tandem_scan_largest_footprint_blocks_every_batch(cuda):
+    """Every request's footprint is the budget: each batch is one request
+    and waits for the last one's release."""
+    from repro_torch.kernels.batch_scan import NO_CAP
+    from repro_torch.kernels.tandem_scan import (
+        tandem_scan, tandem_scan_reference)
+    args = _tandem_inputs([3000, 2000], [0.0, 0.0], [NO_CAP, 4.0], seed=5,
+                          prompt=12.0, tok=500.0)
+    lat = (0.05, 0.5, 0.0005, 0.02)
+    got = tandem_scan(*(a.to(cuda) for a in args), *lat)
+    _tandem_equal(got, tandem_scan_reference(*args, *lat))
+    starts, _, dends, nb, blocked = (t.cpu() for t in got[:5])
+    assert nb.tolist() == [3000, 2000]
+    # batch j blocks exactly when its candidate start, the later of its
+    # arrival and the last batch's prefill end, precedes the last release
+    arr = args[0]
+    for c in range(2):
+        k = int(nb[c])
+        cand = torch.maximum(arr[1:k, c], starts[:k - 1, c] + (
+            lat[0] * 1.0 + lat[1]))
+        assert int(blocked[c]) == int((cand < dends[:k - 1, c]).sum()) > 0
+        assert bool((starts[1:k, c] >= dends[:k - 1, c]).all())
+
+
+@pytest.mark.gpu
+def test_tandem_scan_padded_rows_never_admitted(cuda):
+    """Lanes of 1, 37, 1000 and 4099 requests padded to 4099: each lane's
+    batches end at its own length and cover it exactly once."""
+    from repro_torch.kernels.batch_scan import NO_CAP
+    from repro_torch.kernels.tandem_scan import (
+        tandem_scan, tandem_scan_reference)
+    ns = [1, 37, 1000, 4099]
+    args = _tandem_inputs(ns, [1777.25, 1e12, 2500.5, 4000.25],
+                          [NO_CAP, NO_CAP, 16.0, NO_CAP], seed=11,
+                          prompt=3.5)
+    lat = (0.05, 0.5, 0.0005, 0.02)
+    got = tandem_scan(*(a.to(cuda) for a in args), *lat)
+    _tandem_equal(got, tandem_scan_reference(*args, *lat))
+    ends, nb = got[1].cpu(), got[3].cpu()
+    for c, n in enumerate(ns):
+        k = int(nb[c])
+        e = ends[:k, c]
+        assert int(e[-1]) == n and bool((e[1:] > e[:-1]).all())
+
+
+@pytest.mark.gpu
+def test_tandem_scan_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.tandem_scan import tandem_scan
+    a = torch.zeros(4, 2, dtype=torch.float64, device=cuda)
+    f = torch.zeros(5, 2, dtype=torch.float64, device=cuda)
+    v = torch.ones(2, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        tandem_scan(a.float(), a, f, v, v, 1, 1, 1, 1)
+    with pytest.raises(ValueError):                       # fp_cum not n + 1
+        tandem_scan(a, a, a, v, v, 1, 1, 1, 1)
+    with pytest.raises(ValueError):                       # mixed devices
+        tandem_scan(a, a, f.cpu(), v, v, 1, 1, 1, 1)
+
+
+@pytest.mark.gpu
+def test_tandem_simulators_on_the_card_equal_cpu(cuda):
+    """``simulate_policy_fast(memory=)`` (one S7 launch for dynamic
+    batching, the oracle for elastic and SRPT) and ``simulate_fleet_fast(
+    memory=)`` (S6, then S7 a replica) on the card equal the CPU and the
+    oracle."""
+    from repro_torch.core import fastsim, fleet, simulate
+    from repro_torch.core.distributions import UniformTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import (
+        DynamicPolicy, ElasticPolicy, SRPTPolicy)
+    uni = UniformTokens(1000)
+    lat = BatchLatencyModel(0.05, 0.5, 0.0005, 0.02)
+    for pol, M, launched in ((DynamicPolicy(None), 1777.25, 1),
+                             (DynamicPolicy(8), 4000.25, 1),
+                             (DynamicPolicy(0), 2000.25, 1),
+                             (ElasticPolicy(None), 4000.25, 0),
+                             (SRPTPolicy(b_max=8), 1777.25, 0)):
+        kw = dict(num_requests=8000, seed=7, memory=M)
+        before = K.LAUNCHES["tandem_scan"]
+        gpu = fastsim.simulate_policy_fast(pol, 0.1, uni, lat, **kw)
+        assert K.LAUNCHES["tandem_scan"] == before + launched
+        cpu = fastsim.simulate_policy_fast(pol, 0.1, uni, lat,
+                                           device="cpu", **kw)
+        ora = simulate.simulate_policy(pol, 0.1, uni, lat, **kw)
+        for r in (cpu, ora):
+            assert np.array_equal(gpu["waits"], r["waits"]), pol
+            assert gpu["memory"] == r["memory"], pol
+    for router in ("least_work", "round_robin"):
+        kw = dict(num_requests=6000, seed=9, memory=1777.25)
+        before = dict(K.LAUNCHES)
+        gpu = fastsim.simulate_fleet_fast(router, DynamicPolicy(None), 0.3,
+                                          2, uni, lat, **kw)
+        assert K.LAUNCHES["tandem_scan"] == before.get("tandem_scan", 0) + 2
+        assert K.LAUNCHES["backlog_scan"] == \
+            before.get("backlog_scan", 0) + (router == "least_work")
+        cpu = fastsim.simulate_fleet_fast(router, DynamicPolicy(None), 0.3,
+                                          2, uni, lat, device="cpu", **kw)
+        ora = fleet.route_oracle(router, DynamicPolicy(None), 0.3, 2, uni,
+                                 lat, **kw)
+        for r in (cpu, ora):
+            assert gpu["memory"] == r["memory"]
+            for a, b in zip(gpu["per_replica"], r["per_replica"]):
+                assert np.array_equal(a["waits"], b["waits"]), router

@@ -368,15 +368,30 @@ def test_registry_and_unported_parts_raise():
         repr(j_pol.policy_from_spec({"kind": "elastic", "b_max": 8}))
     assert repr(t_pol.DynamicPolicy(predictor="oracle").predictor) == \
         repr(j_pol.DynamicPolicy(predictor="oracle").predictor)
-    with pytest.raises(NotImplementedError, match="M7d"):
-        t_pol.ElasticPolicy().stage_split(np.ones(3), lats()[1])
-    td, tl = dists("uniform")[1], lats()[1]
-    with pytest.raises(NotImplementedError, match="M7d"):
+    # the tandem split and memory budgets are ported: the split equals the
+    # reference's, a bad budget spec raises as the reference does, and a
+    # real budget schedules as the reference's does
+    ns = np.array([3.0, 1.0, 2.0])
+    for name in ("elastic", "dynamic", "fixed"):
+        jp, tp = policies(name)
+        jpf, joff = jp.stage_split(ns, lats()[0])
+        tpf, toff = tp.stage_split(ns, lats()[1])
+        assert tpf == jpf and np.array_equal(toff, joff), name
+    (jd, td), (jl, tl) = dists("uniform"), lats()
+    with pytest.raises(ValueError, match="cannot build a MemoryBudget"):
+        j_sim.simulate_policy(j_pol.DynamicPolicy(), 0.3, jd, jl,
+                              num_requests=100, memory=object())
+    with pytest.raises(ValueError, match="cannot build a MemoryBudget"):
         t_sim.simulate_policy(t_pol.DynamicPolicy(), 0.3, td, tl,
                               num_requests=100, memory=object())
-    tc = _clocks()[1]
-    with pytest.raises(NotImplementedError, match="M7d"):
-        t_sched.PolicyScheduler(t_pol.DynamicPolicy(), tc, memory=1000)
+    jreqs, treqs = _streams(n=300, lam=0.1)
+    jc, tc = _clocks()
+    jr = j_sched.PolicyScheduler(j_pol.DynamicPolicy(), jc,
+                                 memory=1000).run(jreqs)
+    tr = t_sched.PolicyScheduler(t_pol.DynamicPolicy(), tc,
+                                 memory=1000).run(treqs)
+    _same_result(jr, tr)
+    assert tr.memory == jr.memory and tr.memory["capacity"] == 1000.0
 
 
 def test_oracle_runs_on_the_host_without_a_gpu(monkeypatch):

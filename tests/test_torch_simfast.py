@@ -496,10 +496,24 @@ def test_fast_entry_points_need_a_gpu_unless_cpu_is_asked(entry,
     assert out is not None
 
 
-def test_fast_path_m7_layers_raise():
-    _, td = pair("UniformTokens", 100)
-    _, tl = lats()
-    with pytest.raises(NotImplementedError, match="M7d"):
-        t_fast.simulate_policy_fast(t_pol.DynamicPolicy(), 0.3, td, tl,
-                                    num_requests=100, device="cpu",
-                                    memory=object())
+def test_fast_path_m7_layers_raise(x64):
+    """A bad budget spec raises the reference's ValueError; a real budget
+    runs the tandem (kernel S7's plain version) as the reference does."""
+    jd, td = pair("UniformTokens", 100)
+    jl, tl = lats()
+    for fast, pol, dist, lat, kw in (
+            (j_fast, j_pol.DynamicPolicy(), jd, jl, {}),
+            (t_fast, t_pol.DynamicPolicy(), td, tl, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="cannot build a MemoryBudget"):
+            fast.simulate_policy_fast(pol, 0.3, dist, lat, num_requests=100,
+                                      memory=object(), **kw)
+    jr = j_fast.simulate_policy_fast(j_pol.DynamicPolicy(), 0.3, jd, jl,
+                                     num_requests=300, memory=250.25)
+    tr = t_fast.simulate_policy_fast(t_pol.DynamicPolicy(), 0.3, td, tl,
+                                     num_requests=300, memory=250.25,
+                                     device="cpu")
+    np.testing.assert_allclose(tr["waits"], jr["waits"], rtol=0,
+                               atol=SCAN_ATOL)
+    for k in ("blocked_batches", "deferred_requests", "kv_peak",
+              "allocated"):
+        assert tr["memory"][k] == jr["memory"][k], k
