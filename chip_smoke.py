@@ -98,9 +98,11 @@ Phases (any failure raises and the script exits non-zero):
      control cell's aware and blind recommendations on the tandem oracle),
      every integer equal to the record and every wait within 1e-9 s, then
      one 150,000-request lane and the reference test's least_work fleet
-     cell (S6, then S7 a replica); every cell held to the oracle and every
-     S7 launch bit for bit to its plain version on host processes, S7
-     timed by CUDA events beside its bytes bound.
+     cell (S6, then one S7 launch of a lane a replica); every cell held to
+     the oracle and every S7 launch bit for bit to its plain version on
+     host processes, S7 timed by CUDA events (the wrapper and the kernel
+     alone) beside its first design, its bytes bound and its modelled
+     chain.
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after it.
 
@@ -2282,6 +2284,16 @@ MEM_LONG_N = 150_000                 # the one long lane, seed 0
 MEM_FLEET = dict(lam=0.3, R=2, n=6_000, seed=9, M=1777.25)
 S7_REPLACES = ("src/repro/core/fastsim.py:784 (_tandem_loop, a "
                "lax.while_loop; no Pallas kernel)")
+# S7's first design on the same card and inputs (PERF.md §6, "earlier":
+# one thread, every value of a batch's chain a dependent load from device
+# memory), printed beside this run's figures
+EARLIER_S7_MS = {"entry": 17.714, "nine lanes": 22.752, "long lane": 132.813}
+# S7's modelled chain, from t_pf back to t_pf, for a batch that finds the
+# prefill stage idle and the budget free and moves the release search one
+# entry: the idle compare, two release compares, the target, the head's
+# overflow compare and the prefill end, 6 float64 operations at
+# CHAIN_CYCLES each (the loads they need are read ahead of them)
+S7_CHAIN_OPS = 6
 
 
 def _tandem_oracle(n, seed, memory, lam=MEM_LAM):
@@ -2353,7 +2365,8 @@ def run_tandem_sims(dev):
     budget sweep a launch of S7 a cell, then its nine cells as nine lanes
     of one launch; the null cells on S1; the control cell's aware and blind
     recommendations on the tandem oracle), one 150,000-request lane and
-    the reference test's least_work fleet cell (S6, then S7 a replica).
+    the reference test's least_work fleet cell (S6, then one S7 launch of
+    a lane a replica).
     Every S7 launch is held bit for bit to its plain version on host
     processes (one on the card, timed) and every cell to the oracle.
     Returns (the path's launches, the S7 JSON entry)."""
@@ -2412,8 +2425,9 @@ def run_tandem_sims(dev):
         path_s = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         s7 = rec_s7.launches
-        assert launches["tandem_scan"] == len(s7) == 9 + 1 + 1 + f["R"], \
-            launches
+        # the nine cells, the nine-lane launch, the long lane, the fleet
+        assert launches["tandem_scan"] == len(s7) == 9 + 1 + 1 + 1, launches
+        assert s7[11]["args"][0].shape[1] == f["R"]
         assert launches["batch_scan"] == 3 and launches["backlog_scan"] == 1
         in_path = rec_s7.report("tandem simulators")
         # every S7 launch against its plain version on host processes
@@ -2483,30 +2497,47 @@ def run_tandem_sims(dev):
             f"path took {path_s:.1f} s on the card")
     # timings on the entry cell (M = 4000.25, seed 1: one lane of 20,000,
     # as simulate_policy_fast launches it), the nine-lane launch and the
-    # long lane, by CUDA events on each launch's own inputs
+    # long lane, by CUDA events on each launch's own inputs: the wrapper
+    # (its layout copies and transposes included) and the kernel alone
+    from repro_torch.kernels.tandem_scan import ops as s7_ops
     entry = 3                                   # M = 4000.25, seed 1
-    rows = {}
+    rows, chains = {}, {}
     for label, j in (("entry", entry), ("nine lanes", 9),
                      ("long lane", 10)):
         args = s7[j]["args"]
         n, lanes = args[0].shape
         ms = event_ms(lambda: tandem_scan(*args))
+        laid = s7_ops.layout(*args[:3])
+        alone = event_ms(lambda: s7_ops.launch(laid, *args[3:5], n,
+                                               *args[5:]))
         nbytes = _tandem_bytes(args, outs[j][3])
-        rows[label] = {"shape": [n, lanes], "ms": ms,
+        # the slowest lane's batches: the launch's chain
+        most = int(np.max(outs[j][3]))
+        chain = 1e3 * most * S7_CHAIN_OPS * CHAIN_CYCLES / CHAIN_HZ
+        rows[label] = {"shape": [n, lanes], "ms": ms, "kernel_only_ms": alone,
                        "ns_per_request": 1e6 * ms / n,
                        "ns_per_lane_request": 1e6 * ms / (n * lanes),
                        "batches": int(np.sum(outs[j][3])),
+                       "ns_per_batch": 1e6 * alone / most,
                        "bound_ms": bound_ms(nbytes, 0, "float64")}
+        chains[label] = chain
     e_args = s7[entry]["args"]
     plain_out, plain_ms = wall_ms(lambda: tandem_scan_reference(*e_args))
     _tandem_same(outs[entry], [t.cpu().numpy() for t in plain_out],
                  "S7 entry on the card")
     for label, r in rows.items():
         log(f"S7 tandem_scan {label} {r['shape']}: {r['ms']:.3f} ms by CUDA "
-            f"events ({r['ns_per_request']:.1f} ns a request, "
-            f"{r['ns_per_lane_request']:.1f} ns a lane-request; "
-            f"{r['batches']} batches), bound {r['bound_ms']:.5f} ms (bytes; "
-            f"{100 * r['bound_ms'] / r['ms']:.3f}% of it)")
+            f"events, the wrapper ({r['kernel_only_ms']:.3f} the kernel "
+            f"alone; the first design {EARLIER_S7_MS[label]:.3f} ms, "
+            f"PERF.md); "
+            f"{r['ns_per_request']:.1f} ns a request, "
+            f"{r['ns_per_lane_request']:.1f} ns a lane-request, "
+            f"{r['ns_per_batch']:.1f} ns a batch of the slowest lane "
+            f"(kernel alone; {r['batches']} batches in all); bound "
+            f"{r['bound_ms']:.5f} ms (bytes; {100 * r['bound_ms'] / r['ms']:.3f}"
+            f"% of it); modelled chain {chains[label]:.3f} ms "
+            f"({100 * chains[label] / r['kernel_only_ms']:.1f}% of the "
+            f"kernel alone)")
     log(f"S7 plain version on the card, entry cell: {plain_ms:.1f} ms; "
         f"equal to the kernel")
     log(f"tandem control λ={MEM_LAM} M={MEM_GATE}: {ctl}")
@@ -2515,7 +2546,9 @@ def run_tandem_sims(dev):
         "name": "tandem_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/tandem_scan/csrc/tandem_scan.cu",
         "replaces": S7_REPLACES, "shape": e["shape"], "max_abs_err": 0.0,
-        "ms": e["ms"], "ns_per_request": e["ns_per_request"],
+        "ms": e["ms"], "kernel_only_ms": e["kernel_only_ms"],
+        "ns_per_request": e["ns_per_request"],
+        "ns_per_batch": e["ns_per_batch"],
         "plain_ms": plain_ms, "bound_ms": e["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "nine_lanes": rows["nine lanes"],
         "long_lane": rows["long lane"], "in_path": {"tandem simulators":

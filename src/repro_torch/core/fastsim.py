@@ -155,15 +155,7 @@ def simulate_policy_fast(policy: BatchPolicy, lam: float,
     (bit-equal trajectories); elastic and the batch-event policies run the
     tandem oracle on the host, the reference's dispatch by policy.  A
     null budget takes the budget-free path."""
-    mem = None
-    if memory is not None:
-        from repro_torch.core.memory import (check_policy_supports_memory,
-                                             memory_from_spec)
-        mem = memory_from_spec(memory)
-        if mem.is_null:
-            mem = None
-        else:
-            check_policy_supports_memory(policy)
+    mem = _memory_budget(policy, memory)
     device = resolve_device(device)
     if sessions is not None:
         from repro_torch.core.sessions import (session_from_spec,
@@ -193,8 +185,7 @@ def simulate_policy_fast(policy: BatchPolicy, lam: float,
             wl = workload if workload is not None else \
                 policy.sample_workload(lam, dist, num_requests, seed)
             workload = warp_workload(wl, tm, seed)
-    lane = policy.scan_lane()
-    if mem is not None and (lane is None or lane[0]):
+    if mem is not None and not _on_s7(policy):
         # elastic (per-request release times) and the batch-event policies
         # (non-contiguous membership): the tandem oracle, as the reference
         # dispatches them; traffic already applied
@@ -449,6 +440,28 @@ def _srpt_kernel(policy, lam, dist, lat, num_requests, seed, workload=None,
 # ----------------------------------------------------------------------------
 # Prefill/decode tandem under a KV budget (kernel S7)
 # ----------------------------------------------------------------------------
+
+def _memory_budget(policy: BatchPolicy, memory):
+    """The KV budget ``memory`` names, checked against ``policy``; None for
+    no budget or a null one."""
+    if memory is None:
+        return None
+    from repro_torch.core.memory import (check_policy_supports_memory,
+                                         memory_from_spec)
+    mem = memory_from_spec(memory)
+    if mem.is_null:
+        return None
+    check_policy_supports_memory(policy)
+    return mem
+
+
+def _on_s7(policy: BatchPolicy) -> bool:
+    """Whether the policy's tandem runs as kernel S7: dynamic formation,
+    the non-elastic ``batch_scan`` lane (elastic and the batch-event
+    policies run the tandem oracle)."""
+    lane = policy.scan_lane()
+    return lane is not None and not lane[0]
+
 
 def tandem_lanes(cells, lat, device=None,
                  launch_out: Optional[dict] = None) -> list:
@@ -785,8 +798,11 @@ def simulate_fleet_fast(router, policy: BatchPolicy, lam: float, R: int,
     kernels as the inner pass (``launch_out`` is then not filled).
     ``memory`` gives EACH replica its own KV budget (capacity is
     per-replica HBM, not a fleet pool) through the unchanged single-server
-    tandem: kernel S7 a replica for dynamic batching.  A session fleet
-    runs without it, as the reference's does (ROADMAP.md queue 3)."""
+    tandem: for dynamic batching every non-empty replica is a lane of one
+    S7 launch (:func:`tandem_lanes`), each lane's statistics those of the
+    replica run alone; the other policies run the tandem oracle a replica.
+    A session fleet runs without it, as the reference's does (ROADMAP.md
+    queue 3)."""
     from repro_torch.core.fleet import router_from_spec, run_fleet
     device = resolve_device(device)
     router = router_from_spec(router)
@@ -802,7 +818,14 @@ def simulate_fleet_fast(router, policy: BatchPolicy, lam: float, R: int,
     fw = router.fleet_workload(policy, lam, dist, lat, num_requests, seed,
                                R, fast=True, traffic=traffic, device=device,
                                launch_out=launch_out)
-    return run_fleet(fw, policy, lat, dist,
-                     lambda pol, wl: simulate_policy_fast(
-                         pol, lam, dist, lat, workload=wl, memory=memory,
-                         device=device))
+    mem = _memory_budget(policy, memory)
+    if mem is not None and _on_s7(policy):
+        def run(wls):
+            return tandem_lanes([(wl, mem, policy.b_max) for wl in wls],
+                                lat, device)
+    else:
+        def run(wls):
+            return [simulate_policy_fast(policy, lam, dist, lat, workload=wl,
+                                         memory=memory, device=device)
+                    for wl in wls]
+    return run_fleet(fw, policy, lat, dist, run)

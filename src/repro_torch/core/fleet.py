@@ -576,13 +576,16 @@ def _aggregate(per: List[Optional[dict]], fw: FleetWorkload) -> dict:
 
 def run_fleet(fw: FleetWorkload, policy: BatchPolicy, lat,
               dist: Optional[TokenDistribution],
-              runner: Callable[[BatchPolicy, Workload], dict]) -> dict:
-    """Drive every replica's sub-workload through ``runner`` (the oracle
-    or the fast twin) and aggregate.  Empty replicas contribute None."""
-    per = []
-    for wl in fw.replicas:
-        wl = served_slice(policy, wl)
-        per.append(runner(policy, wl) if len(wl.arrivals) else None)
+              run: Callable[[List[Workload]], List[dict]]) -> dict:
+    """Drive the non-empty replicas' sub-workloads (in replica order)
+    through ``run`` (the oracle or the fast twin, a replica at a time or
+    all at once), which returns one result for each, and aggregate.
+    Empty replicas contribute None."""
+    wls = [served_slice(policy, wl) for wl in fw.replicas]
+    live = [i for i, wl in enumerate(wls) if len(wl.arrivals)]
+    per: List[Optional[dict]] = [None] * len(wls)
+    for i, r in zip(live, run([wls[i] for i in live]) if live else []):
+        per[i] = r
     return _aggregate(per, fw)
 
 
@@ -616,8 +619,9 @@ def route_oracle(router, policy: BatchPolicy, lam: float, R: int,
     fw = router.fleet_workload(policy, lam, dist, lat, num_requests, seed, R,
                                traffic=traffic)
     return run_fleet(fw, policy, lat, dist,
-                     lambda pol, wl: simulate_policy(
-                         pol, lam, dist, lat, workload=wl, memory=memory))
+                     lambda wls: [simulate_policy(
+                         policy, lam, dist, lat, workload=wl, memory=memory)
+                         for wl in wls])
 
 
 # ----------------------------------------------------------------------------

@@ -1,14 +1,16 @@
 """Time variants of the simulator kernels S1 (``batch_scan``), S2
-(``impatience_scan``) and S4 (``wait_scan``) on the card, to choose their
-shape constants.
+(``impatience_scan``), S4 (``wait_scan``) and S7 (``tandem_scan``) on the
+card, to choose their shape constants.
 
 Each kernel's source fixes its shape constants as ``constexpr int NAME =
 value;`` lines.  This module writes copies of the source with other values
 into ``build/kernels/variants/``, compiles them all at once with the
 committed kernel's flags, and times each by CUDA events on the inputs the
-main path gives the kernel (``chip_smoke.py`` phases 7 and 8b), beside the
-committed kernel.  Every variant's outputs must equal the committed
-kernel's, bit for bit, or the run fails; the committed kernel itself is
+main path gives the kernel (``chip_smoke.py`` phases 7, 8b and 8d), beside
+the committed kernel.  Every variant's outputs must equal the committed
+kernel's, bit for bit, or the run fails; a variant that does not build
+(one that breaks a ``static_assert`` of the source, such as a ring past
+shared memory) is reported and skipped.  The committed kernel itself is
 held to its plain version by ``chip_smoke.py`` and the GPU tests.
 
     PYTHONPATH=src python -m repro_torch.kernels.tune [kernel ...]
@@ -37,6 +39,7 @@ GRIDS = {
     "batch_scan": {"STAGES": (2, 4, 8)},
     "impatience_scan": {"TILE": (256, 512, 1024, 2048), "STAGES": (2, 4, 8)},
     "wait_scan": {"CHUNKS": (4, 8, 16), "AHEAD": (2, 4, 6)},
+    "tandem_scan": {"TILE": (128, 256, 512), "STAGES": (2, 4)},
 }
 S2_RING_LIMIT = 227 * 1024     # a block's shared memory, bytes
 
@@ -153,12 +156,64 @@ def _s2_inputs(dev):
     return out
 
 
+def _s7_inputs(dev):
+    """(label, args) of S7 launches at the main path's shapes (phase 8d):
+    the entry cell (``pr10_memory``'s M = 4000.25, seed 1: one lane of
+    20,000), the nine cells as one launch and the 150,000-request lane;
+    args are the kernel's laid-out inputs, cap, b_max, n and the law."""
+    from repro_torch.core.distributions import UniformTokens
+    from repro_torch.core.fastsim import tandem_lanes
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.memory import MemoryBudget
+    from repro_torch.core.policies import DynamicPolicy
+    from repro_torch.kernels.tandem_scan.ops import layout
+    dist, pol = UniformTokens(1000), DynamicPolicy(None)
+    lat = BatchLatencyModel(k1=0.05, k2=0.5, k3=0.0005, k4=0.02)
+    wls = {s: pol.sample_workload(0.1, dist, 20_000, s) for s in (1, 2, 3)}
+    cases = [("pr10 entry cell, 1 lane x 20,000",
+              [(wls[1], MemoryBudget(4000.25), None)]),
+             ("pr10 nine cells, 9 lanes x 20,000",
+              [(wls[s], MemoryBudget(M), None)
+               for M in (2000.25, 4000.25, 8000.25) for s in (1, 2, 3)]),
+             ("long lane, 1 lane x 150,000",
+              [(pol.sample_workload(0.1, dist, 150_000, 0),
+                MemoryBudget(4000.25), None)])]
+    out = []
+    for label, cells in cases:
+        lo = {}
+        tandem_lanes(cells, lat, dev, launch_out=lo)
+        arr, tok, fp_cum, cap, b_max, *law = lo["args"]
+        out.append((label, (layout(arr, tok, fp_cum), cap, b_max,
+                            arr.shape[0], law)))
+    return out
+
+
 def _shape(name, args):
     """(requests a lane, the shape of each output) of a launch: [n, lanes],
-    or for S2 [lanes, ld], lanes major as its kernel writes them."""
+    or for S2 and S7 [lanes, ld], lanes major as their kernels write
+    them."""
     if name == "impatience_scan":
         return args[3], tuple(args[0].shape)
+    if name == "tandem_scan":
+        return args[3], tuple(args[0][0].shape)
     return args[0].shape[0], tuple(args[0].shape)
+
+
+def _outputs(name, shape, dev):
+    """A launch's outputs, zeroed (so that what a kernel leaves unwritten
+    compares equal)."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    if name == "tandem_scan":
+        lanes = shape[0]
+        return (torch.zeros(shape, **f64),
+                torch.zeros(shape, dtype=torch.int64, device=dev),
+                torch.zeros(shape, **f64),
+                *(torch.zeros(lanes, dtype=torch.int64, device=dev)
+                  for _ in range(2)),
+                torch.zeros(lanes, **f64),
+                torch.zeros(lanes, dtype=torch.int64, device=dev))
+    return (torch.zeros(shape, **f64),
+            torch.zeros(shape, dtype=torch.uint8, device=dev))
 
 
 def _run(lib, name, args, outs):
@@ -166,11 +221,20 @@ def _run(lib, name, args, outs):
     its laid-out inputs)."""
     from repro_torch.kernels.batch_scan.ops import _ARGTYPES as S1_ARGS
     from repro_torch.kernels.impatience_scan.ops import _ARGTYPES as S2_ARGS
+    from repro_torch.kernels.tandem_scan.ops import _ARGTYPES as S7_ARGS
     from repro_torch.kernels.wait_scan.ops import _ARGTYPES as S4_ARGS
     fn = getattr(lib, name)
     fn.argtypes = {"batch_scan": S1_ARGS, "impatience_scan": S2_ARGS,
-                   "wait_scan": S4_ARGS}[name]
+                   "wait_scan": S4_ARGS, "tandem_scan": S7_ARGS}[name]
     fn.restype = ctypes.c_int
+    if name == "tandem_scan":
+        laid, cap, b_max, n, law = args
+        status = fn(*(x.data_ptr() for x in laid), laid[0].shape[1],
+                    cap.data_ptr(), b_max.data_ptr(),
+                    *(o.data_ptr() for o in outs), n, laid[0].shape[0],
+                    *law, K.stream_ptr(cap))
+        K.check_status(name, status)
+        return
     if name == "impatience_scan":
         inter, service, tau, n = args
         status = fn(inter.data_ptr(), service.data_ptr(), inter.shape[1],
@@ -213,7 +277,7 @@ def tune(name: str, dev) -> list:
         values = dict(zip(grid, combo))
         if "AHEAD" in values and values["CHUNKS"] - values["AHEAD"] < 2:
             continue                  # S4's step needs two landed chunks
-        if "TILE" in values and \
+        if name == "impatience_scan" and \
                 values["TILE"] * values["STAGES"] * 16 > S2_RING_LIMIT:
             continue                  # S2's ring past shared memory
         sources[" ".join(f"{k}={v}" for k, v in values.items())] = \
@@ -224,13 +288,12 @@ def tune(name: str, dev) -> list:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rows = []
     inputs = {"batch_scan": _s1_inputs, "impatience_scan": _s2_inputs,
-              "wait_scan": _s4_inputs}[name](dev)
+              "wait_scan": _s4_inputs, "tandem_scan": _s7_inputs}[name](dev)
     for label, args in inputs:
         n, shape = _shape(name, args)
 
         def outputs():
-            return (torch.empty(shape, dtype=torch.float64, device=dev),
-                    torch.empty(shape, dtype=torch.uint8, device=dev))
+            return _outputs(name, shape, dev)
         ref = outputs()
         _run(libs["committed"], name, args, ref)
         torch.cuda.synchronize()
@@ -242,8 +305,7 @@ def tune(name: str, dev) -> list:
                 continue
             got = outputs()
             ms = time_ms(lambda: _run(lib, name, args, got))
-            same = bool(torch.equal(got[0], ref[0])
-                        and torch.equal(got[1], ref[1]))
+            same = all(torch.equal(g, r) for g, r in zip(got, ref))
             rows.append({"kernel": name, "variant": variant, "shape": label,
                          "ms": ms, "ns_per_request": 1e6 * ms / n,
                          "equal_to_committed": same})
@@ -269,7 +331,8 @@ def main(names=None) -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
     rows = [r for name in names for r in tune(name, dev)]
-    bad = [r for r in rows if not r.get("equal_to_committed")]
+    bad = [r for r in rows if "error" not in r
+           and not r["equal_to_committed"]]
     return 1 if bad else 0
 
 

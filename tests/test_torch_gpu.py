@@ -1482,12 +1482,219 @@ def test_tandem_scan_refuses_what_it_does_not_take(cuda):
         tandem_scan(a, a, f.cpu(), v, v, 1, 1, 1, 1)
 
 
+def _tandem_stack(lanes, caps, b_maxs, prompt=0.0):
+    """Lanes given as (arrivals, tokens) arrays, stacked [L, lanes] with
+    +inf arrivals and prefix sums past each lane's requests; each budget
+    raised to the lane's largest footprint.  Float64 CPU tensors."""
+    L = max(len(a) for a, _ in lanes)
+    arr = np.full((L, len(lanes)), np.inf)
+    toks = np.zeros((L, len(lanes)))
+    fp_cum = np.full((L + 1, len(lanes)), np.inf)
+    fp_cum[0] = 0.0
+    for c, (a, t) in enumerate(lanes):
+        arr[:len(a), c], toks[:len(a), c] = a, t
+        fp_cum[1:len(a) + 1, c] = np.cumsum(t + prompt)
+    caps = [max(cap, float((t + prompt).max()))
+            for cap, (_, t) in zip(caps, lanes)]
+    return [torch.from_numpy(np.asarray(x, np.float64))
+            for x in (arr, toks, fp_cum, caps, b_maxs)]
+
+
+def _poisson_lane(n, rate, seed, tok=None, ties=0.05):
+    """n arrivals at ``rate`` with runs of ties, and integer tokens."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / rate, n)
+    gaps[0] = 0.0
+    gaps[rng.random(n) < ties] = 0.0
+    t = rng.integers(1, 1001, n).astype(float) if tok is None else \
+        np.full(n, float(tok))
+    return np.cumsum(gaps), t
+
+
+def _tandem_on_card(cuda, args, lat):
+    """One S7 launch on the card against the plain version on the CPU;
+    returns the kernel's outputs on the CPU."""
+    from repro_torch.kernels.tandem_scan import (
+        tandem_scan, tandem_scan_reference)
+    before = K.LAUNCHES["tandem_scan"]
+    got = tandem_scan(*(a.to(cuda) for a in args), *lat)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["tandem_scan"] == before + 1
+    n, lanes = args[0].shape
+    assert got[0].shape == got[1].shape == got[2].shape == (n, lanes)
+    _tandem_equal(got, tandem_scan_reference(*args, *lat))
+    return [t.cpu() for t in got]
+
+
+S7_LAT = (0.05, 0.5, 0.0005, 0.02)
+# prefill far faster than decode: the decode backlog, and with it the live
+# release ledger, grows with the lane
+S7_SLOW_DECODE = (0.001, 0.01, 0.0005, 0.02)
+
+
+@pytest.mark.gpu
+def test_tandem_scan_shape_constants(cuda):
+    from repro_torch.kernels.tandem_scan import ops
+    assert ops.ring_depth() >= 2 * ops.tile() >= 256
+    assert ops.ledger() >= 256
+    assert ops.max_requests() >= 2 ** 30 - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_case", ["1", "tile+1", "3tile-1",
+                                    "5rings+3"])
+def test_tandem_scan_lane_lengths_about_the_ring(cuda, n_case):
+    """One lane of 1 request, of a tile and one, of three tiles but one,
+    and of five rings and three; two budgets and two caps as lanes."""
+    from repro_torch.kernels.batch_scan import NO_CAP
+    from repro_torch.kernels.tandem_scan import ops
+    T, D = ops.tile(), ops.ring_depth()
+    n = {"1": 1, "tile+1": T + 1, "3tile-1": 3 * T - 1,
+         "5rings+3": 5 * D + 3}[n_case]
+    lanes = [_poisson_lane(n, 0.1 * (c + 1), seed=n + c) for c in range(4)]
+    args = _tandem_stack(lanes, [1777.25, 4000.25, 1e12, 2000.25],
+                         [NO_CAP, NO_CAP, 8.0, 3.0])
+    _, ends, _, nb, *_ = _tandem_on_card(cuda, args, S7_LAT)
+    for c in range(4):
+        assert int(ends[int(nb[c]) - 1, c]) == n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("binding", [False, True])
+def test_tandem_scan_live_ledger_past_its_ring(cuda, binding):
+    """Decode far slower than prefill, so the batches in decode (the live
+    ledger, from the release search's pointer to the batch count) grow
+    past the on-chip ledger, over ten rings of it: the release search
+    reads them from device memory.  Under a budget of 1.5 ledgers of
+    one-token requests the budget binds with the ledger that long, and the
+    delayed starts search it too."""
+    from repro_torch.kernels.batch_scan import NO_CAP
+    from repro_torch.kernels.tandem_scan import ops
+    R = ops.ledger()
+    n = 12 * R
+    lane = _poisson_lane(n, 2.0, seed=R, tok=1.0 if binding else None)
+    cap = 1.5 * R + 0.25 if binding else 1e12
+    lat = (0.001, 0.01, 0.5, 0.5) if binding else S7_SLOW_DECODE
+    starts, _, dends, nb, blocked, *_ = _tandem_on_card(
+        cuda, _tandem_stack([lane], [cap], [NO_CAP]), lat)
+    k = int(nb[0])
+    assert k >= 10 * R
+    # batches still decoding when the last one starts: the live ledger
+    live = int((dends[:k, 0] > starts[k - 1, 0]).sum())
+    assert live > R
+    assert (int(blocked[0]) > 0) == binding
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b_max", [2.0, "none"])
+def test_tandem_scan_arrivals_far_ahead_of_the_head(cuda, b_max):
+    """Overload: arrivals far faster than a batch.  Under a cap of 2 every
+    batch is full; with no cap and a tight budget each batch admits a few
+    of a backlog that runs past the ring's window, so the arrival search
+    and its members' reads go to device memory."""
+    from repro_torch.kernels.batch_scan import NO_CAP
+    from repro_torch.kernels.tandem_scan import ops
+    D = ops.ring_depth()
+    n = 3 * D
+    lane = _poisson_lane(n, 100.0, seed=D)
+    cap, bm = (1e12, b_max) if b_max == 2.0 else (3000.25, NO_CAP)
+    _, ends, _, nb, _, _, deferred = _tandem_on_card(
+        cuda, _tandem_stack([lane], [cap], [bm]), S7_LAT)
+    k = int(nb[0])
+    sizes = torch.diff(ends[:k, 0], prepend=torch.zeros(1, dtype=torch.int64))
+    if b_max == 2.0:
+        assert int((sizes == 2).sum()) >= k - 2
+    else:
+        # the deferred backlog averages more than a ring
+        assert int(deferred[0]) > k * D
+
+
+@pytest.mark.gpu
+def test_tandem_scan_law_with_a_negative_prefill_constant(cuda):
+    """k2 < 0, so a batch's prefill end can fall before its start and the
+    kernel's other instance runs the release search that steps back."""
+    from repro_torch.kernels.batch_scan import NO_CAP
+    lanes = [_poisson_lane(1500, 1.0, seed=22), _poisson_lane(1500, 5.0,
+                                                             seed=23)]
+    _tandem_on_card(cuda, _tandem_stack(lanes, [2000.25, 4000.25],
+                                        [NO_CAP, 3.0]),
+                    (0.05, -0.6, 0.0005, 0.02))
+
+
+@pytest.mark.gpu
+def test_tandem_scan_equal_arrival_times(cuda):
+    """Arrivals in runs of ten equal times, and a lane that all arrives at
+    once, capped and not."""
+    from repro_torch.kernels.batch_scan import NO_CAP
+    rng = np.random.default_rng(3)
+    n = 3000
+    runs = np.repeat(np.arange(n // 10) * 4.0, 10)
+    lanes = [(runs, rng.integers(1, 1001, n).astype(float)),
+             (np.zeros(n), rng.integers(1, 1001, n).astype(float)),
+             (np.zeros(n), rng.integers(1, 1001, n).astype(float))]
+    _tandem_on_card(cuda, _tandem_stack(lanes, [2500.5, 1e12, 4000.25],
+                                        [NO_CAP, 5.0, NO_CAP]), S7_LAT)
+
+
+@pytest.mark.gpu
+def test_tandem_scan_blocks_every_batch_past_the_ring(cuda):
+    """Every footprint is the budget, over two rings and five: each batch
+    is one request and waits for the last one's release."""
+    from repro_torch.kernels.batch_scan import NO_CAP
+    from repro_torch.kernels.tandem_scan import ops
+    n = 2 * ops.ring_depth() + 5
+    lanes = [_poisson_lane(n, 0.3, seed=5, tok=500.0),
+             _poisson_lane(n, 5.0, seed=6, tok=500.0)]
+    args = _tandem_stack(lanes, [0.0, 0.0], [NO_CAP, 4.0], prompt=12.0)
+    starts, _, dends, nb, blocked, *_ = _tandem_on_card(cuda, args, S7_LAT)
+    assert nb.tolist() == [n, n]
+    assert bool((starts[1:n] >= dends[:n - 1]).all())
+    assert int(blocked.min()) > 0
+
+
+@pytest.mark.gpu
+def test_tandem_scan_lanes_of_1_to_50000(cuda):
+    """Lanes of 1, 2, 37, a tile and one, and 50,000 requests in one
+    launch: each ends at its own length."""
+    from repro_torch.kernels.batch_scan import NO_CAP
+    from repro_torch.kernels.tandem_scan import ops
+    ns = [1, 2, 37, ops.tile() + 1, 50_000]
+    lanes = [_poisson_lane(n, 0.1, seed=n) for n in ns]
+    _, ends, _, nb, *_ = _tandem_on_card(
+        cuda, _tandem_stack(lanes, [4000.25, 1777.25, 1e12, 2000.25,
+                                    4000.25],
+                            [NO_CAP, 1.0, NO_CAP, 16.0, NO_CAP]), S7_LAT)
+    for c, n in enumerate(ns):
+        assert int(ends[int(nb[c]) - 1, c]) == n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 2, 1025, 4096])
+def test_tandem_scan_layout_padding_never_read(cuda, n):
+    """The layout on the card equals the CPU's; the kernel alone on laid
+    inputs whose padding columns hold NaN equals the plain version."""
+    from repro_torch.kernels.batch_scan import NO_CAP
+    from repro_torch.kernels.tandem_scan import ops, tandem_scan_reference
+    lanes = [_poisson_lane(n, 0.2, seed=n + c) for c in range(3)]
+    args = _tandem_stack(lanes, [1777.25, 4000.25, 1e12],
+                         [NO_CAP, 4.0, NO_CAP])
+    laid = ops.layout(*(a.to(cuda) for a in args[:3]))
+    for x, y, rows in zip(laid, ops.layout(*args[:3]), (n, n, n + 1)):
+        assert x.shape == y.shape == (3, n + 1 + (n + 1) % 2)
+        assert torch.equal(x[:, :rows].cpu(), y[:, :rows])
+        x[:, rows:] = float("nan")
+    out = ops.launch(laid, args[3].to(cuda), args[4].to(cuda), n, *S7_LAT)
+    torch.cuda.synchronize()
+    got = [x[:, :n].t() for x in out[:3]] + list(out[3:])
+    _tandem_equal(got, tandem_scan_reference(*args, *S7_LAT))
+
+
 @pytest.mark.gpu
 def test_tandem_simulators_on_the_card_equal_cpu(cuda):
     """``simulate_policy_fast(memory=)`` (one S7 launch for dynamic
     batching, the oracle for elastic and SRPT) and ``simulate_fleet_fast(
-    memory=)`` (S6, then S7 a replica) on the card equal the CPU and the
-    oracle."""
+    memory=)`` (S6, then one S7 launch of a lane a replica) on the card
+    equal the CPU and the oracle."""
     from repro_torch.core import fastsim, fleet, simulate
     from repro_torch.core.distributions import UniformTokens
     from repro_torch.core.latency_model import BatchLatencyModel
@@ -1515,7 +1722,8 @@ def test_tandem_simulators_on_the_card_equal_cpu(cuda):
         before = dict(K.LAUNCHES)
         gpu = fastsim.simulate_fleet_fast(router, DynamicPolicy(None), 0.3,
                                           2, uni, lat, **kw)
-        assert K.LAUNCHES["tandem_scan"] == before.get("tandem_scan", 0) + 2
+        # the two replicas: two lanes of one S7 launch
+        assert K.LAUNCHES["tandem_scan"] == before.get("tandem_scan", 0) + 1
         assert K.LAUNCHES["backlog_scan"] == \
             before.get("backlog_scan", 0) + (router == "least_work")
         cpu = fastsim.simulate_fleet_fast(router, DynamicPolicy(None), 0.3,

@@ -541,6 +541,144 @@ def test_tandem_fleet_oracle_matches_fast(x64, router):
     assert to["memory"]["capacity"] == M_TIGHT     # per-replica budgets
 
 
+def _fleet_a_replica(router, pol, lam, R, dist, lat, n, seed, M):
+    """The fast fleet with S7 launched a replica at a time: the same
+    routing, each non-empty replica through ``simulate_policy_fast``."""
+    fw = t_fleet.router_from_spec(router).fleet_workload(
+        pol, lam, dist, lat, n, seed, R, fast=True, device="cpu")
+    return t_fleet.run_fleet(fw, pol, lat, dist, lambda wls: [
+        t_fast.simulate_policy_fast(pol, lam, dist, lat, workload=wl,
+                                    memory=M, device="cpu") for wl in wls])
+
+
+FLEET_STACKED = {
+    **{f"{r}-R{R}": (r, R, 0.3, 1_500, 9)
+       for r in ("round_robin", "least_work", "jsq") for R in (2, 3)},
+    # least_work at a trickle: every request finds replica 0 idle, so the
+    # other two replicas stay empty
+    "empty-replicas": ("least_work", 3, 0.002, 6, 4),
+    # jsq at low load: replica 0 takes most of the stream
+    "uneven-lengths": ("jsq", 3, 0.06, 1_500, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLEET_STACKED))
+def test_tandem_fleet_stacked_launch(monkeypatch, case):
+    """``simulate_fleet_fast(memory=)`` for dynamic batching runs every
+    non-empty replica as a lane of one S7 launch; the fleet equals the
+    path that launches S7 a replica and the port's route_oracle, field for
+    field, empty replicas None."""
+    router, R, lam, n, seed = FLEET_STACKED[case]
+    (_, td), (_, tl) = uni(), lats()
+    pol = t_pol.DynamicPolicy(None)
+    calls = []
+
+    def counted(arr, *rest):
+        calls.append(arr.shape)
+        return tandem_scan(arr, *rest)
+    monkeypatch.setattr(t_fast, "tandem_scan", counted)
+    kw = dict(num_requests=n, seed=seed, memory=M_TIGHT)
+    got = t_fast.simulate_fleet_fast(router, pol, lam, R, td, tl,
+                                     device="cpu", **kw)
+    live = [c for c in got["replica_counts"] if c]
+    assert calls == [(max(live), len(live))]
+    one = _fleet_a_replica(router, pol, lam, R, td, tl, n, seed, M_TIGHT)
+    assert len(calls) == 1 + len(live)            # a launch a replica
+    ora = t_fleet.route_oracle(router, pol, lam, R, td, tl, **kw)
+    if case == "empty-replicas":
+        assert list(got["replica_counts"]) == [n, 0, 0]
+    if case == "uneven-lengths":
+        counts = sorted(got["replica_counts"])
+        assert counts[-1] > 5 * counts[0] > 0
+    for r in (one, ora):
+        assert np.array_equal(got["replica_counts"], r["replica_counts"])
+        assert np.array_equal(got["replica_of"], r["replica_of"])
+        for k in ("mean_wait", "p50_wait", "p95_wait", "p99_wait",
+                  "memory"):
+            assert got[k] == r[k], k
+        for p, q in zip(got["per_replica"], r["per_replica"]):
+            assert (p is None) == (q is None)
+            if p is None:
+                continue
+            assert np.array_equal(p["waits"], q["waits"])
+            assert p["memory"] == q["memory"]
+            assert p["mean_wait"] == q["mean_wait"]
+            assert p["p95_wait"] == q["p95_wait"]
+    for p, q in zip(got["per_replica"], one["per_replica"]):
+        assert p is None and q is None or p.keys() == q.keys() and all(
+            np.array_equal(p[k], q[k]) for k in p)
+    assert got["mean_batch"] == one["mean_batch"]
+
+
+def _routed(fleet, pol_mod, counts, seed):
+    """A routed stream of ``counts[r]`` requests on replica r, built from
+    one seeded draw so both packages get the same arrays."""
+    rng = np.random.default_rng(seed)
+    R, n = len(counts), int(sum(counts))
+    arr = np.cumsum(rng.exponential(1.0, n))
+    tok = rng.integers(1, 200, n).astype(np.float64)
+    of = rng.permutation(np.repeat(np.arange(R), counts))
+    reps = [pol_mod.Workload(arrivals=arr[of == r], tokens=tok[of == r],
+                             inter=np.diff(arr[of == r], prepend=0.0))
+            for r in range(R)]
+    return fleet.FleetWorkload(replicas=reps, replica_of=of, arrivals=arr,
+                               R=R)
+
+
+@pytest.mark.parametrize("counts,b", [((5, 0, 3), None), ((0, 0, 4), None),
+                                      ((6, 7, 9), 4), ((0, 0), None)])
+def test_run_fleet_runs_live_replicas_in_one_call(counts, b):
+    """``run_fleet`` hands every non-empty served slice, in replica order,
+    to one call of its runner, and rolls the results up as the
+    reference's ``run_fleet`` does a replica at a time: empty replicas
+    are None, a fixed policy's slices are cut to a multiple of b, and a
+    fleet with no request makes no call."""
+    def result(wl):
+        return {"waits": wl.arrivals.copy(), "mean_batch": 1.5}
+    calls = []
+
+    def run(wls):
+        calls.append([len(wl.arrivals) for wl in wls])
+        return [result(wl) for wl in wls]
+    t_p = t_pol.DynamicPolicy(b_max=8) if b is None else t_pol.FixedPolicy(b)
+    j_p = j_pol.DynamicPolicy(b_max=8) if b is None else j_pol.FixedPolicy(b)
+    got = t_fleet.run_fleet(_routed(t_fleet, t_pol, counts, 5), t_p, None,
+                            None, run)
+    want = j_fleet.run_fleet(_routed(j_fleet, j_pol, counts, 5), j_p, None,
+                             None, lambda p, wl: result(wl))
+    served = [c if b is None else c // b * b for c in counts]
+    assert calls == ([[c for c in served if c]] if any(served) else [])
+    assert [p is None for p in got["per_replica"]] == \
+        [p is None for p in want["per_replica"]] == [c == 0 for c in served]
+    for p, q in zip(got["per_replica"], want["per_replica"]):
+        assert p is None or np.array_equal(p["waits"], q["waits"])
+    for k in ("mean_wait", "p50_wait", "p95_wait", "p99_wait"):
+        assert got[k] == want[k]
+    assert got.get("mean_batch") == want.get("mean_batch")
+    assert np.array_equal(got["replica_counts"], want["replica_counts"])
+
+
+@pytest.mark.parametrize("n,lanes", [(1, 1), (2, 3), (7, 2), (1_000, 4)])
+def test_tandem_scan_layout(n, lanes):
+    """S7's wrapper lays each input out lanes major, [lanes, ld] with ld
+    the even number at or above n + 1: every row 16-byte aligned, the
+    lane's values first, and the kernel's bulk copies of whole 16-byte
+    chunks stay inside the row."""
+    from repro_torch.kernels.tandem_scan.ops import layout
+    rng = np.random.default_rng(n + lanes)
+    arr = torch.from_numpy(np.sort(rng.random((n, lanes)), axis=0))
+    tok = torch.from_numpy(rng.integers(1, 1001, (n, lanes)).astype(float))
+    fp_cum = torch.zeros(n + 1, lanes, dtype=torch.float64)
+    fp_cum[1:] = torch.cumsum(tok, 0)
+    laid = layout(arr, tok, fp_cum)
+    ld = n + 1 + (n + 1) % 2
+    for x, src in zip(laid, (arr, tok, fp_cum)):
+        assert x.shape == (lanes, ld) and x.dtype == torch.float64
+        assert x.is_contiguous() and x.data_ptr() % 16 == 0
+        assert torch.equal(x[:, :src.shape[0]], src.t())
+    assert (ld * 8) % 16 == 0
+
+
 # ----------------------------------------------------------------------------
 # Conservation: occupancy <= budget, allocated == freed at drain
 # ----------------------------------------------------------------------------
