@@ -10,10 +10,12 @@ Phases (any failure raises and the script exits non-zero):
      the registers, shared memory and spills ptxas reports for the two
      attention kernels, K4 and the seven simulator kernels;
   2. hold each serving kernel against its plain PyTorch version on the card, at the
-     shapes qwen2.5-3b serving gives it, and time kernel, plain version,
-     one PyTorch library call and the bound (K3 also as TFLOP/s and share
-     of the bound; K1 with its split count and grid; K4 at T = 1, 16, 64
-     and 4096 rows);
+     shapes qwen2.5-3b serving gives it (K1 and K3 also at the (G, D)
+     instances of internlm2-1.8b and gemma-7b), and time kernel, plain
+     version, one PyTorch library call and the bound (K1 and K3 also at
+     each dense config's serving shape; K3 also as TFLOP/s and share of
+     the bound; K1 with its split count and grid; K4 at T = 1, 16, 64 and
+     4096 rows);
   3. check a small fp32 model end to end: the engine on the card (all four
      kernels, decode chunks as CUDA graphs) emits the same greedy tokens as
      the engine on the CPU (plain paths); sampled at a fixed seed, the two
@@ -42,6 +44,14 @@ Phases (any failure raises and the script exits non-zero):
      ``run_fleet_schedule`` jsq + dynamic b16 with R = 2; every admitted
      batch's real footprint within the budget, requests deferred on the
      single engine, the engine's own KV peak within the budget;
+  4d. serve the first 12 requests of phase 4's stream on each of
+     internlm2-1.8b ((G, D) = (2, 128)), yi-9b ((8, 128)) and gemma-7b
+     ((1, 256), GeGLU, scaled embeddings) at full width, random bf16
+     weights made on the card, phase 4's engine settings,
+     ``run_engine_schedule`` with elastic b16 (K1-K4 on decode graphs):
+     batches, waits, decode ms a step by bucket, prefill ms, host syncs,
+     launches and peak memory per model, each engine freed before the
+     next;
   5. run the adaptive-control serving launcher
      (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width;
   7. run the paper's simulators (``repro_torch.core.fastsim``) on the card:
@@ -103,6 +113,15 @@ Phases (any failure raises and the script exits non-zero):
      host processes, S7 timed by CUDA events (the wrapper and the kernel
      alone) beside its first design, its bytes bound and its modelled
      chain.
+  8e. run the closed-loop autoscaler on the card (``run_controlled``: a
+     launch of S1 a replica a window): the reference record
+     ``pr8_autoscale`` (``bench_autoscale.py`` at full size: the adaptive
+     run, the eight static (R, router) rows, the clairvoyant run and the
+     four-traffic sweep through ``simulate_fleet_fast``), the replica
+     trace and shed equal, every objective and mean wait within 1e-6
+     relative, the adaptive objective below the best static one, the
+     adaptive run held to the port's oracle on a host process, and every
+     S1 launch of the path timed by CUDA events.
 Each path runs with every kernel's launch counter set to 0 just before it
 and read just after it.
 
@@ -135,7 +154,11 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=4e-3, rtol=8e-3)}
 
-QWEN = dict(hq=16, hkv=2, d=128)
+# the (Hq, Hkv, D) each ported dense config gives the attention kernels:
+# (G, D) = (8, 128) for qwen2.5-3b and yi-9b, (2, 128) for internlm2-1.8b,
+# (1, 256) for gemma-7b
+ATTN_HEADS = {"qwen2.5-3b": (16, 2, 128), "internlm2-1.8b": (16, 8, 128),
+              "yi-9b": (32, 4, 128), "gemma-7b": (16, 16, 256)}
 # the kernels of the model's serving path (the other two are the
 # simulators' scans, phase 7)
 SERVING_KERNELS = ("ragged_decode_attention", "gather_rows", "flash_attention",
@@ -215,6 +238,9 @@ def ptxas_report(build_log):
             entry = name.group(1) if name else mangled
             entry += (" (bf16)" if "_kernelI13__nv_bfloat16" in mangled else
                       " (fp32)" if "_kernelIf" in mangled else "")
+            gd = re.search(r"(?:ragged_decode|flash_attention)_\w+?_kernelI"
+                           r"(?:13__nv_bfloat16|f)?Li(\d+)ELi(\d+)E", mangled)
+            entry += f" G={gd.group(1)} D={gd.group(2)}" if gd else ""
             vpt = re.search(r"fused_rmsnorm_kernelI\w+?Li(\d+)E", mangled)
             entry += f" VPT={vpt.group(1)}" if vpt else ""
             rt = re.search(r"backlog_\w+?_kernelILi(\d+)ELb([01])E", mangled)
@@ -232,14 +258,15 @@ def ptxas_report(build_log):
 # Phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------------
 
-def check_ragged(dev):
+def _ragged_checks(dev, rng, hq, hkv, d, label):
+    """K1 against its plain version at (Hq, Hkv, D) in bf16 and fp32: B in
+    (1, 4, 16) x S in (1024, 2048, 1000) with ragged lengths, stale rows
+    never read, two calls bit-equal, every split count up to the chosen
+    one.  Returns the largest |kernel - plain| by dtype."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.ragged_decode_attention import (
         decode_attention_reference, ragged_decode_attention, split_count)
     from repro_torch.kernels.ragged_decode_attention.ops import _launch
-    hq, hkv, d = QWEN["hq"], QWEN["hkv"], QWEN["d"]
-    rng = np.random.default_rng(0)
     max_err = {}
     for dtype in ("bfloat16", "float32"):
         td = getattr(torch, dtype)
@@ -273,13 +300,21 @@ def check_ragged(dev):
             torch.testing.assert_close(_launch(q, kc, vc, ln, n).float(), ref,
                                        **TOL[dtype])
         max_err[dtype] = err
-        log(f"K1 ragged_decode_attention {dtype}: max |kernel - plain| = {err:.3e}")
+        log(f"K1 ragged_decode_attention {label} (G, D) = ({hq // hkv}, {d}) "
+            f"{dtype}: max |kernel - plain| = {err:.3e}")
+    return max_err
 
-    # timing at the serving shape: B=16, S=max_seq=2048, bf16, lengths of
-    # live requests (prompt 16..256 plus 0..512 generated); four cache
-    # copies in rotation (4 x 33 MB) so each launch reads past the 50 MB L2
-    b, s, dtype = 16, 2048, "bfloat16"
-    lens = (rng.integers(16, 257, b) + rng.integers(0, 513, b)).astype(np.int32)
+
+def _ragged_timing(dev, lens, hq, hkv, d, label):
+    """K1 at a serving shape: B = len(lens), S = 2048, bf16, the given
+    lengths; four cache copies in rotation so each launch reads past the
+    50 MB L2.  Kernel, plain version, SDPA (length mask, GQA) and the
+    bytes bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ragged_decode_attention import (
+        decode_attention_reference, ragged_decode_attention, split_count)
+    b, s, dtype = len(lens), 2048, "bfloat16"
     ln = torch.from_numpy(lens).to(dev)
     q = torch.randn(b, hq, d, device=dev, dtype=torch.bfloat16)
     caches = [(torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16),
@@ -298,18 +333,46 @@ def check_ragged(dev):
     flops = 4 * kv_rows * hq * d
     bnd = bound_ms(nbytes, flops, dtype)
     splits = split_count(b, hkv, s)
-    log(f"K1 timing B={b} S={s} bf16 sum(lengths)={kv_rows}: kernel {fmt(ms)}, "
+    log(f"K1 timing {label} ({hq}/{hkv} heads of {d}, G = {hq // hkv}) "
+        f"B={b} S={s} bf16 sum(lengths)={kv_rows}: kernel {fmt(ms)}, "
         f"plain {fmt(plain_ms)}, sdpa {fmt(lib_ms)}, bound {bnd:.4f} ms "
         f"(bytes, {100 * bnd / ms[1]:.1f}% of it); {splits} splits, grid "
         f"({splits}, {hkv}, {b}) = {splits * hkv * b} blocks on 132 SMs, then "
         f"a combine grid of {hkv * b}")
+    del caches
+    return {"G": hq // hkv, "D": d, "ms": ms[1], "plain_ms": plain_ms[1],
+            "library_ms": lib_ms[1], "bound_ms": bnd, "splits": splits}
+
+
+def check_ragged(dev):
+    """K1 at each (G, D) instance against its plain version (qwen2.5-3b's
+    heads for (8, 128), internlm2-1.8b's for (2, 128), gemma-7b's for (1,
+    256)), then timed at each ported dense config's serving shape; the JSON
+    entry's figures are qwen2.5-3b's, the other configs' under
+    ``shapes``."""
+    rng = np.random.default_rng(0)
+    max_err = dict(_ragged_checks(dev, rng, *ATTN_HEADS["qwen2.5-3b"],
+                                  "qwen2.5-3b"))
+    # serving lengths: prompt 16..256 plus 0..512 generated
+    lens = (rng.integers(16, 257, 16) + rng.integers(0, 513, 16)).astype(np.int32)
+    shapes = {"qwen2.5-3b": _ragged_timing(dev, lens, *ATTN_HEADS["qwen2.5-3b"],
+                                           "qwen2.5-3b")}
+    for arch in ("internlm2-1.8b", "gemma-7b"):
+        err = _ragged_checks(dev, np.random.default_rng(1), *ATTN_HEADS[arch],
+                             arch)
+        for k, v in err.items():
+            max_err[k] = max(max_err[k], v)
+    for arch in ("internlm2-1.8b", "yi-9b", "gemma-7b"):
+        shapes[arch] = _ragged_timing(dev, lens, *ATTN_HEADS[arch], arch)
+    qw = shapes["qwen2.5-3b"]
     return {"name": "ragged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/ragged_decode_attention/csrc/"
                       "ragged_decode_attention.cu",
             "replaces": "src/repro/kernels/ragged_decode_attention/kernel.py:70",
-            "max_abs_err": max(max_err.values()), "ms": ms[1],
-            "plain_ms": plain_ms[1], "bound_ms": bnd, "bound_by": "bytes",
-            "library_ms": lib_ms[1]}
+            "max_abs_err": max(max_err.values()), "ms": qw["ms"],
+            "plain_ms": qw["plain_ms"], "bound_ms": qw["bound_ms"],
+            "bound_by": "bytes", "library_ms": qw["library_ms"],
+            "shapes": shapes}
 
 
 def check_gather(dev, engine, cfg):
@@ -371,18 +434,16 @@ def check_gather(dev, engine, cfg):
             "bound_ms": bnd, "bound_by": "bytes", "library_ms": lib_ms[1]}
 
 
-def check_flash(dev):
+def _flash_checks(dev, rng, hq, hkv, d, label):
+    """K3 against its plain version at (Hq, Hkv, D) in bf16 and fp32 over
+    prompt buckets (some no multiple of any block), sliding windows, and the
+    bf16 kernel's first, partial and last K/V tiles (64 keys) and a window
+    across tile edges.  Returns the largest |kernel - plain| by dtype."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         attention_reference, flash_attention)
-    hq, hkv, d = QWEN["hq"], QWEN["hkv"], QWEN["d"]
-    rng = np.random.default_rng(2)
-    # prompt buckets, some no multiple of any block; one sliding window
     cases = [(b, s, None) for s in (16, 80, 192, 256, 1000) for b in (1, 16)]
     cases += [(1, 4096, None), (1, 1000, 256), (16, 192, 64)]
-    # the bf16 kernel's first, partial and last K/V tiles (64 keys) and a
-    # window across tile edges
     cases += [(16, 64, None), (1, 65, None), (16, 129, None), (2, 300, 100)]
     max_err = {}
     for dtype in ("bfloat16", "float32"):
@@ -396,39 +457,72 @@ def check_flash(dev):
             torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
             err = max(err, float((out.float() - ref.float()).abs().max()))
         max_err[dtype] = err
-        log(f"K3 flash_attention {dtype}: max |kernel - plain| = {err:.3e} "
-            f"over (B, S, window) in {cases}")
+        log(f"K3 flash_attention {label} (G, D) = ({hq // hkv}, {d}) {dtype}: "
+            f"max |kernel - plain| = {err:.3e} over (B, S, window) in {cases}")
+    return max_err
 
-    entry = None
-    for b, s in ((16, 256), (1, 8192)):
-        q = torch.randn(b, s, hq, d, device=dev, dtype=torch.bfloat16)
-        k, v = (torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16)
-                for _ in range(2))
-        ms = time_ms(lambda: flash_attention(q, k, v))
-        plain_ms = time_ms(lambda: attention_reference(q, k, v), iters=5)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4 * b * hq * d * (s * (s + 1) // 2)    # visible pairs only
-        bnd = bound_ms(nbytes, flops, "bfloat16")
-        by = "operations" if flops / PEAK_FLOPS["bfloat16"] > \
-            nbytes / HBM_BYTES_PER_S else "bytes"
-        log(f"K3 timing B={b} S={s} bf16 causal: kernel {fmt(ms)}, plain "
-            f"{fmt(plain_ms)}, sdpa {fmt(lib_ms)}, bound {bnd:.4f} ms "
-            f"({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-            f"{flops / ms[1] / 1e9:.1f} TFLOP/s, {100 * bnd / ms[1]:.1f}% of "
-            f"the bound")
-        if entry is None:     # the serving shape goes into the JSON line
-            entry = {"name": "flash_attention", "route": "cuda",
-                     "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                               "flash_attention.cu",
-                     "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
-                     "max_abs_err": max(max_err.values()), "ms": ms[1],
-                     "plain_ms": plain_ms[1], "bound_ms": bnd, "bound_by": by,
-                     "library_ms": lib_ms[1]}
-        del q, k, v
-    return entry
+
+def _flash_timing(dev, b, s, hq, hkv, d, label):
+    """K3 at (B, S) bf16 causal: kernel, plain version, SDPA (causal, GQA)
+    and the bound over the visible pairs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_reference, flash_attention)
+    q = torch.randn(b, s, hq, d, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    ms = time_ms(lambda: flash_attention(q, k, v))
+    plain_ms = time_ms(lambda: attention_reference(q, k, v), iters=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * b * hq * d * (s * (s + 1) // 2)    # visible pairs only
+    bnd = bound_ms(nbytes, flops, "bfloat16")
+    by = "operations" if flops / PEAK_FLOPS["bfloat16"] > \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    log(f"K3 timing {label} ({hq}/{hkv} heads of {d}, G = {hq // hkv}) "
+        f"B={b} S={s} bf16 causal: kernel {fmt(ms)}, plain "
+        f"{fmt(plain_ms)}, sdpa {fmt(lib_ms)}, bound {bnd:.4f} ms "
+        f"({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+        f"{flops / ms[1] / 1e9:.1f} TFLOP/s, {100 * bnd / ms[1]:.1f}% of "
+        f"the bound")
+    return {"G": hq // hkv, "D": d, "B": b, "S": s, "ms": ms[1],
+            "plain_ms": plain_ms[1], "library_ms": lib_ms[1],
+            "bound_ms": bnd, "bound_by": by}
+
+
+def check_flash(dev):
+    """K3 at each (G, D) instance against its plain version (as K1), timed
+    at qwen2.5-3b's B = 16, S = 256 and B = 1, S = 8192 and at each other
+    dense config's B = 16, S = 256; the JSON entry's figures are qwen's
+    serving shape, the others under ``shapes``."""
+    rng = np.random.default_rng(2)
+    max_err = dict(_flash_checks(dev, rng, *ATTN_HEADS["qwen2.5-3b"],
+                                 "qwen2.5-3b"))
+    shapes = {"qwen2.5-3b": _flash_timing(dev, 16, 256,
+                                          *ATTN_HEADS["qwen2.5-3b"],
+                                          "qwen2.5-3b"),
+              "qwen2.5-3b long": _flash_timing(dev, 1, 8192,
+                                               *ATTN_HEADS["qwen2.5-3b"],
+                                               "qwen2.5-3b")}
+    for arch in ("internlm2-1.8b", "gemma-7b"):
+        err = _flash_checks(dev, np.random.default_rng(3), *ATTN_HEADS[arch],
+                            arch)
+        for k, v in err.items():
+            max_err[k] = max(max_err[k], v)
+    for arch in ("internlm2-1.8b", "yi-9b", "gemma-7b"):
+        shapes[arch] = _flash_timing(dev, 16, 256, *ATTN_HEADS[arch], arch)
+    qw = shapes["qwen2.5-3b"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
+            "max_abs_err": max(max_err.values()), "ms": qw["ms"],
+            "plain_ms": qw["plain_ms"], "bound_ms": qw["bound_ms"],
+            "bound_by": qw["bound_by"], "library_ms": qw["library_ms"],
+            "shapes": shapes}
 
 
 def check_rmsnorm(dev):
@@ -1032,6 +1126,86 @@ def serve_memory(engine, reqs):
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
     return totals
+
+
+# ----------------------------------------------------------------------------
+# Phase 4d: the dense families at full width
+# ----------------------------------------------------------------------------
+
+DENSE_ARCHS = ("internlm2-1.8b", "yi-9b", "gemma-7b")
+DENSE_REQUESTS = 12       # the first requests of phase 4's stream
+
+
+def serve_dense(ecfg, reqs):
+    """Phase 4d: each of internlm2-1.8b, yi-9b and gemma-7b at full width,
+    random bf16 weights from a seed (made on the card), phase 4's engine
+    settings, serving the first ``DENSE_REQUESTS`` of phase 4's stream
+    through ``run_engine_schedule`` with elastic b16 (K1-K4 on decode
+    graphs; a compaction runs K2).  Logs per model its batches, waits,
+    decode ms a step by bucket, prefill ms, host syncs, the kernels'
+    launches and the peak device memory; frees each engine before the
+    next.  Returns the launches summed over the three."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policies import get_policy
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving import Engine
+    reqs = reqs[:DENSE_REQUESTS]
+    totals, rows = {}, {}
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch),
+                                  decode_cache_update="scatter")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30   # qwen's engine
+        engine = Engine(cfg, ecfg, seed=0)
+        torch.cuda.synchronize()
+        nparams = sum(t.numel() for t in tree_leaves(engine.params))
+        assert nparams == cfg.param_count(), (arch, nparams)
+        init_s = time.perf_counter() - t0
+        # clamp the stream's token ids into this vocabulary (phase 4's
+        # stream is drawn for qwen's 151,936)
+        mine = [dataclasses.replace(r, prompt_tokens=np.asarray(
+            r.prompt_tokens) % cfg.vocab_size) for r in reqs]
+        engine.generate([r.prompt_tokens for r in mine[:2]], [3, 2],
+                        elastic=True)
+        n0, syncs0 = len(engine.step_log), engine.host_syncs
+        launches, buckets, wall, res = serve(
+            engine, f"{arch} elastic", mine,
+            get_policy("elastic", b_max=ecfg.max_batch))
+        assert launches["gather_rows"] > 0, f"{arch}: no fused compaction ran"
+        assert engine.sample_fallbacks == 0, f"{arch}: non-finite logits"
+        pre = [1e3 * e["seconds"] for e in engine.step_log[n0:]
+               if e["kind"] == "prefill"]
+        syncs = engine.host_syncs - syncs0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows[arch] = {
+            "params": nparams, "batch_sizes": list(res.batch_sizes),
+            "mean_wait_s": float(res.waits.mean()), "wall_s": wall,
+            "prefill_ms": pre, "host_syncs": syncs,
+            "ms_per_step": {b: v["replay_ms_per_step"]
+                            for b, v in buckets.items() if v["replays"]},
+            "launches": {k: launches.get(k, 0) for k in SERVING_KERNELS},
+            "peak_gib": peak, "resident_before_gib": base}
+        log(f"phase 4d {arch}: {nparams / 1e9:.3f} B params ({cfg.num_layers} "
+            f"layers, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}), init {init_s:.1f} s; batch "
+            f"sizes {res.batch_sizes}, mean wait {res.waits.mean():.3f} s, "
+            f"wall {wall:.2f} s; prefill ms {[round(m, 1) for m in pre]}; "
+            f"host syncs {syncs}; decode graph-replay ms a step by bucket "
+            f"{{{', '.join(f'{b}: {v:.2f}' for b, v in rows[arch]['ms_per_step'].items())}}} "
+            f"(buckets only captured: "
+            f"{sorted(set(buckets) - set(rows[arch]['ms_per_step']))}); "
+            f"launches {rows[arch]['launches']}; peak device memory "
+            f"{peak:.2f} GiB ({base:.2f} GiB of it allocated before, by "
+            f"phase 4's engine)")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals, rows
 
 
 # ----------------------------------------------------------------------------
@@ -2603,6 +2777,140 @@ def _memory_control(controller, single, lat, dist, dev, fast, policies):
             f"s) {got}, each within 1e-9 s of the record")
 
 
+# ----------------------------------------------------------------------------
+# Phase 8e: the closed-loop autoscaler (M7e)
+# ----------------------------------------------------------------------------
+
+# benchmarks/bench_autoscale.py (record pr8_autoscale), full size: elastic,
+# lognormal(5, 0.8), λ = 8, sinusoid amplitude 0.9 and period 2,000, 32,000
+# requests, seed 0, windows of 200 s, at most 8 replicas at a cost of 5
+AUTOSCALE = dict(num_requests=32_000, seed=0, window=200.0, max_replicas=8,
+                 replica_cost=5.0, shed_cost=0.0)
+AUTOSCALE_LAM = 8.0
+AUTOSCALE_CTRL = {"replica_target_util": 0.4}
+
+
+def _autoscale_args():
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import ElasticPolicy
+    from repro_torch.core.traffic import SinusoidTraffic
+    return (ElasticPolicy(), AUTOSCALE_LAM, LogNormalTokens(5.0, 0.8),
+            BatchLatencyModel(k1=0.05, k2=0.5, k3=0.0005, k4=0.02),
+            SinusoidTraffic(amplitude=0.9, period=2000.0))
+
+
+def _autoscale_oracle():
+    """The adaptive run on the port's NumPy oracle (``fast=False``; a
+    worker of ``host_pool``): its actions as tuples and its waits."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.control import simulate_controlled
+    pol, lam, dist, lat, tm = _autoscale_args()
+    t0 = time.perf_counter()
+    r = simulate_controlled(pol, lam, dist, lat, traffic=tm, fast=False,
+                            controller_kwargs=AUTOSCALE_CTRL, **AUTOSCALE)
+    return ([dataclasses.astuple(a) for a in r.actions], r.waits,
+            time.perf_counter() - t0)
+
+
+def run_autoscale_sims(dev):
+    """Phase 8e: ``pr8_autoscale`` on the card through ``run_controlled``
+    (each window's replicas a launch of S1 each): the adaptive run, the
+    eight static (R, router) rows and the clairvoyant run, then the
+    four-traffic sweep through ``simulate_fleet_fast`` (S1, S6).  Holds the
+    replica trace and shed count equal to the record, every objective and
+    mean wait within 1e-6 relative, the adaptive objective below the best
+    static one, and the adaptive run to the port's oracle on a host process
+    (equal actions, waits within 1e-9 s).  Times every S1 launch of the
+    path by CUDA events."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core.fastsim import run_controlled, simulate_fleet_fast
+    from repro_torch.core.traffic import default_traffic
+    rec = json.loads((ROOT / "benchmarks" / "BENCH_simulators.json")
+                     .read_text())["pr8_autoscale"]
+    pol, lam, dist, lat, tm = _autoscale_args()
+    kw = dict(AUTOSCALE, traffic=tm, device=dev)
+    with host_pool() as pool:
+        oracle = pool.submit(_autoscale_oracle)
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with PathLaunches("batch_scan") as s1:
+            adaptive = run_controlled(pol, lam, dist, lat,
+                                      controller_kwargs=AUTOSCALE_CTRL, **kw)
+            statics = [(R, rt, run_controlled(pol, lam, dist, lat,
+                                              fixed=(R, rt), **kw))
+                       for R in (1, 2, 4, 8)
+                       for rt in ("round_robin", "least_work")]
+            clair = run_controlled(pol, lam, dist, lat, clairvoyant=True, **kw)
+            t_ctrl = time.perf_counter() - t0
+            sweep = {name: float(simulate_fleet_fast(
+                "least_work", pol, lam, 4, dist, lat,
+                num_requests=min(AUTOSCALE["num_requests"], 16_000),
+                seed=AUTOSCALE["seed"], traffic=m, device=dev)["mean_wait"])
+                for name, m in default_traffic().items()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        in_path = s1.report("autoscale")
+        actions, o_waits, o_s = oracle.result()
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    trace = [a.replicas for a in adaptive.actions]
+    assert trace == rec["replica_trace"], (trace, rec["replica_trace"])
+    assert adaptive.shed == rec["adaptive"]["shed"]
+    rows = [("adaptive", adaptive, rec["adaptive"]),
+            ("clairvoyant", clair, rec["clairvoyant"])]
+    for (R, rt, r), row in zip(statics, rec["static_grid"]):
+        assert (row["replicas"], row["router"]) == (R, rt), (row, R, rt)
+        rows.append((f"static R={R} {rt}", r, row))
+    deltas = {}
+    for name, got, want in rows:
+        d_obj = rel(got.objective, want["objective"])
+        d_wait = rel(got.mean_wait, want["mean_wait"])
+        assert d_obj <= 1e-6 and d_wait <= 1e-6, (name, d_obj, d_wait)
+        deltas[name] = (d_obj, d_wait)
+        log(f"8e {name}: objective {got.objective:.6f} (record "
+            f"{want['objective']:.6f}, rel. delta {d_obj:.2e}), mean wait "
+            f"{got.mean_wait:.6f} s (record {want['mean_wait']:.6f}, rel. "
+            f"delta {d_wait:.2e}), average replicas {got.avg_replicas:.4f}")
+    best = min(r.objective for _, _, r in statics)
+    assert adaptive.objective < best, (adaptive.objective, best)
+    regret = adaptive.objective - clair.objective
+    assert np.isfinite(regret) and abs(regret) < best
+    for name, w in sweep.items():
+        want = next(r["mean_wait"] for r in rec["traffic_sweep"]
+                    if r["traffic"] == name)
+        assert rel(w, want) <= 1e-6, (name, w, want)
+    assert sweep["sinusoid"] > sweep["stationary"]
+    log(f"8e traffic sweep (least_work, R = 4, 16,000 requests): "
+        f"{', '.join(f'{k} {v:.6f} s' for k, v in sweep.items())}, each within "
+        f"1e-6 of the record")
+    # the adaptive run against the port's oracle twin
+    assert [dataclasses.astuple(a) for a in adaptive.actions] == actions, \
+        "the card's actions differ from the oracle's"
+    diff = float(np.nanmax(np.abs(adaptive.waits - o_waits)))
+    assert np.array_equal(np.isnan(adaptive.waits), np.isnan(o_waits))
+    assert diff <= 1e-9, diff
+    bit = np.array_equal(adaptive.waits, o_waits, equal_nan=True)
+    log(f"8e adaptive vs the oracle (fast=False, a host process, "
+        f"{o_s:.1f} s): actions equal over {len(actions)} windows, largest "
+        f"wait difference {diff:.3e} s, bit-equal: {bit}")
+    share = in_path["total_ms"] / 1e3 / wall
+    log(f"8e replica trace {trace} (as recorded); adaptive objective "
+        f"{adaptive.objective:.4f} < best static {best:.4f}, clairvoyant "
+        f"{clair.objective:.4f}, regret {regret:.4f}; the control runs "
+        f"{t_ctrl:.2f} s, the path {wall:.2f} s on the host's clock, "
+        f"{in_path['launches']} S1 launches {in_path['total_ms']:.1f} ms of "
+        f"it ({100 * share:.1f}%); launches {launches}")
+    return launches, {"launches": in_path["launches"],
+                      "total_ms": in_path["total_ms"], "wall_s": wall,
+                      "deltas": deltas}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2682,6 +2990,9 @@ def main() -> int:
     paths["serving under a KV budget"] = serve_memory(engine, reqs)
     log(f"phase 4m (serving under a KV budget) took "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["dense families"], dense = serve_dense(ecfg, reqs)
+    log(f"phase 4d (the dense families) took {time.perf_counter() - t0:.1f} s")
     del engine
     torch.cuda.empty_cache()
     paths["launcher"] = serve_launcher(dev)
@@ -2700,6 +3011,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["tandem simulators"], s7 = run_tandem_sims(dev)
     log(f"phase 8d (tandem simulators) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["autoscale"], s1_autoscale = run_autoscale_sims(dev)
+    log(f"phase 8e (the closed-loop autoscaler) took "
+        f"{time.perf_counter() - t0:.1f} s")
     kernels.append(s7)
     kernels.append(s6)
     next(k for k in kernels if k["name"] == "fused_rmsnorm")[
@@ -2712,7 +3027,11 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "wait_scan")["sweep_noise"] = \
         noise_s4
     next(k for k in kernels if k["name"] == "batch_scan")["in_path"] = \
-        {"fleet simulators": s1_path}
+        {"fleet simulators": s1_path, "autoscale": s1_autoscale}
+    for k in kernels:
+        if k["name"] in SERVING_KERNELS:
+            k["dense_families"] = {arch: row["launches"][k["name"]]
+                                   for arch, row in dense.items()}
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in paths.items()}

@@ -1,5 +1,5 @@
-"""Adaptive control plane: a copy of ``repro.core.control``'s
-``AdaptiveController``.
+"""Adaptive control plane: a copy of ``repro.core.control``, the
+``AdaptiveController`` and the closed-loop ``simulate_controlled``.
 
 ``AdaptiveController`` watches the live request stream (arrival times,
 completed output-token counts), maintains an empirical output-token
@@ -37,15 +37,20 @@ configuration from the paper's models:
                  throttled to a fixed batch
 
 The serving loop polls ``recommendation()`` between batches; hysteresis
-avoids thrashing.  The closed-loop ``simulate_controlled`` is not ported
-yet (ROADMAP.md M7e).
+avoids thrashing.  ``simulate_controlled`` closes the loop on the
+simulators: a windowed fleet whose replicas, router, bin edges and shed
+probability the controller re-picks between windows, each window's
+replicas run on the policy's kernel (``fast=True``, on ``device``) or on
+the NumPy oracle.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.core.bulk import optimal_fixed_batch, optimize_bin_edges
 from repro_torch.core.distributions import EmpiricalTokens, TokenDistribution
@@ -315,3 +320,347 @@ class AdaptiveController:
             rec = dataclasses.replace(rec, bin_edges=edges)
         self._last = rec
         return rec
+
+
+# ----------------------------------------------------------------------------
+# Closed-loop time-sliced control: the controller ACTS
+# ----------------------------------------------------------------------------
+#
+# ``simulate_controlled`` slices the run into fixed-length windows; after
+# each window the controller ingests the window's realized arrivals and
+# completions and re-picks the next window's serving configuration:
+# ``replicas`` (clamped to powers of two), ``router``, ``bin_edges``
+# (multibin) and ``shed_prob``, from the same analytic laws
+# ``recommendation()`` uses.
+#
+# Replica carry across windows rides a SYNTHETIC head request: a replica
+# still busy at the window boundary W (busy-until f > W) is modeled by
+# prepending a request at W with token count l0 = (f - W - c)/a (single
+# law S(n) = a n + c, so its solo service time is exactly f - W).  For
+# every carry-safe policy an idle server starts its earliest arrival
+# ALONE (``_DynamicFormation`` semantics; SRPT's idle start caps at one;
+# multibin picks the synthetic's bin: it is the sole head), so the
+# synthetic occupies the server precisely over the carried interval and
+# the real requests queue behind it.  When f - W <= c the residual is
+# below one prefill and is dropped (the server is treated as free), a
+# bounded approximation applied identically to the oracle and fast
+# runners, which therefore stay trajectory-equal.  A replica scaled DOWN
+# simply stops receiving work and drains its carry.
+
+_CARRY_SAFE = ("fcfs", "dynamic", "elastic", "multibin", "srpt")
+
+
+def pow2_replicas(r: int, max_replicas: int) -> int:
+    """Smallest power of two >= r, clamped to the largest power of two
+    <= max_replicas."""
+    if max_replicas < 1:
+        raise AssertionError(f"max_replicas must be >= 1, got {max_replicas}")
+    cap = 1
+    while cap * 2 <= max_replicas:
+        cap *= 2
+    p = 1
+    while p < max(r, 1):
+        p *= 2
+    return min(p, cap)
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowAction:
+    """The controller's decision for one window (equal seeds and
+    observations yield equal action sequences)."""
+    window: int
+    t0: float
+    t1: float
+    replicas: int
+    router: str
+    shed_prob: float = 0.0
+    bin_edges: Optional[tuple] = None
+
+
+@dataclasses.dataclass
+class ControlledResult:
+    """One closed-loop run.  ``objective`` is the cost-aware score the
+    regret benchmark compares: mean served wait + replica_cost * the
+    time-average replica count (+ shed_cost * shed fraction)."""
+    waits: np.ndarray            # per request; NaN where shed
+    lost: np.ndarray             # shed mask
+    actions: List[WindowAction]
+    windows: List[dict]
+    mean_wait: float
+    served: int
+    shed: int
+    avg_replicas: float
+    replica_cost: float
+    shed_cost: float
+    objective: float
+
+
+def _carry_backlog_assign(arrivals, work, R: int, v0, t0: float):
+    """The state-dependent routers' backlog recursion
+    (``fleet._backlog_assign_np``) seeded with each replica's residual
+    busy time at the window start; a host loop, as in the reference."""
+    v = np.asarray(v0, np.float64).copy()
+    t_prev = float(t0)
+    out = np.empty(len(arrivals), np.int64)
+    for i, (a, w) in enumerate(zip(arrivals, work)):
+        v = np.maximum(0.0, v - (a - t_prev))
+        t_prev = float(a)
+        r = int(np.argmin(v))
+        v[r] += w
+        out[i] = r
+    return out
+
+
+def _with_bin_edges(policy, bin_edges):
+    """Rebuild a multibin policy around the controller's re-picked
+    edges; every other policy ignores the knob."""
+    if bin_edges is None or policy.name != "multibin":
+        return policy
+    from repro_torch.core.policies import MultiBinPolicy
+    return MultiBinPolicy(edges=bin_edges, n_max=policy.n_max,
+                          b_max=policy.b_max, predictor=policy.predictor,
+                          bound_quantile=policy.bound_quantile)
+
+
+def _default_controller(lam: float, window: float, single, batch_lat,
+                        policy, max_replicas: int, kw: dict
+                        ) -> "AdaptiveController":
+    """Controller sized for windowed control: the arrival deque spans
+    roughly two windows so ``lam_hat`` tracks the modulation instead of
+    the long-run average."""
+    kw = dict(kw or {})
+    kw.setdefault("window", int(max(128, 2.0 * lam * window)))
+    kw.setdefault("min_samples", 32)
+    kw.setdefault("max_replicas", max_replicas)
+    kw.setdefault("elastic_available", policy.name == "elastic")
+    return AdaptiveController(single, batch_lat, **kw)
+
+
+def simulate_controlled(policy, lam: float, dist, lat, *, traffic=None,
+                        num_requests: int = 20_000, seed: int = 0,
+                        window: float = 200.0, max_replicas: int = 8,
+                        replica_cost: float = 0.0, shed_cost: float = 0.0,
+                        router_default: str = "round_robin",
+                        controller: Optional[AdaptiveController] = None,
+                        controller_kwargs: Optional[dict] = None,
+                        fixed: Optional[Tuple[int, str]] = None,
+                        clairvoyant: bool = False,
+                        candidate_routers: Sequence[str] = (
+                            "round_robin", "least_work"),
+                        fast: bool = True, device=None) -> ControlledResult:
+    """Time-sliced closed-loop fleet control over a (possibly modulated)
+    arrival stream: one driver, two runners (``fast``: the kernels on
+    ``device``, one launch a replica a window; else the NumPy oracle), so
+    both see identical actions and trajectory-equal waits.
+
+    Modes (mutually exclusive):
+      * adaptive (default)    ``AdaptiveController`` observes each window
+        and re-picks replicas/router/bin_edges/shed_prob for the next one;
+        actions are rng-free given the observations.
+      * ``fixed=(R, router)`` a static configuration run through the SAME
+        windowed machinery (the regret benchmark's baseline).
+      * ``clairvoyant=True``  per-window greedy oracle: every (power-of-two
+        R, candidate router) pair is simulated on the window's actual
+        arrivals from the current carry state and the cheapest (window
+        mean wait + replica_cost * R) is committed.
+
+    Windows run under ``no_warmup`` with replica busy-carry via the
+    synthetic-head construction above.  ``device`` is the fast runner's
+    (None: the card, and an error without one); the oracle takes none."""
+    from repro_torch.core.fastsim import simulate_policy_fast
+    from repro_torch.core.fleet import recommend_replicas, router_from_spec
+    from repro_torch.core.policies import Workload, single_from_batch
+    from repro_torch.core.simulate import no_warmup, simulate_policy
+    from repro_torch.core.traffic import (
+        _SHED_LANE, _traffic_rng, warp_workload)
+    from repro_torch.kernels import resolve_device
+
+    if policy.name not in _CARRY_SAFE:
+        raise AssertionError(
+            f"windowed carry needs idle-start-alone semantics, got "
+            f"{policy.name!r} (supported: {_CARRY_SAFE})")
+    if getattr(policy, "tau", None) is not None:
+        raise AssertionError(
+            "impatience is not supported in the windowed driver")
+    if fixed is not None and clairvoyant:
+        raise AssertionError("fixed= and clairvoyant= are exclusive")
+    if not (window > 0.0 and max_replicas >= 1):
+        raise AssertionError(f"window {window}, max_replicas {max_replicas}")
+
+    batch_lat = lat if isinstance(lat, BatchLatencyModel) else None
+    single = lat if isinstance(lat, LatencyModel) else single_from_batch(lat)
+    wl = policy.sample_workload(lam, dist, num_requests, seed)
+    wl = warp_workload(wl, traffic, seed)
+    arr, tok, pred = wl.arrivals, wl.tokens, wl.predicted
+    n = len(arr)
+    work = np.asarray(single.service_time(wl.predicted_or_true), np.float64)
+    horizon = float(arr[-1]) if n else window
+    n_windows = int(horizon // window) + 1
+
+    adaptive = fixed is None and not clairvoyant
+    if adaptive:
+        if batch_lat is None or dist is None:
+            raise AssertionError(
+                "adaptive control needs a BatchLatencyModel and a dist")
+        if controller is None:
+            controller = _default_controller(lam, window, single, batch_lat,
+                                             policy, max_replicas,
+                                             controller_kwargs)
+        r0 = pow2_replicas(recommend_replicas(
+            lam, dist, batch_lat,
+            target_util=controller.replica_target_util,
+            max_replicas=max_replicas), max_replicas)
+        cur = (r0, router_default, 0.0, None)
+    elif fixed is not None:
+        R_fix = pow2_replicas(int(fixed[0]), max_replicas)
+        cur = (R_fix, str(fixed[1]), 0.0, None)
+    else:
+        cand_R = []
+        p = 1
+        while p <= max_replicas:
+            cand_R.append(p)
+            p *= 2
+        cur = (cand_R[0], str(candidate_routers[0]), 0.0, None)
+
+    if fast:
+        device = resolve_device(device)
+
+        def sim(pol, workload):
+            return simulate_policy_fast(pol, lam, dist, lat,
+                                        workload=workload, device=device)
+    else:
+        def sim(pol, workload):
+            return simulate_policy(pol, lam, dist, lat, workload=workload)
+
+    def _run_window(idx: np.ndarray, t0: float, R: int, router_name: str,
+                    bin_edges, free: np.ndarray):
+        """Route + simulate one window's requests on R active replicas
+        from carry state ``free`` (absolute busy-until per slot, copied
+        here: a clairvoyant window tries every pair from the same carry).
+        Returns (per-request waits, new free array)."""
+        free = free.copy()
+        if not len(idx):
+            return np.zeros(0), free
+        a_w, w_w = arr[idx], work[idx]
+        router = router_from_spec(router_name)
+        if R == 1:
+            rep = np.zeros(len(idx), np.int64)
+        elif router.state_dependent:
+            rep = _carry_backlog_assign(
+                a_w, router._work_units(w_w), R,
+                np.maximum(free[:R] - t0, 0.0), t0)
+        else:
+            rep = np.asarray(router.assign(a_w, w_w, R, (seed, len(idx))),
+                             np.int64)
+        pol_w = _with_bin_edges(policy, bin_edges)
+        lat_eff = single if pol_w.uses_single_latency else lat
+        waits_w = np.empty(len(idx))
+        for r in range(R):
+            mask = rep == r
+            if not mask.any():
+                continue
+            ai = a_w[mask]
+            ti = tok[idx][mask]
+            pi = None if pred is None else pred[idx][mask]
+            syn = free[r] - t0 > single.c + 1e-12
+            if syn:
+                t_s = t0 - 1e-9
+                l0 = (free[r] - t_s - single.c) / single.a
+                ai = np.concatenate(([t_s], ai))
+                ti = np.concatenate(([l0], ti))
+                if pi is not None:
+                    pi = np.concatenate(([l0], pi))
+            sub = Workload(arrivals=ai, tokens=ti,
+                           inter=np.diff(ai, prepend=0.0), predicted=pi)
+            with no_warmup():
+                res = sim(pol_w, sub)
+            w_all = np.asarray(res["waits"], np.float64)
+            starts = ai + w_all
+            # busy-until = end of the LAST batch (serial server): members
+            # share a start; 1e-6 absorbs float reconstruction noise
+            # (real batch gaps are >= one prefill, orders larger)
+            s_last = float(starts.max())
+            members = ti[np.abs(starts - s_last)
+                         <= 1e-6 * max(1.0, abs(s_last))]
+            free[r] = s_last + float(pol_w.batch_time(members, lat_eff))
+            waits_w[mask] = w_all[1:] if syn else w_all
+        return waits_w, free
+
+    free = np.zeros(max_replicas)
+    waits = np.full(n, np.nan)
+    lost = np.ones(n, bool)
+    actions: List[WindowAction] = []
+    windows: List[dict] = []
+    rep_time = 0.0
+
+    for w_i in range(n_windows):
+        t0, t1 = w_i * window, (w_i + 1) * window
+        lo = int(np.searchsorted(arr, t0, side="left"))
+        hi = int(np.searchsorted(arr, t1, side="left"))
+        idx = np.arange(lo, hi)
+
+        if clairvoyant:
+            best = None
+            for R_c in cand_R:
+                for rt in candidate_routers:
+                    w_c, f_c = _run_window(idx, t0, int(R_c), str(rt),
+                                           None, free)
+                    mw = float(w_c.mean()) if len(w_c) else 0.0
+                    score = mw + replica_cost * R_c
+                    if best is None or score < best[0] - 1e-12:
+                        best = (score, int(R_c), str(rt), w_c, f_c)
+            _, R_w, rt_w, waits_w, free_new = best
+            shed_p, edges_w = 0.0, None
+            adm = idx
+        else:
+            R_w, rt_w, shed_p, edges_w = cur
+            adm = idx
+            if shed_p > 0.0 and len(idx):
+                keep = _traffic_rng(seed, _SHED_LANE, w_i
+                                    ).random(len(idx)) >= shed_p
+                adm = idx[keep]
+            waits_w, free_new = _run_window(adm, t0, R_w, rt_w, edges_w,
+                                            free)
+
+        actions.append(WindowAction(w_i, t0, t1, R_w, rt_w, shed_p,
+                                    edges_w))
+        if len(adm):
+            waits[adm] = waits_w
+            lost[adm] = False
+        free = free_new
+        dur = max(min(t1, horizon) - t0, 0.0) or (t1 - t0)
+        rep_time += R_w * dur
+        backlog = float(np.maximum(free - t1, 0.0).sum())
+        windows.append({
+            "window": w_i, "t0": t0, "t1": t1, "replicas": R_w,
+            "router": rt_w, "shed_prob": shed_p,
+            "arrived": int(len(idx)), "shed": int(len(idx) - len(adm)),
+            "mean_wait": float(waits_w.mean()) if len(waits_w) else 0.0,
+            "backlog": backlog,
+        })
+
+        if adaptive:
+            for a in arr[idx]:
+                controller.observe_arrival(float(a))
+            # completions in arrival order, as the reference feeds them
+            for t in tok[adm]:
+                controller.observe_completion(int(t))
+            rec = controller.recommendation()
+            if rec.details.get("reason") != "warmup":
+                cur = (pow2_replicas(max(rec.replicas, 1), max_replicas),
+                       rec.router or router_default,
+                       float(rec.shed_prob),
+                       rec.bin_edges if policy.name == "multibin" else None)
+
+    served = int((~lost).sum())
+    shed = int(n - served)
+    mean_wait = float(waits[~lost].mean()) if served else 0.0
+    total_t = max(n_windows * window, 1e-12)
+    avg_rep = rep_time / total_t
+    objective = (mean_wait + replica_cost * avg_rep
+                 + shed_cost * (shed / max(n, 1)))
+    return ControlledResult(
+        waits=waits, lost=lost, actions=actions, windows=windows,
+        mean_wait=mean_wait, served=served, shed=shed,
+        avg_replicas=float(avg_rep), replica_cost=float(replica_cost),
+        shed_cost=float(shed_cost), objective=float(objective))

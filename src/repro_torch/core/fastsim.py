@@ -62,8 +62,12 @@ non-elastic ``batch_scan`` lane) runs the tandem as kernel S7
 (``kernels/tandem_scan``), with or without a fault trace; elastic and the
 batch-event policies (fixed, multi-bin, WAIT, SRPT) run the tandem oracle on
 the host, as the reference dispatches them (their per-request releases and
-non-contiguous batches have no compiled twin there either).  Not ported
-yet: ``run_controlled`` (M7e), ``lane_scan=`` and ``srpt_loop=`` (M9).
+non-contiguous batches have no compiled twin there either).
+
+Closed-loop control (``run_controlled``) runs
+:func:`repro_torch.core.control.simulate_controlled` on these kernels: one
+``simulate_policy_fast`` a replica a window.  Not ported yet:
+``lane_scan=`` and ``srpt_loop=`` (M9).
 """
 
 from __future__ import annotations
@@ -829,3 +833,15 @@ def simulate_fleet_fast(router, policy: BatchPolicy, lam: float, R: int,
                                          memory=memory, device=device)
                     for wl in wls]
     return run_fleet(fw, policy, lat, dist, run)
+
+
+def run_controlled(policy, lam, dist, lat, **kw):
+    """Closed-loop time-sliced control on the fast path: the kernels run
+    every window (one launch a replica a window, on ``device=``), the
+    controller re-picks replicas / router / bin_edges / shed_prob between
+    windows.  Thin wrapper over
+    :func:`repro_torch.core.control.simulate_controlled` with
+    ``fast=True`` (pass ``fast=False`` there for the oracle twin)."""
+    from repro_torch.core.control import simulate_controlled
+    kw.setdefault("fast", True)
+    return simulate_controlled(policy, lam, dist, lat, **kw)

@@ -24,21 +24,27 @@
 //           tensor cores would take fp32 only as TF32 (about three decimal
 //           digits), outside the 2e-5 band the fp32 model is held to.
 //
-// bf16 design (flash_attention_wgmma_kernel).  One block per (8 query
-// positions, KV head, request): its 64 rows are the 8 positions x the G = 8
-// query heads that share the KV head, so each K/V tile serves all 8 heads
-// (GQA without expanding K/V).  One consumer warpgroup owns the 64 rows; a
-// fifth warp is the producer.
+// Instantiated for the (G, D) pairs the repo's configs give it: (8, 128)
+// (qwen2.5-3b, yi-9b), (2, 128) (internlm2-1.8b) and (1, 256) (gemma-7b).
+//
+// bf16 design (flash_attention_wgmma_kernel<G, D>).  One block per (P =
+// 64 / G query positions, KV head, request): its 64 rows are the P
+// positions x the G query heads that share the KV head, so each K/V tile
+// serves all G heads (GQA without expanding K/V); row r is position q0 +
+// r / G of head r % G.  A consumer warpgroup owns the 64 rows and 128 of
+// O's D columns (one at D = 128, two at D = 256: each computes the whole
+// score tile and its own half of P.V, so O stays at 64 fp32 registers a
+// thread); one more warp is the producer.
 //   - K/V tiles of 64 keys arrive by TMA (cuTensorMapEncodeTiled, reached
 //     through cudaGetDriverEntryPoint so the library needs no -lcuda) into
 //     a ring of 2 stages in shared memory, with a full and an empty
 //     mbarrier per stage, so the copy of tile t + 1 overlaps the products
-//     on tile t.  Each tile is four boxes of 64 keys x 64 bf16 (128 bytes)
-//     in the 128-byte swizzle, two per 128-wide row.  Keys at or past S
-//     come in as zeros and are masked.
+//     on tile t.  Each tile is 2 * D / 64 boxes of 64 keys x 64 bf16 (128
+//     bytes) in the 128-byte swizzle, D / 64 per row of K and of V.  Keys
+//     at or past S come in as zeros and are masked.
 //   - q is staged once, by the consumers, into the same swizzled layout.
-//   - S = Q.K^T: 8 wgmma m64n64k16, Q and K from shared memory (K-major
-//     descriptors), fp32 accumulators in registers.
+//   - S = Q.K^T: D / 16 wgmma m64n64k16, Q and K from shared memory
+//     (K-major descriptors), fp32 accumulators in registers.
 //   - fp32 online softmax on those registers (m, l and the rescale of O),
 //     in the log2 domain; a masked score is -inf and adds exactly zero.
 //   - O += P.V: P in registers is the A operand (the accumulator layout of
@@ -47,18 +53,21 @@
 //     2^-9 of each weight, which put an output outside the 4e-3 + 8e-3
 //     band of the fp32 softmax it is held to; hi + lo errs by about 2^-17.
 //     V from shared memory through MN-major descriptors.  16 wgmma
-//     m64n64k16 (4 key steps x 2 halves of D x hi, lo), so the tensor
-//     cores do 1.5x the flops of S and P.V.
+//     m64n64k16 a warpgroup (4 key steps x its 2 halves of D x hi, lo), so
+//     the tensor cores do 1.5x the flops of S and P.V at D = 128 (2x at D =
+//     256, where both warpgroups compute S).
 //   - The key loop runs from the window's lower edge to the causal
 //     diagonal of the block's last position, so masked tiles are never
 //     loaded; any S (the ragged tail is masked, no block multiple);
 //     blocks are issued last position first, so the longest start first.
-//   - 160 threads, 82,976 bytes of dynamic shared memory: two blocks per
-//     SM, so one block's copies and softmax overlap the other's products.
-//     It was chosen over 16 positions x two warpgroups (a 3-stage ring,
-//     one block per SM) after a trial build of both on the H100 (PERF.md).
-//     ptxas -v (nvcc 12.9, sm_90a): 153 registers, 0 bytes of spill
-//     stores or loads, 2 barriers.
+//   - D = 128: 160 threads, 82,976 bytes of dynamic shared memory: two
+//     blocks per SM, so one block's copies and softmax overlap the other's
+//     products.  It was chosen over 16 positions x two warpgroups (a
+//     3-stage ring, one block per SM) after a trial build of both on the
+//     H100 (PERF.md).  ptxas -v (nvcc 12.9, sm_90a) at (8, 128): 153
+//     registers, 0 bytes of spill stores or loads, 2 barriers.  D = 256:
+//     288 threads, 164,896 bytes, one block per SM.  chip_smoke prints
+//     every instance.
 
 #include <cuda.h>   // CUtensorMap and its enums; the function comes from the runtime
 #include <cuda_runtime.h>
@@ -81,14 +90,14 @@ struct Strides {
 // positions, KV head, request): its 64 rows are the G query heads that
 // share the KV head, for P positions.  Four threads own one row: each
 // holds a quarter of the query row and of the fp32 accumulator in
-// registers, and two shuffles finish each dot product.  K/V tiles of 32
-// positions are staged through shared memory.
+// registers, and two shuffles finish each dot product.  K/V tiles of 4096
+// / D positions (32 at D = 128, 16 at D = 256: 32 KB of static shared
+// memory either way) are staged through shared memory.
 
 constexpr float kNegInf = -1e30f;
 constexpr int kRows = 64;      // query rows per block (P positions x G heads)
 constexpr int kTpr = 4;        // threads per row
 constexpr int kThreads = kRows * kTpr;
-constexpr int kBk = 32;        // keys per K/V tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 
@@ -111,7 +120,8 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int P = kRows / G;            // query positions per block
   constexpr int NCH = D / (4 * kTpr);     // 4-element stripes per thread
   constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte load
-  static_assert(kRows % G == 0 && D % (4 * kTpr) == 0 && D % VEC == 0, "shape");
+  constexpr int kBk = 4096 / D;           // keys per K/V tile
+  static_assert(kRows % G == 0 && D % (4 * kTpr) == 0 && D % VEC == 0 && kBk <= 32, "shape");
   __shared__ __align__(16) float ks_tile[kBk][D];
   __shared__ __align__(16) float vs_tile[kBk][D];
 
@@ -250,21 +260,30 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, Strides 
 
 namespace tc {
 
-constexpr int G = 8, D = 128;          // the (G, D) pair it is written for
 constexpr int BK = 64;                 // keys per K/V tile
 constexpr int HALF = 64;               // bf16 in one 128-byte swizzled row
 constexpr int KV_BOX_BYTES = BK * HALF * 2;          // 8 KB: one TMA box
-constexpr int STAGE_BYTES = 4 * KV_BOX_BYTES;        // K0 K1 V0 V1
-
-// one consumer warpgroup of 64 rows (8 positions x G heads) and the
-// producer warp; with a 2-stage ring two blocks fit on an SM
-constexpr int P = 8;                   // query positions per block
-constexpr int ROWS = P * G;            // 64: one warpgroup
+constexpr int ROWS = 64;               // query rows per block: one warpgroup's M
 constexpr int STAGES = 2;              // K/V ring depth
-constexpr int CONSUMERS = 128;
-constexpr int THREADS = CONSUMERS + 32;
 constexpr int Q_HALF_BYTES = ROWS * HALF * 2;        // 8 KB
-constexpr int SMEM_BYTES = 1024 + 2 * Q_HALF_BYTES + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+
+// the block of the (G, D) instance: P positions x G heads = 64 rows; one
+// consumer warpgroup per 128 columns of O and the producer warp; at D =
+// 128 two blocks fit on an SM
+template <int G, int D>
+struct Cfg {
+  static constexpr int P = ROWS / G;                 // query positions per block
+  static constexpr int NH = D / HALF;                // 64-wide halves of D
+  static constexpr int WGS = D / 128;                // consumer warpgroups
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;
+  static constexpr int STAGE_BYTES = 2 * NH * KV_BOX_BYTES;   // K halves, then V halves
+  static constexpr int SMEM_BYTES =
+      1024 + NH * Q_HALF_BYTES + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  static constexpr int MIN_BLOCKS = WGS == 1 ? 2 : 1;
+  static_assert(ROWS % G == 0 && 8 % G == 0 && D % 128 == 0, "shape");
+  static_assert(SMEM_BYTES <= 232448, "shared memory");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -393,8 +412,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // ---- one K/V tile, per warpgroup ----
 
-// S = Q . K^T over D = 128 (issued, not waited): 8 k-steps of 16, two
-// 64-wide swizzled halves of Q and K
+// S = Q . K^T over D (issued, not waited): D / 16 k-steps of 16, D / 64
+// swizzled 64-wide halves of Q and K
+template <int D>
 __device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t sq, uint32_t kv) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -404,24 +424,28 @@ __device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t sq, uint32
   }
 }
 
-// O += P . V (issued, not waited): 4 key steps of 16 keys (2048 bytes of V
-// rows each) x the two 64-wide halves of D x the hi and lo terms of P
+// O += P . V (issued, not waited) over this warpgroup's 128 columns: 4
+// key steps of 16 keys (2048 bytes of V rows each) x its two 64-wide
+// halves of D (halves 2 wg and 2 wg + 1; V's halves follow K's D / 64) x
+// the hi and lo terms of P
+template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[2][32], const uint32_t (&ph)[4][4],
-                                         const uint32_t (&pl)[4][4], uint32_t kv) {
+                                         const uint32_t (&pl)[4][4], uint32_t kv, int wg) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const uint64_t dv =
-          desc_sw128(kv + 2 * KV_BOX_BYTES + h * KV_BOX_BYTES + kk * 2048, KV_BOX_BYTES, 1024);
+      const uint64_t dv = desc_sw128(
+          kv + (D / HALF + 2 * wg + h) * KV_BOX_BYTES + kk * 2048, KV_BOX_BYTES, 1024);
       wgmma_rs(o[h], ph[kk], dv);
       wgmma_rs(o[h], pl[kk], dv);
     }
 }
 
-// what a thread needs to mask its two rows (positions pos0, pos0 + 1)
+// what a thread needs to mask its two rows (positions pos0 and pos1 of one
+// head: pos1 = pos0 + 1 at G = 8, pos0 + 4 at G = 2, pos0 + 8 at G = 1)
 struct Rows {
-  int pos0, col, S, causal, window, q0, q_last;
+  int pos0, pos1, col, S, causal, window, q0, q_last;
   float scale_log2;
 };
 
@@ -445,8 +469,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], int t0, const Rows&
         const bool in = key < r.S;
         if (!(in && (!r.causal || key <= r.pos0) && (r.window <= 0 || key > r.pos0 - r.window)))
           v0 = -INFINITY;
-        if (!(in && (!r.causal || key <= r.pos0 + 1) &&
-              (r.window <= 0 || key > r.pos0 + 1 - r.window)))
+        if (!(in && (!r.causal || key <= r.pos1) &&
+              (r.window <= 0 || key > r.pos1 - r.window)))
           v1 = -INFINITY;
       }
       s[4 * j + c] = v0;
@@ -468,7 +492,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], int t0, const Rows&
 
   // P as the A operand: key step kk covers accumulator columns 16 kk ..
   // 16 kk + 15, registers s[8 kk .. 8 kk + 7]; fragment register q holds
-  // row q % 2 (pos0, pos0 + 1) and columns + 8 * (q / 2)
+  // row q % 2 (pos0, pos1) and columns + 8 * (q / 2)
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -498,18 +522,22 @@ __device__ __forceinline__ void rescale(float (&o)[2][32], float alpha0, float a
 }
 
 // grid (ceil(S / P), Hkv, B); block THREADS; dynamic shared memory SMEM_BYTES
-__global__ void __launch_bounds__(THREADS, 2)
+template <int G, int D>
+__global__ void __launch_bounds__(Cfg<G, D>::THREADS, Cfg<G, D>::MIN_BLOCKS)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
                              const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
                              Strides qs, int S, int Hkv, int causal, int window,
                              float scale_log2) {
+  using C = Cfg<G, D>;
+  constexpr int P = C::P, NH = C::NH, CONSUMERS = C::CONSUMERS;
+  constexpr int STAGE_BYTES = C::STAGE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align every region to it
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint8_t* sq = smem;                                  // [2 halves][ROWS][64]
-  uint8_t* skv = smem + 2 * Q_HALF_BYTES;              // STAGES x [K0 K1 V0 V1]
+  uint8_t* sq = smem;                                  // [NH halves][ROWS][64]
+  uint8_t* skv = smem + NH * Q_HALF_BYTES;             // STAGES x [K halves, V halves]
   uint64_t* bars = reinterpret_cast<uint64_t*>(skv + STAGES * STAGE_BYTES);
   const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + STAGES);
 
@@ -541,16 +569,17 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
         const uint32_t dst = smem_u32(skv + st * STAGE_BYTES);
         const int t0 = lo + t * BK;
         mbar_expect_tx(full, STAGE_BYTES);
-        tma_load(dst, &kmap, full, 0, hk, t0, b);
-        tma_load(dst + KV_BOX_BYTES, &kmap, full, HALF, hk, t0, b);
-        tma_load(dst + 2 * KV_BOX_BYTES, &vmap, full, 0, hk, t0, b);
-        tma_load(dst + 3 * KV_BOX_BYTES, &vmap, full, HALF, hk, t0, b);
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          tma_load(dst + h * KV_BOX_BYTES, &kmap, full, h * HALF, hk, t0, b);
+          tma_load(dst + (NH + h) * KV_BOX_BYTES, &vmap, full, h * HALF, hk, t0, b);
+        }
       }
     }
     return;
   }
 
-  // ---- consumers: one warpgroup of 64 rows ----
+  // ---- consumers: WGS warpgroups over the same 64 rows ----
   // stage q: row r = position q0 + r / G, head hk * G + r % G; 16-byte
   // chunk c of a 128-byte row goes to chunk c ^ (r % 8) (the TMA swizzle)
   for (int idx = tid; idx < ROWS * (D / 8); idx += CONSUMERS) {
@@ -567,11 +596,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
 
-  const int warp = tid / 32, lane = tid % 32;
-  // this thread's two rows: 16 * warp + lane / 4 and that + 8, i.e.
-  // positions pos0 and pos0 + 1 of head hk * G + lane / 4
-  const int pos0 = q0 + 2 * warp;
-  const int head = hk * G + lane / 4;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  // this thread's two rows: r0 = 16 * warp + lane / 4 and r0 + 8, i.e.
+  // positions q0 + r0 / G and q0 + (r0 + 8) / G of one head, hk * G + r0 %
+  // G (8 is a multiple of G)
+  const int r0 = 16 * warp + lane / 4;
+  const int pos0 = q0 + r0 / G, pos1 = q0 + (r0 + 8) / G;
+  const int head = hk * G + r0 % G;
   const int col = 2 * (lane % 4);
 
   const uint32_t sq0 = smem_u32(sq);
@@ -581,7 +612,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
   for (int i = 0; i < 32; ++i) o[0][i] = o[1][i] = s[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
   uint32_t ph[4][4], pl[4][4];
-  const Rows rows{pos0, col, S, causal, window, q0, q_last, scale_log2};
+  const Rows rows{pos0, pos1, col, S, causal, window, q0, q_last, scale_log2};
 
   for (int t = 0; t < ntiles; ++t) {
     const int st = t % STAGES;
@@ -589,7 +620,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     mbar_wait(full0 + 8 * st, (t / STAGES) & 1);
     fence_regs(s);
     wgmma_fence();
-    issue_scores(s, sq0, kv);
+    issue_scores<D>(s, sq0, kv);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -598,7 +629,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     fence_regs(o[0]);
     fence_regs(o[1]);
     wgmma_fence();
-    issue_pv(o, ph, pl, kv);
+    issue_pv<D>(o, ph, pl, kv, wg);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o[0]);
@@ -618,10 +649,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
   const int Hq = Hkv * G;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int pos = pos0 + i;
+    const int pos = i ? pos1 : pos0;
     if (pos >= S) continue;
     const float inv = i ? inv1 : inv0;
-    __nv_bfloat16* op = out + (((long long)b * S + pos) * Hq + head) * D + col;
+    __nv_bfloat16* op = out + (((long long)b * S + pos) * Hq + head) * D + 128 * wg + col;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -658,7 +689,7 @@ EncodeTiled encode_fn() {
 
 // K or V [B, S, Hkv, D] as a 4-d map (D, head, position, batch) of boxes
 // (64, 1, BK, 1) in the 128-byte swizzle; rows past S read as zeros
-bool make_map(CUtensorMap* map, const void* base, Strides st, int B, int S, int Hkv) {
+bool make_map(CUtensorMap* map, const void* base, Strides st, int B, int S, int Hkv, int D) {
   EncodeTiled fn = encode_fn();
   if (!fn) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S, (cuuint64_t)B};
@@ -676,27 +707,30 @@ bool make_map(CUtensorMap* map, const void* base, Strides st, int B, int S, int 
 // error codes beside cudaGetLastError's: a tensor map that could not be made
 constexpr int kErrTensorMap = -2;
 
+template <int G, int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, Strides qs, Strides ks,
                  Strides vs, int B, int S, int Hkv, int causal, int window, cudaStream_t stream) {
+  using C = tc::Cfg<G, D>;
   CUtensorMap kmap, vmap;
-  if (!tc::make_map(&kmap, k, ks, B, S, Hkv) || !tc::make_map(&vmap, v, vs, B, S, Hkv))
+  if (!tc::make_map(&kmap, k, ks, B, S, Hkv, D) || !tc::make_map(&vmap, v, vs, B, S, Hkv, D))
     return kErrTensorMap;
-  // above 48 KB of dynamic shared memory a kernel must opt in, once per device
+  // above 48 KB of dynamic shared memory a kernel must opt in, once per
+  // device and instance
   static bool opted_in[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return -1;
   if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(tc::flash_attention_wgmma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
+    err = cudaFuncSetAttribute(tc::flash_attention_wgmma_kernel<G, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     opted_in[dev] = true;
   }
-  dim3 grid((S + tc::P - 1) / tc::P, Hkv, B);
-  tc::flash_attention_wgmma_kernel<<<grid, tc::THREADS, tc::SMEM_BYTES, stream>>>(
+  dim3 grid((S + C::P - 1) / C::P, Hkv, B);
+  tc::flash_attention_wgmma_kernel<G, D><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), qs, S,
-      Hkv, causal, window, (float)(1.4426950408889634 / sqrt((double)tc::D)));
+      Hkv, causal, window, (float)(1.4426950408889634 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
@@ -706,21 +740,29 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, Strides
 // in elements, (batch, position, head) for each of q, k, v.  window <= 0:
 // no sliding window.  Returns cudaGetLastError() after the launch, -1 for a
 // shape the kernels were not instantiated for, -2 if a TMA tensor map could
-// not be made.  Instantiated only for the (G, D) pair the repo's configs
-// give the kernel: qwen2.5-3b has G = 16 / 2 = 8 and D = 128.
+// not be made.  Instantiated only for the (G, D) pairs the repo's configs
+// give the kernel: (8, 128) for qwen2.5-3b (16 / 2 heads) and yi-9b (32 /
+// 4), (2, 128) for internlm2-1.8b (16 / 8) and (1, 256) for gemma-7b (16 /
+// 16).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                long long qsb, long long qss, long long qsh, long long ksb,
                                long long kss, long long ksh, long long vsb, long long vss,
                                long long vsh, int B, int S, int Hq, int Hkv, int D,
                                int causal, int window, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || B > 65535 || Hkv > 65535) return -1;
+  if (dtype != 0 && dtype != 1) return -1;
   const int G = Hq / Hkv;
-  if (G != 8 || D != 128) return -1;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_simt<float, 8, 128>(q, k, v, out, qs, ks, vs, B, S, Hkv, causal, window,
-                                      st);
-  if (dtype == 1) return launch_wgmma(q, k, v, out, qs, ks, vs, B, S, Hkv, causal, window, st);
+#define FLASH_LAUNCH(GG, DD)                                                                 \
+  if (G == GG && D == DD)                                                                    \
+    return dtype == 0 ? launch_simt<float, GG, DD>(q, k, v, out, qs, ks, vs, B, S, Hkv,      \
+                                                   causal, window, st)                       \
+                      : launch_wgmma<GG, DD>(q, k, v, out, qs, ks, vs, B, S, Hkv, causal,    \
+                                             window, st);
+  FLASH_LAUNCH(8, 128)
+  FLASH_LAUNCH(2, 128)
+  FLASH_LAUNCH(1, 256)
+#undef FLASH_LAUNCH
   return -1;
 }

@@ -15,30 +15,39 @@
 // sum_b lengths[b] * Hkv * D * 2 * sizeof(T) over 3.35 TB/s (8.3 MB,
 // 2.5 us at B = 16 with 8,123 live rows).  The G query rows of a KV head
 // reuse each loaded K/V row, so the arithmetic (4 * G * D flops a row)
-// stays far below the fp32 cores' rate at G = 8.  Reaching the bytes needs
-// enough blocks to fill 132 SMs and enough bytes in flight in each.
+// stays far below the fp32 cores' rate at every G.  Reaching the bytes
+// needs enough blocks to fill 132 SMs and enough bytes in flight in each.
+//
+// Instantiated for the (G, D) pairs the repo's configs give it: (8, 128)
+// (qwen2.5-3b, yi-9b), (2, 128) (internlm2-1.8b) and (1, 256) (gemma-7b),
+// in fp32 and bf16.
 //
 // Design: two kernels, launched one after the other by the C entry point.
-//   ragged_decode_split_kernel, grid (splits, Hkv, B), 128 threads.  The
+//   ragged_decode_split_kernel, grid (splits, Hkv, B), 32 * min(G, 4)
+//   threads: a warp owns G / min(G, 4) whole heads (2 at G = 8, 1 at G =
+//   2 and G = 1), so no warp shares a head and no cross-warp combine is
+//   needed; a smaller G runs smaller blocks, more of them on an SM.  The
 //   host picks `splits` from B, Hkv and S alone (ops.py split_count, about
 //   2 x 132 blocks), never from lengths, which live on the device.  Each
 //   block reads lengths[b] itself and takes positions
 //   [split * c, min((split + 1) * c, lengths[b])) with c = ceil(lengths[b] /
 //   splits).  Its share arrives in tiles of TP positions (32 in bf16, 16 in
-//   fp32) through a two-stage cp.async ring in shared memory, 16-byte
-//   copies, rows past the share never requested.  Warp w owns heads 2w and
-//   2w + 1: lane j scores position j of the tile against both (q in fp32
-//   in shared memory), the warp takes the tile's max once, rescales its
-//   accumulators once and adds p . V with each lane holding 4 of the D
-//   columns.  Each block writes its fp32 (m, l, acc[G][D]) to scratch; an
+//   fp32 at D = 128; half that at D = 256, so that the ring stays in 48 KB
+//   of static shared memory) through a two-stage cp.async ring, 16-byte
+//   copies, rows past the share never requested.  Lane j scores position j
+//   of the tile against the warp's heads (q in fp32 in shared memory), the
+//   warp takes the tile's max once, rescales its accumulators once and adds
+//   p . V with each lane holding D / 32 of the columns, 4 in each 128-wide
+//   slice (neighbouring lanes on neighbouring addresses).  Each block
+//   writes its fp32 (m, l, acc[G][D]) to scratch; an
 //   empty share writes m = -inf, l = 0 and no acc.
 //   ragged_decode_combine_kernel, grid (Hkv, B), G * D / 4 threads, merges
 //   the splits as ref.py merge_partials does: the largest split max, then
 //   the rescaled sums in split order.  No atomics: the output is the same,
 //   bit for bit, from run to run, and any S works.
-//   ptxas -v (nvcc 12.9, sm_90a), split kernel: 91 registers and 38,912
-//   bytes of shared memory in bf16, 80 and 37,888 in fp32; combine: 32
-//   registers; no spills.
+//   ptxas -v (nvcc 12.9, sm_90a), split kernel at (8, 128): 91 registers
+//   and 38,912 bytes of shared memory in bf16, 80 and 37,888 in fp32;
+//   combine: 32 registers; no spills.  chip_smoke prints every instance.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -46,10 +55,10 @@
 
 namespace {
 
-// warp w owns heads w * G / kWarps ..; 4 warps rather than 8 after a trial
-// build of both on the H100 (PERF.md)
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+// at G >= 4 a block is kMaxWarps warps, warp w owning heads w * G /
+// kMaxWarps ..; 4 warps rather than 8 after a trial build of both on the
+// H100 (PERF.md)
+constexpr int kMaxWarps = 4;
 
 // VEC = 16 / sizeof(T) elements of one 16-byte load -> fp32
 __device__ __forceinline__ void unpack(const uint4& raw, float (&o)[4]) {
@@ -116,27 +125,32 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 template <typename T, int G, int D>
 struct Split {
-  static constexpr int TP = sizeof(T) == 2 ? 32 : 16;   // positions per tile
+  static constexpr int WARPS = G < kMaxWarps ? G : kMaxWarps;
+  static constexpr int THREADS = 32 * WARPS;
+  // positions per tile: 32 in bf16, 16 in fp32 at D = 128, fewer at a
+  // wider D
+  static constexpr int TP = (sizeof(T) == 2 ? 32 : 16) * 128 / D;
   static constexpr int VEC = 16 / sizeof(T);            // elements per 16-byte copy
   static constexpr int ROW = D + VEC;                   // smem row, padded 16 bytes
   static constexpr int TILE = TP * ROW;                 // elements of one K or V tile
-  static constexpr int HPW = G / kWarps;                // heads per warp
-  static constexpr int DPL = D / 32;                    // columns per lane in p . V
+  static constexpr int HPW = G / WARPS;                 // heads per warp
+  static constexpr int SL = D / 128;                    // 128-column slices in p . V
   static constexpr int SMEM = G * D * 4 + 2 * 2 * TILE * sizeof(T);
-  static_assert(G % kWarps == 0 && D % 32 == 0 && DPL == 4 && D % VEC == 0, "shape");
+  static_assert(G % WARPS == 0 && D % 128 == 0 && TP >= 1 && TP <= 32, "shape");
   static_assert(SMEM <= 48 * 1024, "static shared memory");
 };
 
-// grid (splits, Hkv, B); block kThreads.  part_ml [B, Hkv, splits, G, 2]
-// holds (m, l) in the log2 domain; part_acc [B, Hkv, splits, G, D].
+// grid (splits, Hkv, B); block Split::THREADS.  part_ml [B, Hkv, splits,
+// G, 2] holds (m, l) in the log2 domain; part_acc [B, Hkv, splits, G, D].
 template <typename T, int G, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Split<T, G, D>::THREADS)
 ragged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const int* __restrict__ lengths,
                            float* __restrict__ part_ml, float* __restrict__ part_acc, int S,
                            int Hkv, float scale_log2) {
   using C = Split<T, G, D>;
   constexpr int TP = C::TP, VEC = C::VEC, ROW = C::ROW, TILE = C::TILE, HPW = C::HPW;
+  constexpr int SL = C::SL, kThreads = C::THREADS;
   __shared__ __align__(16) float sq[G * D];
   __shared__ __align__(16) T skv[2][2][TILE];   // [stage][K, V][TP rows of ROW]
 
@@ -185,13 +199,15 @@ ragged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       *reinterpret_cast<float4*>(sq + i + e) = make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
   }
 
-  float m[HPW], lp[HPW], acc[HPW][4];
+  float m[HPW], lp[HPW], acc[HPW][SL][4];
 #pragma unroll
   for (int i = 0; i < HPW; ++i) {
     m[i] = -INFINITY;
     lp[i] = 0.f;   // this lane's part of l
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int c = 0; c < SL; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
   }
 
   for (int t = 0; t < ntiles; ++t) {
@@ -234,18 +250,23 @@ ragged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       p[i] = exp2f(s - m_new);
       lp[i] = lp[i] * alpha + p[i];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
+      for (int c = 0; c < SL; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
       m[i] = m_new;
     }
-    // acc += p . V: lane owns columns 4 * lane .. 4 * lane + 3
+    // acc += p . V: lane owns columns 128 c + 4 * lane .. + 3 of each slice c
     for (int j = 0; j < n; ++j) {
-      float vf[4];
-      load4(vt + j * ROW + 4 * lane, vf);
+      float vf[SL][4];
+#pragma unroll
+      for (int c = 0; c < SL; ++c) load4(vt + j * ROW + 128 * c + 4 * lane, vf[c]);
 #pragma unroll
       for (int i = 0; i < HPW; ++i) {
         const float pj = __shfl_sync(0xffffffffu, p[i], j);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] += pj * vf[e];
+        for (int c = 0; c < SL; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][c][e] += pj * vf[c][e];
       }
     }
     __syncthreads();   // every warp is done with this stage
@@ -261,7 +282,8 @@ ragged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ml[2 * g] = m[i];
       ml[2 * g + 1] = l;
     }
-    store4(pacc + g * D + 4 * lane, acc[i]);
+#pragma unroll
+    for (int c = 0; c < SL; ++c) store4(pacc + g * D + 128 * c + 4 * lane, acc[i][c]);
   }
 }
 
@@ -304,7 +326,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
            float* scratch, int B, int S, int Hkv, int splits, cudaStream_t stream) {
   float* part_ml = scratch;
   float* part_acc = scratch + (size_t)B * Hkv * splits * G * 2;
-  ragged_decode_split_kernel<T, G, D><<<dim3(splits, Hkv, B), kThreads, 0, stream>>>(
+  ragged_decode_split_kernel<T, G, D><<<dim3(splits, Hkv, B), Split<T, G, D>::THREADS, 0,
+                                        stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(lengths), part_ml, part_acc, S, Hkv,
       (float)(1.4426950408889634 / sqrt((double)D)));
@@ -320,19 +343,29 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
 // dtype: 0 = float32, 1 = bfloat16.  scratch: B * Hkv * splits * G *
 // (D + 2) floats, 16-byte aligned (the wrapper allocates it).  Returns
 // cudaGetLastError() after the launches, or -1 for a shape the kernels were
-// not instantiated for.  Instantiated only for the (G, D) pair the repo's
-// configs give the kernel: qwen2.5-3b has G = 16 / 2 = 8 and D = 128.
+// not instantiated for.  Instantiated only for the (G, D) pairs the repo's
+// configs give the kernel: (8, 128) for qwen2.5-3b (16 / 2 heads) and
+// yi-9b (32 / 4), (2, 128) for internlm2-1.8b (16 / 8) and (1, 256) for
+// gemma-7b (16 / 16).
 extern "C" int ragged_decode_attention(const void* q, const void* k, const void* v,
                                        const void* lengths, void* out, void* scratch, int B,
                                        int S, int Hq, int Hkv, int D, int splits, int dtype,
                                        void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || splits <= 0 || B > 65535 || Hkv > 65535 ||
-      splits > 65535 || Hq / Hkv != 8 || D != 128)
+      splits > 65535 || (dtype != 0 && dtype != 1))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(scratch);
-  if (dtype == 0) return launch<float, 8, 128>(q, k, v, lengths, out, part, B, S, Hkv, splits, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, 8, 128>(q, k, v, lengths, out, part, B, S, Hkv, splits, st);
+  const int G = Hq / Hkv;
+#define RAGGED_LAUNCH(GG, DD)                                                               \
+  if (G == GG && D == DD)                                                                   \
+    return dtype == 0                                                                       \
+               ? launch<float, GG, DD>(q, k, v, lengths, out, part, B, S, Hkv, splits, st)  \
+               : launch<__nv_bfloat16, GG, DD>(q, k, v, lengths, out, part, B, S, Hkv,      \
+                                               splits, st);
+  RAGGED_LAUNCH(8, 128)
+  RAGGED_LAUNCH(2, 128)
+  RAGGED_LAUNCH(1, 256)
+#undef RAGGED_LAUNCH
   return -1;
 }

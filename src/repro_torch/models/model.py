@@ -36,11 +36,10 @@ def check_supported(cfg: ModelConfig):
             raise NotImplementedError(
                 f"{cfg.name}: ({mixer}, {ffn}) positions are not ported yet "
                 "(ROADMAP.md, queue 1, M8)")
-    if cfg.pos_embedding not in ("rope", "none") or cfg.embeddings_input \
-            or cfg.scale_embeddings:
+    if cfg.pos_embedding not in ("rope", "none") or cfg.embeddings_input:
         raise NotImplementedError(
-            f"{cfg.name}: sinusoidal positions, embedding inputs and scaled "
-            "embeddings are not ported yet (ROADMAP.md, queue 1, M8)")
+            f"{cfg.name}: sinusoidal positions and embedding inputs are not "
+            "ported yet (ROADMAP.md, queue 1, M8)")
     if cfg.cache_layout != "bshd":
         raise NotImplementedError("cache_layout='bhsd' is not ported yet")
     if cfg.decode_unroll_layers:
@@ -145,8 +144,14 @@ def _run_groups(cfg: ModelConfig, params, x, *, positions, cache, kv_lens):
 
 def _embed_inputs(cfg: ModelConfig, params, tokens):
     tok = torch.clamp(tokens, 0, cfg.padded_vocab - 1)
-    return F.embedding(tok.long(), params["embed"].to(
+    x = F.embedding(tok.long(), params["embed"].to(
         torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32))
+    if cfg.scale_embeddings:
+        # gemma's sqrt(d_model), rounded to the activations' dtype before
+        # the multiply, as the reference does (55.43 is 55.5 in bf16); a
+        # host scalar, so a captured decode graph holds no copy
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    return x
 
 
 def _head(cfg: ModelConfig, params, x, delta):

@@ -50,7 +50,10 @@ def _randn(shape, dtype, dev, seed):
 @pytest.mark.parametrize("b,s,hq,hkv,d", [(4, 1000, 16, 2, 128),
                                           (2, 256, 8, 1, 128),
                                           (3, 130, 32, 4, 128),
-                                          (16, 2048, 16, 2, 128)])
+                                          (16, 2048, 16, 2, 128)] + [
+    # the (G, D) pairs of internlm2-1.8b (2, 128) and gemma-7b (1, 256)
+    (b, s, hq, hkv, d) for hq, hkv, d in ((16, 8, 128), (16, 16, 256))
+    for b, s in ((4, 1000), (2, 256), (3, 130), (16, 2048))])
 def test_ragged_kernel_matches_plain(cuda, b, s, hq, hkv, d, dtype):
     q = _randn((b, hq, d), dtype, cuda, 0)
     kc = _randn((b, s, hkv, d), dtype, cuda, 1)
@@ -238,6 +241,109 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(q16.bfloat16(), k, k)
     with pytest.raises(ValueError):                       # CPU + CUDA
         flash_attention(q16, k, k.cpu())
+
+
+# ----------------------------------------------------------------------------
+# K1 and K3 at the (G, D) pairs of internlm2-1.8b (16 / 8 heads of 128) and
+# gemma-7b (16 / 16 heads of 256), over the edge cases of (8, 128) above
+# ----------------------------------------------------------------------------
+
+NEW_PAIRS = {"g2d128": (16, 8, 128), "g1d256": (16, 16, 256)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pair", sorted(NEW_PAIRS))
+def test_ragged_kernel_new_pairs_every_split_count(cuda, pair, dtype):
+    """Every split count from 1 to the one the wrapper picks (2 at gemma's
+    16 KV heads and B = 16), lengths of 1, of S, and fewer positions than
+    splits."""
+    hq, hkv, d = NEW_PAIRS[pair]
+    for b, s in ((4, 300), (16, 2048)):
+        chosen = split_count(b, hkv, s)
+        q = _randn((b, hq, d), dtype, cuda, 0)
+        kc = _randn((b, s, hkv, d), dtype, cuda, 1)
+        vc = _randn((b, s, hkv, d), dtype, cuda, 2)
+        lens = np.random.default_rng(b).integers(1, s + 1, b).astype(np.int32)
+        lens[:4] = (1, s, 3, s // 2)
+        ln = torch.from_numpy(lens).to(cuda)
+        ref = decode_attention_reference(q, kc, vc, ln).float()
+        for splits in range(1, max(chosen, 3) + 1):
+            out = ragged_ops._launch(q, kc, vc, ln, splits)
+            torch.testing.assert_close(out.float(), ref, **TOL[dtype],
+                                       msg=lambda m: f"splits={splits}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pair", sorted(NEW_PAIRS))
+def test_ragged_kernel_new_pairs_bit_equal_and_stale_rows(cuda, pair, dtype):
+    hq, hkv, d = NEW_PAIRS[pair]
+    b, s = 16, 2048
+    q = _randn((b, hq, d), dtype, cuda, 0)
+    kc = _randn((b, s, hkv, d), dtype, cuda, 1)
+    vc = _randn((b, s, hkv, d), dtype, cuda, 2)
+    lens = np.random.default_rng(5).integers(1, s + 1, b).astype(np.int32)
+    lens[:3] = (1, s, 7)
+    ln = torch.from_numpy(lens).to(cuda)
+    out = ragged_decode_attention(q, kc, vc, ln)
+    assert torch.equal(ragged_decode_attention(q, kc, vc, ln), out)
+    for i, n in enumerate(lens.tolist()):
+        kc[i, n:], vc[i, n:] = float("nan"), 1e4
+    assert torch.equal(ragged_decode_attention(q, kc, vc, ln), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,win", FLASH_SHAPES + RING_SHAPES)
+@pytest.mark.parametrize("pair", sorted(NEW_PAIRS))
+def test_flash_kernel_new_pairs_match_plain(cuda, pair, b, s, win, dtype):
+    """A block holds 64 / G positions (32 at G = 2, 64 at G = 1) over 64-key
+    tiles: the cases cross a block's and a tile's edges, partial and last
+    tiles, and windows across them."""
+    hq, hkv, d = NEW_PAIRS[pair]
+    q = _randn((b, s, hq, d), dtype, cuda, 4)
+    k = _randn((b, s, hkv, d), dtype, cuda, 5)
+    v = _randn((b, s, hkv, d), dtype, cuda, 6)
+    before = K.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, window=win)
+    assert K.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(
+        out.float(), attention_reference(q, k, v, window=win).float(),
+        **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", sorted(NEW_PAIRS))
+def test_flash_kernel_new_pairs_read_strided_views(cuda, pair):
+    """q, k and v as views of one fused projection at the new pairs."""
+    hq, hkv, d = NEW_PAIRS[pair]
+    for s in (80, 1000):
+        qkv = _randn((2, s, hq + 2 * hkv, d), torch.bfloat16, cuda, 3)
+        q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+        torch.testing.assert_close(flash_attention(q, k, v).float(),
+                                   attention_reference(q, k, v).float(),
+                                   **TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,d", [(16, 4, 128), (16, 16, 128),
+                                      (16, 8, 256), (16, 2, 256)])
+def test_attention_kernels_refuse_pairs_outside_their_shapes(cuda, hq, hkv, d):
+    """(G, D) = (4, 128), (1, 128), (2, 256), (8, 256): no instance, a
+    ValueError from each wrapper before any launch."""
+    before = dict(K.LAUNCHES)
+    q = _randn((2, hq, d), torch.bfloat16, cuda, 0)
+    kc = _randn((2, 64, hkv, d), torch.bfloat16, cuda, 1)
+    ln = torch.tensor([3, 64], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="built for"):
+        ragged_decode_attention(q, kc, kc, ln)
+    qp = _randn((1, 32, hq, d), torch.bfloat16, cuda, 0)
+    kp = _randn((1, 32, hkv, d), torch.bfloat16, cuda, 1)
+    with pytest.raises(ValueError, match="built for"):
+        flash_attention(qp, kp, kp)
+    assert dict(K.LAUNCHES) == before
 
 
 def _check_rmsnorm(x, r, w):
@@ -1734,3 +1840,65 @@ def test_tandem_simulators_on_the_card_equal_cpu(cuda):
             assert gpu["memory"] == r["memory"]
             for a, b in zip(gpu["per_replica"], r["per_replica"]):
                 assert np.array_equal(a["waits"], b["waits"]), router
+
+
+# ----------------------------------------------------------------------------
+# The dense families at full width, and the closed-loop autoscaler
+# ----------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "gemma-7b"])
+def test_two_layer_dense_model_at_full_width_card_equals_cpu(cuda, arch):
+    """Two layers of internlm2-1.8b ((G, D) = (2, 128), untied head) and of
+    gemma-7b ((1, 256), GeGLU, scaled embeddings) at full width in fp32:
+    the card (K1, K3 and K4 in fp32, decode chunks as graphs, a
+    compaction by K2) emits the CPU's greedy tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import map_tree
+    from repro_torch.serving import Engine, EngineConfig
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32",
+                              decode_cache_update="scatter")
+    ecfg = EngineConfig(max_batch=4, max_seq=128, prompt_bucket=16,
+                        decode_chunk=8, cache_dtype="float32")
+    gpu = Engine(cfg, ecfg, seed=5, device=cuda)
+    cpu = Engine(cfg, ecfg, device="cpu",
+                 params=map_tree(lambda t: t.cpu(), gpu.params))
+    prompts = _prompts(4, 8, vocab=cfg.vocab_size)
+    targets = [13, 3, 9, 2]
+    before = dict(K.LAUNCHES)
+    rg = gpu.generate(prompts, targets, elastic=True, return_tokens=True)
+    rc = cpu.generate(prompts, targets, elastic=True, return_tokens=True)
+    assert rg["tokens"] == rc["tokens"]
+    assert list(rg["produced"]) == list(rc["produced"]) == targets
+    for name in ("ragged_decode_attention", "flash_attention", "fused_rmsnorm",
+                 "gather_rows"):
+        assert K.LAUNCHES[name] > before.get(name, 0), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [{}, {"fixed": (2, "least_work")},
+                                  {"clairvoyant": True}])
+def test_run_controlled_on_the_card_equals_the_oracle(cuda, mode):
+    """The closed loop on the card (one S1 launch a replica a window) on
+    the reference test's small cell: the oracle twin's actions, waits
+    within 1e-9 s."""
+    from repro_torch.core.control import simulate_controlled
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.fastsim import run_controlled
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import ElasticPolicy
+    from repro_torch.core.traffic import SinusoidTraffic
+    args = (ElasticPolicy(), 4.0, LogNormalTokens(5.0, 0.6),
+            BatchLatencyModel(k1=0.05, k2=0.5, k3=0.0005, k4=0.02))
+    kw = dict(traffic=SinusoidTraffic(amplitude=0.8, period=250.0),
+              num_requests=2_000, seed=1, window=50.0, max_replicas=4,
+              replica_cost=1.0, **mode)
+    before = K.LAUNCHES["batch_scan"]
+    card = run_controlled(*args, **kw)
+    assert K.LAUNCHES["batch_scan"] > before
+    ora = simulate_controlled(*args, fast=False, **kw)
+    assert card.actions == ora.actions
+    np.testing.assert_allclose(card.waits, ora.waits, rtol=0, atol=1e-9)
+    assert abs(card.objective - ora.objective) <= 1e-9

@@ -65,6 +65,17 @@ def test_main_runs_the_cli_on_the_cpu(capsys):
     assert out[-1].startswith("[serve] mean queue wait")
 
 
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "internlm2-1.8b", "yi-9b",
+                                  "gemma-7b"])
+def test_main_runs_each_dense_arch_on_the_cpu(capsys, arch):
+    """``python -m repro_torch.launch.serve --arch <id> --smoke --device
+    cpu`` for every ported dense family."""
+    S.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3"])
+    out = capsys.readouterr().out.splitlines()
+    assert "served=3/3" in out[-2]
+    assert out[-1].startswith("[serve] mean queue wait")
+
+
 def test_launcher_config_is_the_reference_one():
     """The launcher serves the reference launcher's smoke config, with the
     cache in the model's dtype (fp32 at smoke size, the reference

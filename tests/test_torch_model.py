@@ -69,7 +69,7 @@ def test_configs_equal_reference_field_for_field():
     assert get_config("qwen2.5-3b").param_count() == \
         jax_get_config("qwen2.5-3b").param_count()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("gemma-7b")
+        get_config("mixtral-8x7b")
 
 
 def test_specs_equal_reference():
@@ -104,7 +104,7 @@ def test_unported_model_parts_raise():
     _, tc = _cfgs()
     for bad in (dict(group_pattern=(("attn", "moe"),)),
                 dict(cache_layout="bhsd"), dict(decode_unroll_layers=True),
-                dict(pos_embedding="sinusoidal"), dict(scale_embeddings=True)):
+                dict(pos_embedding="sinusoidal")):
         with pytest.raises(NotImplementedError):
             TM.param_specs(dataclasses.replace(tc, **bad))
 
