@@ -11,15 +11,19 @@ Phases (any failure raises and the script exits non-zero):
      attention kernels, K4 and the seven simulator kernels;
   2. hold each serving kernel against its plain PyTorch version on the card, at the
      shapes qwen2.5-3b serving gives it (K1 and K3 also at the (G, D)
-     instances of internlm2-1.8b and gemma-7b), and time kernel, plain
-     version, one PyTorch library call and the bound (K1 and K3 also at
-     each dense config's serving shape; K3 also as TFLOP/s and share of
-     the bound; K1 with its split count and grid; K4 at T = 1, 16, 64 and
-     4096 rows);
+     instances of internlm2-1.8b, gemma-7b, mixtral-8x7b and
+     moonshot-v1-16b-a3b), and time kernel, plain version, one PyTorch
+     library call and the bound (K1 and K3 also at each config's serving
+     shape, K1 at S = 1024 for the MoE configs; K3 also as TFLOP/s and
+     share of the bound; K1 with its split count and grid; K4 at T = 1,
+     16, 64 and 4096 rows);
   3. check a small fp32 model end to end: the engine on the card (all four
      kernels, decode chunks as CUDA graphs) emits the same greedy tokens as
      the engine on the CPU (plain paths); sampled at a fixed seed, the two
-     draw the same noise bits, and the token agreement is printed;
+     draw the same noise bits, and the token agreement is printed; then a
+     small fp32 MoE model (mixtral's pattern at (G, D) = (4, 128), window
+     32 below max_seq, capacity factor 0.5) card against CPU, greedy,
+     token for token, with assignments dropped at capacity;
   4. serve qwen2.5-3b at full width (random bf16 weights from a seed)
      through ``run_engine_schedule`` with elastic, then dynamic batching
      (every bucket that runs replays a graph), then multi-bin (4 bins),
@@ -52,6 +56,13 @@ Phases (any failure raises and the script exits non-zero):
      batches, waits, decode ms a step by bucket, prefill ms, host syncs,
      launches and peak memory per model, each engine freed before the
      next;
+  4e. after phase 4's engine is freed, serve the same 12 requests on
+     mixtral-8x7b at 16 of its 32 layers (full layer width; the whole
+     model does not fit the card) and moonshot-v1-16b-a3b whole, random
+     bf16 weights made on the card, phase 4's engine settings with
+     max_seq 1024, elastic b16 (K1-K4; the MoE FFN is plain PyTorch, as
+     the reference's is plain jnp): the same figures as 4d, each engine's
+     peak device memory under 75 GiB;
   5. run the adaptive-control serving launcher
      (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width;
   7. run the paper's simulators (``repro_torch.core.fastsim``) on the card:
@@ -154,11 +165,14 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12,
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=4e-3, rtol=8e-3)}
 
-# the (Hq, Hkv, D) each ported dense config gives the attention kernels:
-# (G, D) = (8, 128) for qwen2.5-3b and yi-9b, (2, 128) for internlm2-1.8b,
-# (1, 256) for gemma-7b
+# the (Hq, Hkv, D) each ported config gives the attention kernels: (G, D) =
+# (8, 128) for qwen2.5-3b and yi-9b, (2, 128) for internlm2-1.8b, (1, 256)
+# for gemma-7b, (4, 128) for mixtral-8x7b, (1, 128) for moonshot-v1-16b-a3b
 ATTN_HEADS = {"qwen2.5-3b": (16, 2, 128), "internlm2-1.8b": (16, 8, 128),
-              "yi-9b": (32, 4, 128), "gemma-7b": (16, 16, 256)}
+              "yi-9b": (32, 4, 128), "gemma-7b": (16, 16, 256),
+              "mixtral-8x7b": (32, 8, 128),
+              "moonshot-v1-16b-a3b": (16, 16, 128)}
+MOE_ARCHS = ("mixtral-8x7b", "moonshot-v1-16b-a3b")
 # the kernels of the model's serving path (the other two are the
 # simulators' scans, phase 7)
 SERVING_KERNELS = ("ragged_decode_attention", "gather_rows", "flash_attention",
@@ -305,8 +319,8 @@ def _ragged_checks(dev, rng, hq, hkv, d, label):
     return max_err
 
 
-def _ragged_timing(dev, lens, hq, hkv, d, label):
-    """K1 at a serving shape: B = len(lens), S = 2048, bf16, the given
+def _ragged_timing(dev, lens, hq, hkv, d, label, s=2048):
+    """K1 at a serving shape: B = len(lens), cache span S, bf16, the given
     lengths; four cache copies in rotation so each launch reads past the
     50 MB L2.  Kernel, plain version, SDPA (length mask, GQA) and the
     bytes bound."""
@@ -314,7 +328,7 @@ def _ragged_timing(dev, lens, hq, hkv, d, label):
     import torch.nn.functional as F
     from repro_torch.kernels.ragged_decode_attention import (
         decode_attention_reference, ragged_decode_attention, split_count)
-    b, s, dtype = len(lens), 2048, "bfloat16"
+    b, dtype = len(lens), "bfloat16"
     ln = torch.from_numpy(lens).to(dev)
     q = torch.randn(b, hq, d, device=dev, dtype=torch.bfloat16)
     caches = [(torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16),
@@ -340,14 +354,17 @@ def _ragged_timing(dev, lens, hq, hkv, d, label):
         f"({splits}, {hkv}, {b}) = {splits * hkv * b} blocks on 132 SMs, then "
         f"a combine grid of {hkv * b}")
     del caches
-    return {"G": hq // hkv, "D": d, "ms": ms[1], "plain_ms": plain_ms[1],
-            "library_ms": lib_ms[1], "bound_ms": bnd, "splits": splits}
+    return {"G": hq // hkv, "D": d, "S": s, "ms": ms[1],
+            "plain_ms": plain_ms[1], "library_ms": lib_ms[1], "bound_ms": bnd,
+            "splits": splits}
 
 
 def check_ragged(dev):
     """K1 at each (G, D) instance against its plain version (qwen2.5-3b's
     heads for (8, 128), internlm2-1.8b's for (2, 128), gemma-7b's for (1,
-    256)), then timed at each ported dense config's serving shape; the JSON
+    256), mixtral-8x7b's for (4, 128), moonshot-v1-16b-a3b's for (1,
+    128)), then timed at each ported config's serving shape (S = 2048 for
+    the dense configs, phase 4e's S = 1024 for the MoE ones); the JSON
     entry's figures are qwen2.5-3b's, the other configs' under
     ``shapes``."""
     rng = np.random.default_rng(0)
@@ -357,13 +374,16 @@ def check_ragged(dev):
     lens = (rng.integers(16, 257, 16) + rng.integers(0, 513, 16)).astype(np.int32)
     shapes = {"qwen2.5-3b": _ragged_timing(dev, lens, *ATTN_HEADS["qwen2.5-3b"],
                                            "qwen2.5-3b")}
-    for arch in ("internlm2-1.8b", "gemma-7b"):
+    for arch in ("internlm2-1.8b", "gemma-7b") + MOE_ARCHS:
         err = _ragged_checks(dev, np.random.default_rng(1), *ATTN_HEADS[arch],
                              arch)
         for k, v in err.items():
             max_err[k] = max(max_err[k], v)
     for arch in ("internlm2-1.8b", "yi-9b", "gemma-7b"):
         shapes[arch] = _ragged_timing(dev, lens, *ATTN_HEADS[arch], arch)
+    for arch in MOE_ARCHS:
+        shapes[arch] = _ragged_timing(dev, lens, *ATTN_HEADS[arch], arch,
+                                      s=1024)
     qw = shapes["qwen2.5-3b"]
     return {"name": "ragged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/ragged_decode_attention/csrc/"
@@ -496,8 +516,8 @@ def _flash_timing(dev, b, s, hq, hkv, d, label):
 def check_flash(dev):
     """K3 at each (G, D) instance against its plain version (as K1), timed
     at qwen2.5-3b's B = 16, S = 256 and B = 1, S = 8192 and at each other
-    dense config's B = 16, S = 256; the JSON entry's figures are qwen's
-    serving shape, the others under ``shapes``."""
+    config's B = 16, S = 256; the JSON entry's figures are qwen's serving
+    shape, the others under ``shapes``."""
     rng = np.random.default_rng(2)
     max_err = dict(_flash_checks(dev, rng, *ATTN_HEADS["qwen2.5-3b"],
                                  "qwen2.5-3b"))
@@ -507,12 +527,12 @@ def check_flash(dev):
               "qwen2.5-3b long": _flash_timing(dev, 1, 8192,
                                                *ATTN_HEADS["qwen2.5-3b"],
                                                "qwen2.5-3b")}
-    for arch in ("internlm2-1.8b", "gemma-7b"):
+    for arch in ("internlm2-1.8b", "gemma-7b") + MOE_ARCHS:
         err = _flash_checks(dev, np.random.default_rng(3), *ATTN_HEADS[arch],
                             arch)
         for k, v in err.items():
             max_err[k] = max(max_err[k], v)
-    for arch in ("internlm2-1.8b", "yi-9b", "gemma-7b"):
+    for arch in ("internlm2-1.8b", "yi-9b", "gemma-7b") + MOE_ARCHS:
         shapes[arch] = _flash_timing(dev, 16, 256, *ATTN_HEADS[arch], arch)
     qw = shapes["qwen2.5-3b"]
     return {"name": "flash_attention", "route": "cuda",
@@ -659,6 +679,59 @@ def check_small_model(dev):
         f"and 151936); tokens {same}/{total} equal, requests identical "
         f"{sum(x == y for x, y in zip(sg['tokens'], sc['tokens']))}/"
         f"{len(targets)}")
+
+
+def check_small_moe(dev):
+    """Phase 3's MoE model: mixtral's pattern at (G, D) = (4, 128), 2
+    layers, 4 experts, capacity factor 0.5 (so decode steps at bucket 8
+    drop assignments), window 32 below max_seq 128 (K1 reads the ring), in
+    fp32: the card's engine (K1-K4, decode chunks as graphs) emits the
+    CPU's greedy tokens, and both drop assignments at capacity.  The card
+    counts drops in its eager runs only (a replayed graph's are not
+    seen)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import scaled_down
+    from repro_torch.models.moe import count_drops
+    from repro_torch.models.params import map_tree
+    from repro_torch.serving import Engine, EngineConfig
+    cfg = scaled_down(get_config("mixtral-8x7b"), num_groups=2, d_model=128,
+                      num_heads=8, num_kv_heads=2, head_dim=128,
+                      moe_d_ff=128, num_experts=4, capacity_factor=0.5,
+                      decode_cache_update="scatter")
+    assert cfg.sliding_window == 32
+    ecfg = EngineConfig(max_batch=8, max_seq=128, prompt_bucket=16,
+                        decode_chunk=8)
+    gpu = Engine(cfg, ecfg, seed=3, device=dev)
+    cpu = Engine(cfg, ecfg, device="cpu",
+                 params=map_tree(lambda t: t.cpu(), gpu.params))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 9, 30, 3, 12)]
+    targets = [60, 4, 33, 12, 45, 20]
+    K.reset_launches()
+    with count_drops() as card_log:
+        rg = gpu.generate(prompts, targets, elastic=True, return_tokens=True)
+    launches = dict(K.LAUNCHES)
+    assert all(launches[name] > 0 for name in SERVING_KERNELS), launches
+    with count_drops() as cpu_log:
+        rc = cpu.generate(prompts, targets, elastic=True, return_tokens=True)
+    assert list(rg["produced"]) == list(rc["produced"]) == targets
+    same = sum(a == b for x, y in zip(rg["tokens"], rc["tokens"])
+               for a, b in zip(x, y))
+    total = sum(len(t) for t in rg["tokens"])
+    drops = {}
+    for name, lg in (("card", card_log), ("cpu", cpu_log)):
+        drops[name] = {"prefill": sum(int(n) for q, n in lg if q > 1),
+                       "decode": sum(int(n) for q, n in lg if q == 1)}
+    log(f"small fp32 MoE model ((G, D) = (4, 128), window 32, max_seq 128): "
+        f"greedy tokens {same}/{total} equal on card and CPU; assignments "
+        f"dropped at capacity {drops} (the card's counted in its eager runs); "
+        f"launches {launches}")
+    assert rg["tokens"] == rc["tokens"], "card and CPU MoE engines disagree"
+    assert drops["cpu"]["decode"] > 0, "no decode step dropped an assignment"
+    assert sum(drops["card"].values()) > 0, "the card dropped no assignment"
+    return drops
 
 
 # ----------------------------------------------------------------------------
@@ -1129,36 +1202,45 @@ def serve_memory(engine, reqs):
 
 
 # ----------------------------------------------------------------------------
-# Phase 4d: the dense families at full width
+# Phases 4d and 4e: the dense and MoE families at full width
 # ----------------------------------------------------------------------------
 
 DENSE_ARCHS = ("internlm2-1.8b", "yi-9b", "gemma-7b")
-DENSE_REQUESTS = 12       # the first requests of phase 4's stream
+FAMILY_REQUESTS = 12      # the first requests of phase 4's stream
+# mixtral-8x7b's 46.70 B params (87.0 GiB in bf16) do not fit the card:
+# phase 4e serves 16 of its 32 layers at full layer width (23.48 B, 43.7
+# GiB); moonshot-v1-16b-a3b (28.89 B, 53.8 GiB) runs whole
+MOE_LAYERS = {"mixtral-8x7b": 16, "moonshot-v1-16b-a3b": 48}
+# phase 4e's engine: phase 4's, with caches of 1,024 positions (moonshot's
+# KV cache is 384 KiB a token: its five bucket caches take 11.6 GiB at
+# 1,024, 23.3 at 2,048); phase 4's prompts are at most 256 tokens and its
+# targets at most 512, so no request needs more
+MOE_MAX_SEQ = 1024
+MOE_PEAK_GIB = 75.0
 
 
-def serve_dense(ecfg, reqs):
-    """Phase 4d: each of internlm2-1.8b, yi-9b and gemma-7b at full width,
-    random bf16 weights from a seed (made on the card), phase 4's engine
-    settings, serving the first ``DENSE_REQUESTS`` of phase 4's stream
-    through ``run_engine_schedule`` with elastic b16 (K1-K4 on decode
-    graphs; a compaction runs K2).  Logs per model its batches, waits,
-    decode ms a step by bucket, prefill ms, host syncs, the kernels'
-    launches and the peak device memory; frees each engine before the
-    next.  Returns the launches summed over the three."""
+def serve_family(phase, cfgs, ecfg, reqs, peak_limit_gib=None):
+    """Phases 4d and 4e: each config of ``cfgs`` ({arch: ModelConfig}) at
+    full width, random bf16 weights from a seed (made on the card),
+    serving the first ``FAMILY_REQUESTS`` of phase 4's stream through
+    ``run_engine_schedule`` with elastic b16 (K1-K4 on decode graphs; a
+    compaction runs K2).  Asserts each engine's parameter count against
+    its config and, given ``peak_limit_gib``, its peak device memory.
+    Logs per model its batches, waits, decode ms a step by bucket, prefill
+    ms, host syncs, the kernels' launches and the peak device memory;
+    frees each engine before the next.  Returns the launches summed over
+    the configs and the per-config rows."""
     import gc
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.policies import get_policy
     from repro_torch.models.params import tree_leaves
     from repro_torch.serving import Engine
-    reqs = reqs[:DENSE_REQUESTS]
+    reqs = reqs[:FAMILY_REQUESTS]
     totals, rows = {}, {}
-    for arch in DENSE_ARCHS:
+    for arch, cfg in cfgs.items():
         t0 = time.perf_counter()
-        cfg = dataclasses.replace(get_config(arch),
-                                  decode_cache_update="scatter")
         torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated() / 2 ** 30   # qwen's engine
+        base = torch.cuda.memory_allocated() / 2 ** 30
         engine = Engine(cfg, ecfg, seed=0)
         torch.cuda.synchronize()
         nparams = sum(t.numel() for t in tree_leaves(engine.params))
@@ -1181,16 +1263,20 @@ def serve_dense(ecfg, reqs):
         syncs = engine.host_syncs - syncs0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         rows[arch] = {
-            "params": nparams, "batch_sizes": list(res.batch_sizes),
+            "params": nparams, "layers": cfg.num_layers,
+            "batch_sizes": list(res.batch_sizes),
             "mean_wait_s": float(res.waits.mean()), "wall_s": wall,
             "prefill_ms": pre, "host_syncs": syncs,
             "ms_per_step": {b: v["replay_ms_per_step"]
                             for b, v in buckets.items() if v["replays"]},
             "launches": {k: launches.get(k, 0) for k in SERVING_KERNELS},
             "peak_gib": peak, "resident_before_gib": base}
-        log(f"phase 4d {arch}: {nparams / 1e9:.3f} B params ({cfg.num_layers} "
-            f"layers, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
-            f"{cfg.head_dim}, d_ff {cfg.d_ff}), init {init_s:.1f} s; batch "
+        ffn = (f"{cfg.num_experts} experts of {cfg.moe_d_ff} (top "
+               f"{cfg.num_experts_per_tok}, {cfg.num_shared_experts} shared)"
+               if cfg.num_experts else f"d_ff {cfg.d_ff}")
+        log(f"phase {phase} {arch}: {nparams / 1e9:.3f} B params "
+            f"({cfg.num_layers} layers, {cfg.num_heads}/{cfg.num_kv_heads} "
+            f"heads of {cfg.head_dim}, {ffn}), init {init_s:.1f} s; batch "
             f"sizes {res.batch_sizes}, mean wait {res.waits.mean():.3f} s, "
             f"wall {wall:.2f} s; prefill ms {[round(m, 1) for m in pre]}; "
             f"host syncs {syncs}; decode graph-replay ms a step by bucket "
@@ -1198,14 +1284,41 @@ def serve_dense(ecfg, reqs):
             f"(buckets only captured: "
             f"{sorted(set(buckets) - set(rows[arch]['ms_per_step']))}); "
             f"launches {rows[arch]['launches']}; peak device memory "
-            f"{peak:.2f} GiB ({base:.2f} GiB of it allocated before, by "
-            f"phase 4's engine)")
+            f"{peak:.2f} GiB ({base:.2f} GiB of it allocated before)")
+        if peak_limit_gib is not None:
+            assert peak < peak_limit_gib, \
+                f"{arch}: peak {peak:.2f} GiB over {peak_limit_gib} GiB"
         for k, v in launches.items():
             totals[k] = totals.get(k, 0) + v
         del engine
         gc.collect()
         torch.cuda.empty_cache()
     return totals, rows
+
+
+def serve_dense(ecfg, reqs):
+    """Phase 4d: internlm2-1.8b, yi-9b and gemma-7b whole, phase 4's
+    engine settings, qwen's engine resident."""
+    from repro_torch.configs import get_config
+    return serve_family("4d", {
+        arch: dataclasses.replace(get_config(arch),
+                                  decode_cache_update="scatter")
+        for arch in DENSE_ARCHS}, ecfg, reqs)
+
+
+def serve_moe(ecfg, reqs):
+    """Phase 4e: mixtral-8x7b at 16 of its 32 layers (full layer width)
+    and moonshot-v1-16b-a3b whole, phase 4's engine settings with
+    ``max_seq`` = ``MOE_MAX_SEQ``, after qwen's engine is freed; each
+    engine's peak under ``MOE_PEAK_GIB``."""
+    from repro_torch.configs import get_config
+    cfgs = {arch: dataclasses.replace(get_config(arch), num_layers=n,
+                                      decode_cache_update="scatter")
+            for arch, n in MOE_LAYERS.items()}
+    log(f"phase 4e: mixtral-8x7b reduced to {MOE_LAYERS['mixtral-8x7b']} of "
+        f"{get_config('mixtral-8x7b').num_layers} layers (full layer width); "
+        f"moonshot-v1-16b-a3b whole; max_seq {ecfg.max_seq}")
+    return serve_family("4e", cfgs, ecfg, reqs, peak_limit_gib=MOE_PEAK_GIB)
 
 
 # ----------------------------------------------------------------------------
@@ -2964,6 +3077,7 @@ def main() -> int:
     kernels = [check_ragged(dev), check_gather(dev, engine, cfg),
                check_flash(dev), check_rmsnorm(dev)]
     check_small_model(dev)
+    check_small_moe(dev)
     from repro_torch.data.pipeline import make_request_stream
     reqs = make_request_stream(32, 4.0, ClippedLogNormal(np.log(96.0), 0.8, 512),
                                vocab=cfg.vocab_size, prompt_len_range=(16, 257),
@@ -2994,7 +3108,15 @@ def main() -> int:
     paths["dense families"], dense = serve_dense(ecfg, reqs)
     log(f"phase 4d (the dense families) took {time.perf_counter() - t0:.1f} s")
     del engine
+    import gc
+    gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"phase 4e starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB allocated on the card")
+    paths["moe families"], moe = serve_moe(
+        dataclasses.replace(ecfg, max_seq=MOE_MAX_SEQ), reqs)
+    log(f"phase 4e (the MoE families) took {time.perf_counter() - t0:.1f} s")
     paths["launcher"] = serve_launcher(dev)
     t0 = time.perf_counter()
     paths["simulators"], sim_kernels = run_simulators(dev, cal)
@@ -3032,6 +3154,8 @@ def main() -> int:
         if k["name"] in SERVING_KERNELS:
             k["dense_families"] = {arch: row["launches"][k["name"]]
                                    for arch, row in dense.items()}
+            k["moe_families"] = {arch: row["launches"][k["name"]]
+                                 for arch, row in moe.items()}
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in paths.items()}

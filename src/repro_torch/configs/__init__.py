@@ -2,22 +2,26 @@
 
 ``get_config(arch_id)`` returns the full published config;
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU tests
-use.  The dense families are ported (qwen2.5-3b, internlm2-1.8b, yi-9b,
-gemma-7b); the other architectures of the reference registry are listed
-in ROADMAP.md (queue 1, M8).
+use.  The dense families (qwen2.5-3b, internlm2-1.8b, yi-9b, gemma-7b) and
+the MoE family (mixtral-8x7b, moonshot-v1-16b-a3b) are ported; the other
+architectures of the reference registry are listed in ROADMAP.md (queue
+1, M8).
 """
 
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("gemma-7b", "yi-9b", "qwen2.5-3b", "internlm2-1.8b")
+ARCH_IDS = ("gemma-7b", "yi-9b", "qwen2.5-3b", "internlm2-1.8b",
+            "mixtral-8x7b", "moonshot-v1-16b-a3b")
 
 _MODULES = {
     "gemma-7b": "gemma_7b",
     "yi-9b": "yi_9b",
     "qwen2.5-3b": "qwen2_5_3b",
     "internlm2-1.8b": "internlm2_1_8b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
 }
 
 

@@ -588,7 +588,8 @@ def impatience_lane_inputs(policies: dict, lam_grid, dist, lat,
 
 def sweep(policies: dict, lam_grid, dist, lat,
           num_requests: int = 100_000, seed: int = 0, device=None,
-          scan_out: Optional[dict] = None) -> dict:
+          scan_out: Optional[dict] = None,
+          lane_scan: Optional[Callable] = None) -> dict:
     """Mean wait for each policy over an arrival-rate grid — the uniform
     fast entry point.  ``policies``: name -> BatchPolicy (or legacy spec
     dict).  Policies riding the batching scan (``scan_lane() is not
@@ -602,7 +603,10 @@ def sweep(policies: dict, lam_grid, dist, lat,
     launch's ``launch_out`` (see :func:`simulate_policy_fast`; its tensors
     as passed and returned) and its ``lanes``, and under ``cells`` with
     each per-cell kernel launch, {(name, lam index): ``launch_out``}, for a
-    caller that checks the kernels."""
+    caller that checks the kernels.  ``lane_scan`` (the reference's
+    multi-device lane executor) is not ported yet (ROADMAP.md M9)."""
+    if lane_scan is not None:
+        not_ported("sweep(lane_scan=): lanes over a device mesh", "M9")
     device = resolve_device(device)
     lam_grid = list(lam_grid)
     insts = _instances(policies)

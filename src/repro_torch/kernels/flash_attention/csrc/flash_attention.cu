@@ -742,8 +742,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, Strides
 // shape the kernels were not instantiated for, -2 if a TMA tensor map could
 // not be made.  Instantiated only for the (G, D) pairs the repo's configs
 // give the kernel: (8, 128) for qwen2.5-3b (16 / 2 heads) and yi-9b (32 /
-// 4), (2, 128) for internlm2-1.8b (16 / 8) and (1, 256) for gemma-7b (16 /
-// 16).
+// 4), (2, 128) for internlm2-1.8b (16 / 8), (1, 256) for gemma-7b (16 /
+// 16), (4, 128) for mixtral-8x7b (32 / 8) and (1, 128) for
+// moonshot-v1-16b-a3b (16 / 16).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                long long qsb, long long qss, long long qsh, long long ksb,
                                long long kss, long long ksh, long long vsb, long long vss,
@@ -763,6 +764,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   FLASH_LAUNCH(8, 128)
   FLASH_LAUNCH(2, 128)
   FLASH_LAUNCH(1, 256)
+  FLASH_LAUNCH(4, 128)
+  FLASH_LAUNCH(1, 128)
 #undef FLASH_LAUNCH
   return -1;
 }

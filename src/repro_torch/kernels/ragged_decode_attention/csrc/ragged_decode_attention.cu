@@ -345,8 +345,9 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
 // cudaGetLastError() after the launches, or -1 for a shape the kernels were
 // not instantiated for.  Instantiated only for the (G, D) pairs the repo's
 // configs give the kernel: (8, 128) for qwen2.5-3b (16 / 2 heads) and
-// yi-9b (32 / 4), (2, 128) for internlm2-1.8b (16 / 8) and (1, 256) for
-// gemma-7b (16 / 16).
+// yi-9b (32 / 4), (2, 128) for internlm2-1.8b (16 / 8), (1, 256) for
+// gemma-7b (16 / 16), (4, 128) for mixtral-8x7b (32 / 8) and (1, 128) for
+// moonshot-v1-16b-a3b (16 / 16).
 extern "C" int ragged_decode_attention(const void* q, const void* k, const void* v,
                                        const void* lengths, void* out, void* scratch, int B,
                                        int S, int Hq, int Hkv, int D, int splits, int dtype,
@@ -366,6 +367,8 @@ extern "C" int ragged_decode_attention(const void* q, const void* k, const void*
   RAGGED_LAUNCH(8, 128)
   RAGGED_LAUNCH(2, 128)
   RAGGED_LAUNCH(1, 256)
+  RAGGED_LAUNCH(4, 128)
+  RAGGED_LAUNCH(1, 128)
 #undef RAGGED_LAUNCH
   return -1;
 }

@@ -5,9 +5,9 @@ reference one.
 
 The one change: ``"auto"`` decode attention resolves from the device of
 the cache tensor (``resolve_decode_attention_impl``) instead of asking a
-framework for its backend.  Only the dense attention stack of the layer
-patterns is runnable in this package; the other mixers and FFN kinds are
-kept so configs stay comparable, and ``repro_torch.models.model`` raises
+framework for its backend.  Only attention positions with a dense or MoE
+FFN are runnable in this package; the other mixers are kept so configs
+stay comparable, and ``repro_torch.models.model`` raises
 ``NotImplementedError`` on them.
 """
 

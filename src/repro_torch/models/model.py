@@ -3,10 +3,10 @@
 The layer stack is ``cfg.group_pattern`` repeated ``cfg.num_groups`` times
 with parameters (and caches) stacked over a leading group dim, as in
 ``repro.models.model``; the reference's ``lax.scan`` over groups is a
-Python loop here.  Only attention + dense-FFN positions with the bshd cache
-layout are ported; MoE, Mamba and cross-attention positions, the bhsd
-layout and ``decode_unroll_layers`` raise ``NotImplementedError`` (see
-ROADMAP.md, queue 1, M8).
+Python loop here.  Attention positions with a dense or MoE FFN
+(``models.moe``) and the bshd cache layout are ported; Mamba and
+cross-attention positions, the bhsd layout and ``decode_unroll_layers``
+raise ``NotImplementedError`` (see ROADMAP.md, queue 1, M8).
 
 Every norm is the fused residual-add + RMSNorm (``kernels.rmsnorm``): the
 residual add of each branch is deferred to the next norm site, and the
@@ -26,13 +26,14 @@ from repro_torch.kernels import resolve_device
 from repro_torch.kernels.rmsnorm import fused_rmsnorm
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import moe_block, moe_specs
 from repro_torch.models.params import Spec, map_tree, stack_specs
 
 
 def check_supported(cfg: ModelConfig):
     """Raise on the parts of ``ModelConfig`` this package does not run."""
     for mixer, ffn in cfg.group_pattern:
-        if mixer != "attn" or ffn not in ("dense", "none"):
+        if mixer != "attn" or ffn not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: ({mixer}, {ffn}) positions are not ported yet "
                 "(ROADMAP.md, queue 1, M8)")
@@ -54,8 +55,8 @@ def check_supported(cfg: ModelConfig):
 def _position_specs(cfg: ModelConfig, mixer: str, ffn: str):
     s = {"pre_norm": L.rmsnorm_specs(cfg.d_model),
          "mixer": L.attention_specs(cfg)}
-    if ffn == "dense":
-        s["ffn"] = L.ffn_specs(cfg)
+    if ffn != "none":
+        s["ffn"] = L.ffn_specs(cfg) if ffn == "dense" else moe_specs(cfg)
         s["ffn_norm"] = L.rmsnorm_specs(cfg.d_model)
     return s
 
@@ -104,15 +105,18 @@ def _apply_position(cfg: ModelConfig, ffn: str, p, x, delta, *, positions,
                     pos_cache, kv_lens, rope):
     """One (attn, ffn) layer.  ``x`` is the residual stream and ``delta``
     the previous branch's output, not yet added: the fused kernel adds it
-    while it normalizes.  Returns (x, delta, pos_cache)."""
+    while it normalizes.  Returns (x, delta, pos_cache); an MoE FFN's
+    load-balance loss is not needed for serving and is dropped."""
     x, h = fused_rmsnorm(delta, x, p["pre_norm"], eps=cfg.norm_eps)
     out, pos_cache = L.attention_block(
         p["mixer"], h, cfg, positions=positions, cache=pos_cache,
         kv_lens=kv_lens, rope=rope)
-    if ffn != "dense":
+    if ffn == "none":
         return x, out, pos_cache
     x, h2 = fused_rmsnorm(out, x, p["ffn_norm"], eps=cfg.norm_eps)
-    return x, L.ffn_block(p["ffn"], h2, cfg), pos_cache
+    if ffn == "dense":
+        return x, L.ffn_block(p["ffn"], h2, cfg), pos_cache
+    return x, moe_block(p["ffn"], h2, cfg)[0], pos_cache
 
 
 def _run_groups(cfg: ModelConfig, params, x, *, positions, cache, kv_lens):

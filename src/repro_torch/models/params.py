@@ -49,6 +49,12 @@ def tree_leaves(tree):
     return [tree]
 
 
+# elements drawn in fp32 at a time: a larger leaf (an MoE config's stacked
+# expert weights hold billions) is drawn in chunks of this many, so the
+# fp32 draw never takes more than 4 GiB beside the leaf itself
+INIT_CHUNK = 1 << 30
+
+
 def _init_one(spec: Spec, generator: torch.Generator, dtype, device):
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
@@ -57,9 +63,14 @@ def _init_one(spec: Spec, generator: torch.Generator, dtype, device):
     # same std rule as the reference: the leading dim is the fan-in
     fan_in = spec.shape[0] if spec.shape else 1
     std = spec.scale / np.sqrt(max(fan_in, 1))
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x * std).to(dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for start in range(0, flat.numel(), INIT_CHUNK):
+        n = min(INIT_CHUNK, flat.numel() - start)
+        x = torch.randn(n, generator=generator, dtype=torch.float32,
+                        device=device)
+        flat[start:start + n] = x.mul_(std)
+    return out
 
 
 def init_params(specs, generator: torch.Generator, dtype=torch.float32,

@@ -143,11 +143,13 @@ def test_prefill_and_decode_match_reference_fp32(arch, impl):
 @pytest.mark.parametrize("arch", DENSE)
 def test_prefill_and_decode_match_reference_bf16(arch):
     """bf16 on the smoke configs as the reference defines them (one layer).
-    The two frameworks round at different points in bf16 (the reference
-    rounds the attention scores' einsum to bf16, the port keeps scores in
-    fp32), so the gap grows with depth: over three seeds a second layer
-    takes the worst logit gap from 0.4-0.7% to up to 2.5% of the logits'
-    scale, past the 2e-2 band at some elements."""
+    At a second layer some elements leave the 2e-2 band, and that is no
+    port fault: where bf16 is rounded is XLA's choice, and the reference
+    parts from itself by as much when that choice changes (neither fp32
+    scores nor the reference's rounding of the norm's sum close the gap).
+    Two layers are held instead to the reference's fp32 logits from the
+    same bf16-valued params, against the reference's own bf16 gap to them,
+    in ``tests/test_torch_bf16_depth.py``."""
     jc = dataclasses.replace(jax_get_smoke(arch), dtype="bfloat16",
                              decode_cache_update="scatter")
     tc = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16",

@@ -244,11 +244,14 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
 
 
 # ----------------------------------------------------------------------------
-# K1 and K3 at the (G, D) pairs of internlm2-1.8b (16 / 8 heads of 128) and
-# gemma-7b (16 / 16 heads of 256), over the edge cases of (8, 128) above
+# K1 and K3 at the (G, D) pairs of internlm2-1.8b (16 / 8 heads of 128),
+# gemma-7b (16 / 16 heads of 256), mixtral-8x7b (32 / 8 heads of 128) and
+# moonshot-v1-16b-a3b (16 / 16 heads of 128), over the edge cases of
+# (8, 128) above
 # ----------------------------------------------------------------------------
 
-NEW_PAIRS = {"g2d128": (16, 8, 128), "g1d256": (16, 16, 256)}
+NEW_PAIRS = {"g2d128": (16, 8, 128), "g1d256": (16, 16, 256),
+             "g4d128": (32, 8, 128), "g1d128": (16, 16, 128)}
 
 
 @pytest.mark.gpu
@@ -298,7 +301,7 @@ def test_ragged_kernel_new_pairs_bit_equal_and_stale_rows(cuda, pair, dtype):
 @pytest.mark.parametrize("b,s,win", FLASH_SHAPES + RING_SHAPES)
 @pytest.mark.parametrize("pair", sorted(NEW_PAIRS))
 def test_flash_kernel_new_pairs_match_plain(cuda, pair, b, s, win, dtype):
-    """A block holds 64 / G positions (32 at G = 2, 64 at G = 1) over 64-key
+    """A block holds 64 / G positions (32 at G = 2, 16 at G = 4, 64 at G = 1) over 64-key
     tiles: the cases cross a block's and a tile's edges, partial and last
     tiles, and windows across them."""
     hq, hkv, d = NEW_PAIRS[pair]
@@ -328,10 +331,10 @@ def test_flash_kernel_new_pairs_read_strided_views(cuda, pair):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hq,hkv,d", [(16, 4, 128), (16, 16, 128),
+@pytest.mark.parametrize("hq,hkv,d", [(16, 1, 128), (16, 4, 256),
                                       (16, 8, 256), (16, 2, 256)])
 def test_attention_kernels_refuse_pairs_outside_their_shapes(cuda, hq, hkv, d):
-    """(G, D) = (4, 128), (1, 128), (2, 256), (8, 256): no instance, a
+    """(G, D) = (16, 128), (4, 256), (2, 256), (8, 256): no instance, a
     ValueError from each wrapper before any launch."""
     before = dict(K.LAUNCHES)
     q = _randn((2, hq, d), torch.bfloat16, cuda, 0)
@@ -1902,3 +1905,106 @@ def test_run_controlled_on_the_card_equals_the_oracle(cuda, mode):
     assert card.actions == ora.actions
     np.testing.assert_allclose(card.waits, ora.waits, rtol=0, atol=1e-9)
     assert abs(card.objective - ora.objective) <= 1e-9
+
+
+# ----------------------------------------------------------------------------
+# The MoE family: the MoE block on the card, and a small MoE model's decode
+# chunk as a graph replay against the eager loop
+# ----------------------------------------------------------------------------
+
+def _moe_cfg(**kw):
+    """mixtral's pattern at (G, D) = (4, 128): 2 layers, 4 experts, window
+    32 below the engines' max_seq (K1 runs on the ring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import scaled_down
+    base = dict(num_groups=2, d_model=128, num_heads=8, num_kv_heads=2,
+                head_dim=128, moe_d_ff=128, num_experts=4,
+                decode_cache_update="scatter")
+    base.update(kw)
+    return scaled_down(get_config("mixtral-8x7b"), **base)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cf,shared", [((16, 1), 1.25, 0),
+                                             ((16, 1), 0.3, 2),
+                                             ((4, 64), 1.25, 1),
+                                             ((4, 64), 0.3, 0)])
+def test_moe_block_card_equals_cpu(cuda, shape, cf, shared, dtype):
+    """The MoE block on CUDA tensors, with no host sync, against the same
+    block on the CPU: equal drops, outputs within 2e-5 of their scale in
+    fp32 and 2e-2 in bf16 (the expert products' sums run in another order
+    on each device, over activations of a few hundred)."""
+    from repro_torch.models.moe import count_drops, moe_block, moe_specs
+    from repro_torch.models.params import init_params, map_tree
+    cfg = _moe_cfg(capacity_factor=cf, num_shared_experts=shared)
+    gen = torch.Generator().manual_seed(0)
+    p = init_params(moe_specs(cfg), gen, torch.float32, "cpu")
+    p = map_tree(lambda t: t.to(dtype), p)
+    x = _randn(shape + (cfg.d_model,), dtype, "cpu", 1)
+    with count_drops() as cpu_log:
+        ref, ref_aux = moe_block(p, x, cfg, return_aux=True)
+    pc = map_tree(lambda t: t.to(cuda), p)
+    xc = x.to(cuda)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with count_drops() as card_log:
+            out, aux = moe_block(pc, xc, cfg, return_aux=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    assert [int(n) for _, n in card_log] == [int(n) for _, n in cpu_log]
+    if cf < 1:                  # capacity below the tokens' mean load
+        assert int(cpu_log[0][1]) > 0
+    scale = max(float(ref.float().abs().max()), 1.0)
+    band = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=0,
+                               atol=band * scale)
+    torch.testing.assert_close(aux.cpu(), ref_aux, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_moe_decode_chunk_graph_replay_equals_eager_loop_with_drops(cuda):
+    """A 2-layer fp32 MoE model at (G, D) = (4, 128) with capacity factor
+    0.5 (an expert takes at most 8 of bucket 16's tokens): one decode
+    chunk as a graph replay and through the eager loop from the same
+    state, past the 32-slot window ring, gives equal tokens, carry and
+    caches; the eager loop drops assignments in its decode steps."""
+    from repro_torch.models.moe import count_drops
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving import Engine, EngineConfig
+    cfg = _moe_cfg(capacity_factor=0.5)
+    eng = Engine(cfg, EngineConfig(max_batch=16, max_seq=128,
+                                   prompt_bucket=16, decode_chunk=8),
+                 seed=3, device=cuda)
+    assert eng.new_cache(16)["pos0"]["k"].shape[2] == 32      # the ring
+    cache, kv, last, b, _ = eng.prefill_batch(_prompts(16, 0))
+    tok = last.argmax(-1).to(torch.int32)
+    prod = torch.ones(b, dtype=torch.int32, device=cuda)
+    targ = torch.full((b,), 100, dtype=torch.int32, device=cuda)
+    steps = 16
+    out = eng.decode_chunk(cache, kv, tok, prod, targ, steps)
+    assert eng.step_log[-1]["graph"] == "capture"
+    _, tok, kv, prod = out[:4]
+    cache_e = {k: {n: t.clone() for n, t in v.items()} for k, v in cache.items()}
+    state = [t.clone() for t in (tok, kv, prod)]
+    keys = torch.zeros((b, 2), dtype=torch.int64, device=cuda)
+    out, d_graph = _launch_delta(lambda: eng.decode_chunk(
+        cache, kv, tok, prod, targ, steps))
+    assert eng.step_log[-1]["graph"] == "replay"
+    with count_drops() as log:
+        (t_e, kv_e, prod_e, _, packed), d_eager = _launch_delta(
+            lambda: eng._chunk_eager(cache_e, *state, targ, keys, steps,
+                                     0.0, None))
+    assert sum(int(n) for s, n in log if s == 1) > 0, "no decode drop"
+    assert int(kv_e.max()) > 32                      # past the window
+    host = packed.cpu().numpy()
+    n = steps * b
+    np.testing.assert_array_equal(out[5], host[:n].reshape(steps, b))
+    for a, e in zip(out[1:4], (t_e, kv_e, prod_e)):
+        assert torch.equal(a, e)
+    for a, e in zip(tree_leaves(cache), tree_leaves(cache_e)):
+        assert torch.equal(a, e)
+    assert d_graph == d_eager
+    assert d_graph["ragged_decode_attention"] == steps * 2
+    assert d_graph["fused_rmsnorm"] == steps * (2 * 2 + 1)

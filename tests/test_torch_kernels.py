@@ -95,6 +95,8 @@ def _ragged_inputs(b, s, hq, hkv, d, lens, seed=0):
     (3, 200, 16, 2, 128, [1, 77, 200]),          # span not a power of two
     (4, 300, 16, 8, 128, [1, 300, 3, 150]),      # internlm2-1.8b's (2, 128)
     (4, 300, 4, 4, 256, [1, 300, 3, 150]),       # gemma-7b's (1, 256)
+    (4, 300, 16, 4, 128, [1, 300, 3, 150]),      # mixtral-8x7b's (4, 128)
+    (4, 300, 8, 8, 128, [1, 300, 3, 150]),       # moonshot-v1-16b-a3b's (1, 128)
 ])
 def test_ragged_plain_matches_pallas_and_oracle(b, s, hq, hkv, d, lens, dtype):
     q, kc, vc, ln = _ragged_inputs(b, s, hq, hkv, d, lens)
@@ -310,6 +312,8 @@ def _attn_inputs(b, s, hq, hkv, d, seed=0):
     (1, 384, 6, 3, 64, 96),
     (2, 192, 16, 8, 128, 40),      # internlm2-1.8b's (G, D) = (2, 128)
     (2, 192, 4, 4, 256, None),     # gemma-7b's (1, 256)
+    (2, 192, 16, 4, 128, 40),      # mixtral-8x7b's (4, 128), windowed
+    (2, 192, 8, 8, 128, None),     # moonshot-v1-16b-a3b's (1, 128)
 ])
 def test_flash_plain_matches_pallas(b, s, hq, hkv, d, win, dtype):
     """The ``test_flash_attention_sweep`` shapes of ``tests/test_kernels.py``

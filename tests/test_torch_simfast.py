@@ -517,3 +517,21 @@ def test_fast_path_m7_layers_raise(x64):
     for k in ("blocked_batches", "deferred_requests", "kv_peak",
               "allocated"):
         assert tr["memory"][k] == jr["memory"][k], k
+
+
+def test_mesh_lane_executors_raise_the_m9_message():
+    """The reference's multi-device lane executors (``sweep(lane_scan=)``,
+    ``sweep_noise(srpt_loop=)``) are not ported: each keyword raises
+    ``NotImplementedError`` naming ROADMAP.md's M9, before any work."""
+    _, tl = lats()
+    td = t_dist.UniformTokens()
+    pols = {"dynamic": t_pol.REGISTRY["dynamic"]()}
+    with pytest.raises(NotImplementedError,
+                       match=r"sweep\(lane_scan=\).*ROADMAP.md M9"):
+        t_fast.sweep(pols, [0.5], td, tl, num_requests=8,
+                     lane_scan=object(), device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"sweep_noise\(srpt_loop=\).*ROADMAP.md M9"):
+        t_fast.sweep_noise(lambda s: t_pol.REGISTRY["srpt"](), [0.5], [0.0],
+                           td, tl, num_requests=8, srpt_loop=object(),
+                           device="cpu")
