@@ -51,12 +51,14 @@ SOURCES = {
     "srpt_scan": _PKG / "srpt_scan" / "csrc" / "srpt_scan.cu",
     "backlog_scan": _PKG / "backlog_scan" / "csrc" / "backlog_scan.cu",
     "tandem_scan": _PKG / "tandem_scan" / "csrc" / "tandem_scan.cu",
+    # the Mamba2 mixer's chunk-state scan (S8)
+    "ssd_scan": _PKG / "ssd_scan" / "csrc" / "ssd_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # flags for one source only, after NVCC_FLAGS: the redesigned kernels and
-# the simulator scans report their registers, shared memory and spills
+# the scans report their registers, shared memory and spills
 # (ptxas -v) into the build log
 EXTRA_FLAGS = {
     "ragged_decode_attention": ("-Xptxas=-v",),
@@ -69,6 +71,7 @@ EXTRA_FLAGS = {
     "srpt_scan": ("-Xptxas=-v",),
     "backlog_scan": ("-Xptxas=-v",),
     "tandem_scan": ("-Xptxas=-v",),
+    "ssd_scan": ("-Xptxas=-v",),
 }
 
 LAUNCHES: Dict[str, int] = collections.Counter()

@@ -27,7 +27,9 @@
 // its own, so there is a single barrier and no serial loop.  s is formed
 // in fp32 and written in T (bit-equal to a PyTorch add, which also rounds
 // the fp32 sum once); n normalises the unrounded fp32 s held in registers,
-// as the TPU kernel does.  At the decode shape (T = 16, D = 2048 bf16: 16
+// as the TPU kernel does, or, with round_sum, s rounded to T (the model's
+// norm after a layer group, whose residual stream the reference carries
+// in T; the same for fp32).  At the decode shape (T = 16, D = 2048 bf16: 16
 // blocks of 256 threads, one vector each) the time is the launch and one
 // round trip; at the prefill shape it is the bytes, and the kernel moves
 // them as fast as a device-to-device copy of the same bytes (chip_smoke.py
@@ -62,7 +64,7 @@ template <typename T, int VPT>
 __global__ void __launch_bounds__(MAX_THREADS)
     fused_rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ r,
                          const T* __restrict__ w, T* __restrict__ s_out, T* __restrict__ n_out,
-                         int D, float eps) {
+                         int D, float eps, int round_sum) {
   constexpr int VEC = 16 / sizeof(T);
   __shared__ float partial[MAX_THREADS / 32];
   const int tpr = blockDim.x, tx = threadIdx.x, lane = tx & 31;
@@ -97,6 +99,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
         s[k][j] = to_f32(ae[j]) + to_f32(be[j]);
+        if (round_sum) s[k][j] = to_f32(from_f32(s[k][j], T()));
         sq += s[k][j] * s[k][j];
         oe[j] = from_f32(s[k][j], T());
       }
@@ -128,40 +131,42 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
 template <typename T, int VPT>
 int launch_vpt(const void* x, const void* r, const void* w, void* s, void* n, int rows, int D,
-               float eps, cudaStream_t stream) {
+               float eps, int round_sum, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   const int threads = ((D / VEC + VPT - 1) / VPT + 31) / 32 * 32;
   fused_rmsnorm_kernel<T, VPT><<<rows, threads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const T*>(w),
-      static_cast<T*>(s), static_cast<T*>(n), D, eps);
+      static_cast<T*>(s), static_cast<T*>(n), D, eps, round_sum);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* x, const void* r, const void* w, void* s, void* n, int rows, int D,
-           float eps, cudaStream_t stream) {
+           float eps, int round_sum, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   if (D % VEC != 0) return -1;
   // the fewest vectors a thread that fit the row in one block: rows of up
   // to 16,384 elements (4 fp32 vectors a thread, 2 bf16)
   const int nvec = D / VEC;
   if (D > MAX_D) return -1;
-  if (nvec <= MAX_THREADS) return launch_vpt<T, 1>(x, r, w, s, n, rows, D, eps, stream);
-  if (nvec <= 2 * MAX_THREADS) return launch_vpt<T, 2>(x, r, w, s, n, rows, D, eps, stream);
-  if constexpr (VEC == 4) return launch_vpt<T, 4>(x, r, w, s, n, rows, D, eps, stream);
+  if (nvec <= MAX_THREADS) return launch_vpt<T, 1>(x, r, w, s, n, rows, D, eps, round_sum, stream);
+  if (nvec <= 2 * MAX_THREADS) return launch_vpt<T, 2>(x, r, w, s, n, rows, D, eps, round_sum, stream);
+  if constexpr (VEC == 4) return launch_vpt<T, 4>(x, r, w, s, n, rows, D, eps, round_sum, stream);
   return -1;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, r, w, s and n all of it).  Returns
+// dtype: 0 = float32, 1 = bfloat16 (x, r, w, s and n all of it);
+// round_sum: 1 normalises s as written in that dtype.  Returns
 // cudaGetLastError() after the launch, or -1 for a shape the kernel does
 // not take (D not a multiple of 16 bytes, or above 16,384).
 extern "C" int fused_rmsnorm(const void* x, const void* r, const void* w, void* s, void* n,
-                             int rows, int D, float eps, int dtype, void* stream) {
+                             int rows, int D, float eps, int dtype, int round_sum,
+                             void* stream) {
   if (rows <= 0 || D <= 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, r, w, s, n, rows, D, eps, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, r, w, s, n, rows, D, eps, st);
+  if (dtype == 0) return launch<float>(x, r, w, s, n, rows, D, eps, round_sum, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, r, w, s, n, rows, D, eps, round_sum, st);
   return -1;
 }

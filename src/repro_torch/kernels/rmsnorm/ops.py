@@ -16,10 +16,10 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def _launch(x, residual, weight, eps):
+def _launch(x, residual, weight, eps, round_sum):
     if x.dtype not in _DTYPES or residual.dtype != x.dtype \
             or weight.dtype != x.dtype:
         raise TypeError(f"fused_rmsnorm takes fp32 or bf16 x, residual and "
@@ -45,16 +45,18 @@ def _launch(x, residual, weight, eps):
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     status = fn(x.data_ptr(), residual.data_ptr(), weight.data_ptr(),
                 s.data_ptr(), n.data_ptr(), rows, d, eps, _DTYPES[x.dtype],
-                K.stream_ptr(x))
+                int(round_sum), K.stream_ptr(x))
     K.check_status("fused_rmsnorm", status)
     K.LAUNCHES["fused_rmsnorm"] += 1
     return s, n
 
 
-def fused_rmsnorm(x, residual, weight, *, eps: float = 1e-6):
+def fused_rmsnorm(x, residual, weight, *, eps: float = 1e-6,
+                  round_sum: bool = False):
     """x, residual: [..., D]; weight: [D], stored as w - 1.  Returns
     (x + residual, rmsnorm(x + residual) * (1 + weight)) in x's dtype,
-    computed in fp32; any number of rows."""
+    computed in fp32; any number of rows.  ``round_sum`` normalises the
+    sum as returned, rounded to x's dtype (no change in fp32)."""
     if K.on_cuda(x, residual, weight):
-        return _launch(x, residual, weight, float(eps))
-    return rmsnorm_reference(x, residual, weight, eps)
+        return _launch(x, residual, weight, float(eps), round_sum)
+    return rmsnorm_reference(x, residual, weight, eps, round_sum)

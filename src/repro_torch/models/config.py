@@ -5,10 +5,10 @@ reference one.
 
 The one change: ``"auto"`` decode attention resolves from the device of
 the cache tensor (``resolve_decode_attention_impl``) instead of asking a
-framework for its backend.  Only attention positions with a dense or MoE
-FFN are runnable in this package; the other mixers are kept so configs
-stay comparable, and ``repro_torch.models.model`` raises
-``NotImplementedError`` on them.
+framework for its backend.  Attention and Mamba positions with a dense,
+MoE or no FFN are runnable in this package; cross-attention is kept so
+configs stay comparable, and ``repro_torch.models.model`` raises
+``NotImplementedError`` on it.
 """
 
 from __future__ import annotations

@@ -3,17 +3,22 @@
 The layer stack is ``cfg.group_pattern`` repeated ``cfg.num_groups`` times
 with parameters (and caches) stacked over a leading group dim, as in
 ``repro.models.model``; the reference's ``lax.scan`` over groups is a
-Python loop here.  Attention positions with a dense or MoE FFN
-(``models.moe``) and the bshd cache layout are ported; Mamba and
-cross-attention positions, the bhsd layout and ``decode_unroll_layers``
-raise ``NotImplementedError`` (see ROADMAP.md, queue 1, M8).
+Python loop here.  Attention and Mamba2 positions (``models.mamba``) with
+a dense, MoE (``models.moe``) or no FFN and the bshd cache layout are
+ported; cross-attention positions, sinusoidal positions, embedding
+inputs, the bhsd layout and ``decode_unroll_layers`` raise
+``NotImplementedError`` (see ROADMAP.md, queue 1, M8).
 
 Every norm is the fused residual-add + RMSNorm (``kernels.rmsnorm``): the
 residual add of each branch is deferred to the next norm site, and the
-last one to ``final_norm`` in the head.
+last one to ``final_norm`` in the head.  The norm at a group's first
+position and ``final_norm`` normalise that sum rounded to the activations'
+dtype (``round_sum``): the reference's scan over groups carries the
+residual stream in that dtype.  In fp32 the rounding changes nothing.
 
 Two entry points serve the engine:
-  prefill(...)      the prompt; writes the KV caches, returns last logits
+  prefill(...)      the prompt; writes the KV / SSM caches, returns last
+                    logits
   decode_step(...)  one token against the caches (updated in place)
 """
 
@@ -26,6 +31,7 @@ from repro_torch.kernels import resolve_device
 from repro_torch.kernels.rmsnorm import fused_rmsnorm
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba import mamba_block, mamba_specs
 from repro_torch.models.moe import moe_block, moe_specs
 from repro_torch.models.params import Spec, map_tree, stack_specs
 
@@ -33,7 +39,7 @@ from repro_torch.models.params import Spec, map_tree, stack_specs
 def check_supported(cfg: ModelConfig):
     """Raise on the parts of ``ModelConfig`` this package does not run."""
     for mixer, ffn in cfg.group_pattern:
-        if mixer != "attn" or ffn not in ("dense", "moe", "none"):
+        if mixer not in ("attn", "mamba") or ffn not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: ({mixer}, {ffn}) positions are not ported yet "
                 "(ROADMAP.md, queue 1, M8)")
@@ -54,7 +60,8 @@ def check_supported(cfg: ModelConfig):
 
 def _position_specs(cfg: ModelConfig, mixer: str, ffn: str):
     s = {"pre_norm": L.rmsnorm_specs(cfg.d_model),
-         "mixer": L.attention_specs(cfg)}
+         "mixer": (L.attention_specs(cfg) if mixer == "attn"
+                   else mamba_specs(cfg))}
     if ffn != "none":
         s["ffn"] = L.ffn_specs(cfg) if ffn == "dense" else moe_specs(cfg)
         s["ffn_norm"] = L.rmsnorm_specs(cfg.d_model)
@@ -78,13 +85,26 @@ def param_specs(cfg: ModelConfig):
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int):
     """Spec tree for the decode caches (stacked over groups)."""
     check_supported(cfg)
-    span = max_seq if cfg.sliding_window is None else min(
-        max_seq, cfg.sliding_window)
-    shp = (cfg.num_groups, batch, span, cfg.num_kv_heads, cfg.head_dim)
-    ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
-    return {f"pos{i}": {"k": Spec(shp, ax, init="zeros"),
-                        "v": Spec(shp, ax, init="zeros")}
-            for i in range(len(cfg.group_pattern))}
+    g = cfg.num_groups
+    tree = {}
+    for i, (mixer, _) in enumerate(cfg.group_pattern):
+        if mixer == "attn":
+            span = max_seq if cfg.sliding_window is None else min(
+                max_seq, cfg.sliding_window)
+            shp = (g, batch, span, cfg.num_kv_heads, cfg.head_dim)
+            ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+            tree[f"pos{i}"] = {"k": Spec(shp, ax, init="zeros"),
+                               "v": Spec(shp, ax, init="zeros")}
+        else:
+            ck = (g, batch, cfg.ssm_conv_kernel - 1, cfg.ssm_conv_dim)
+            ss = (g, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+            tree[f"pos{i}"] = {
+                "conv": Spec(ck, ("layers", "batch", None, "conv_dim"),
+                             init="zeros"),
+                "ssm": Spec(ss, ("layers", "batch", "ssm_heads", None,
+                                 "ssm_state"), init="zeros"),
+            }
+    return tree
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -101,16 +121,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 # Group application
 # ----------------------------------------------------------------------------
 
-def _apply_position(cfg: ModelConfig, ffn: str, p, x, delta, *, positions,
-                    pos_cache, kv_lens, rope):
-    """One (attn, ffn) layer.  ``x`` is the residual stream and ``delta``
+def _apply_position(cfg: ModelConfig, mixer: str, ffn: str, p, x, delta, *,
+                    positions, pos_cache, kv_lens, rope, first=False):
+    """One (mixer, ffn) layer.  ``x`` is the residual stream and ``delta``
     the previous branch's output, not yet added: the fused kernel adds it
-    while it normalizes.  Returns (x, delta, pos_cache); an MoE FFN's
-    load-balance loss is not needed for serving and is dropped."""
-    x, h = fused_rmsnorm(delta, x, p["pre_norm"], eps=cfg.norm_eps)
-    out, pos_cache = L.attention_block(
-        p["mixer"], h, cfg, positions=positions, cache=pos_cache,
-        kv_lens=kv_lens, rope=rope)
+    while it normalizes (rounding the sum first at a group's ``first``
+    position).  Returns (x, delta, pos_cache); an MoE FFN's load-balance
+    loss is not needed for serving and is dropped."""
+    x, h = fused_rmsnorm(delta, x, p["pre_norm"], eps=cfg.norm_eps,
+                         round_sum=first)
+    if mixer == "attn":
+        out, pos_cache = L.attention_block(
+            p["mixer"], h, cfg, positions=positions, cache=pos_cache,
+            kv_lens=kv_lens, rope=rope)
+    else:
+        out, pos_cache = mamba_block(p["mixer"], h, cfg, state=pos_cache)
     if ffn == "none":
         return x, out, pos_cache
     x, h2 = fused_rmsnorm(out, x, p["ffn_norm"], eps=cfg.norm_eps)
@@ -127,18 +152,18 @@ def _run_groups(cfg: ModelConfig, params, x, *, positions, cache, kv_lens):
     first layer adds the embeddings to a zero stream, so every norm of the
     model goes through the fused kernel."""
     rope = (L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-            if cfg.pos_embedding == "rope" else None)
+            if cfg.has_attention and cfg.pos_embedding == "rope" else None)
     x, delta = torch.zeros_like(x), x
     for g in range(cfg.num_groups):
         gparams = map_tree(lambda leaf: leaf[g], params["groups"])
-        for i, (_, ffn) in enumerate(cfg.group_pattern):
+        for i, (mixer, ffn) in enumerate(cfg.group_pattern):
             key = f"pos{i}"
             pos_cache = None
             if cache is not None:
-                pos_cache = {"k": cache[key]["k"][g], "v": cache[key]["v"][g]}
+                pos_cache = {name: leaf[g] for name, leaf in cache[key].items()}
             x, delta, _ = _apply_position(
-                cfg, ffn, gparams[key], x, delta, positions=positions,
-                pos_cache=pos_cache, kv_lens=kv_lens, rope=rope)
+                cfg, mixer, ffn, gparams[key], x, delta, positions=positions,
+                pos_cache=pos_cache, kv_lens=kv_lens, rope=rope, first=i == 0)
     return x, delta
 
 
@@ -159,7 +184,8 @@ def _embed_inputs(cfg: ModelConfig, params, tokens):
 
 
 def _head(cfg: ModelConfig, params, x, delta):
-    _, x = fused_rmsnorm(delta, x, params["final_norm"], eps=cfg.norm_eps)
+    _, x = fused_rmsnorm(delta, x, params["final_norm"], eps=cfg.norm_eps,
+                         round_sum=True)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x, w.to(x.dtype))
     if cfg.logits_fp32:

@@ -13,11 +13,12 @@ What is held here is the meaningful quantity: from the same bf16-valued
 params, the reference in fp32 gives the logits bf16 approximates.  The
 port's bf16 gap to them, max |port - fp32| / max |fp32| over prefill and
 four greedy decode steps, must be at most ``MULTIPLE`` times the
-reference's own bf16 gap to the same fp32 logits.  Over the six configs
-and seeds 0-5 the ratio measured 0.71-1.23 (the gaps themselves 3-53%, the
+reference's own bf16 gap to the same fp32 logits.  Over the eight configs
+and seeds 0-5 the ratio measured 0.77-1.45 (the gaps themselves 2-158%, the
 smoke inits' residual stream of ~900 amplifying bf16 rounding), so 1.5
 leaves room for a seed's spread while a port that rounded worse than the
-reference by half again would fail."""
+reference by half again would fail.  jamba runs one group of its 8-layer
+pattern, its smallest stack."""
 
 import dataclasses
 
@@ -37,7 +38,7 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.params import params_from_numpy  # noqa: E402
 
 ARCHS = ("qwen2.5-3b", "internlm2-1.8b", "yi-9b", "gemma-7b", "mixtral-8x7b",
-         "moonshot-v1-16b-a3b")
+         "moonshot-v1-16b-a3b", "mamba2-2.7b", "jamba-1.5-large-398b")
 MULTIPLE = 1.5
 STEPS = 4
 
@@ -63,7 +64,9 @@ def _reference_logits(jc, params, dtype, toks, lens, feed):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_two_layer_bf16_gap_to_fp32_within_the_reference_gap(arch, seed):
-    kw = dict(num_layers=2, decode_cache_update="scatter")
+    # two layers; jamba's smallest stack is one group of its 8-layer pattern
+    layers = max(2, len(jax_get_smoke(arch).group_pattern))
+    kw = dict(num_layers=layers, decode_cache_update="scatter")
     jb = dataclasses.replace(jax_get_smoke(arch), dtype="bfloat16", **kw)
     jf = dataclasses.replace(jax_get_smoke(arch), **kw)
     tb = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16", **kw)

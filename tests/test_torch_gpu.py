@@ -9,7 +9,8 @@ Tolerances: 2e-5 in fp32; in bf16 4e-3 plus 8e-3 relative, one bf16 ulp
 of the output (both sides compute in fp32 and differ only in the final
 rounding); the gather, the fused norm's residual sum, the simulators'
 float64 scans and batch-event loops (S1-S5), the fleet's routing scan
-(S6) and the memory-gated tandem loop (S7) are bit-equal."""
+(S6), the memory-gated tandem loop (S7) and the SSD's chunk-state scan
+(S8) are bit-equal."""
 
 import contextlib
 
@@ -388,6 +389,25 @@ def test_rmsnorm_kernel_strided_and_3d_inputs(cuda, dtype):
     _check_rmsnorm(_randn((2, 9, 2048), dtype, cuda, 3),
                    _randn((2, 9, 2048), dtype, cuda, 4),
                    _randn((2048,), dtype, cuda, 5) * 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 16, 4096])
+def test_rmsnorm_kernel_round_sum_matches_plain(cuda, rows, dtype):
+    """``round_sum`` (the norm after a layer group) normalises the sum as
+    written in x's dtype: bf16 within its band of the plain version, fp32
+    bit-equal to the unrounded norm."""
+    x = _randn((rows, 2560), dtype, cuda, 0) * 3
+    r = _randn((rows, 2560), dtype, cuda, 1)
+    w = _randn((2560,), dtype, cuda, 2) * 0.1
+    s, n = fused_rmsnorm(x, r, w, eps=1e-5, round_sum=True)
+    assert torch.equal(s, x + r)
+    torch.testing.assert_close(
+        n.float(), rmsnorm_reference(x, r, w, 1e-5, True)[1].float(),
+        **TOL[dtype])
+    if dtype == torch.float32:
+        assert torch.equal(n, fused_rmsnorm(x, r, w, eps=1e-5)[1])
 
 
 @pytest.mark.gpu
@@ -2008,3 +2028,92 @@ def test_moe_decode_chunk_graph_replay_equals_eager_loop_with_drops(cuda):
     assert d_graph == d_eager
     assert d_graph["ragged_decode_attention"] == steps * 2
     assert d_graph["fused_rmsnorm"] == steps * (2 * 2 + 1)
+
+
+# ----------------------------------------------------------------------------
+# The SSD chunk-state scan (S8) and the state-space families
+# ----------------------------------------------------------------------------
+
+def _ssd_scan_inputs(b, c, h, p, n, dev, seed):
+    rng = np.random.default_rng(seed)
+    decay = torch.from_numpy(
+        np.exp(-rng.random((b, c, h)) * 4).astype(np.float32)).to(dev)
+    states = torch.from_numpy(
+        rng.standard_normal((b, c, h, p, n)).astype(np.float32)).to(dev)
+    h0 = torch.from_numpy(
+        rng.standard_normal((b, h, p, n)).astype(np.float32)).to(dev)
+    return decay, states, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("c", [1, 3, 8])
+def test_ssd_scan_kernel_bit_equal_to_plain(cuda, c, with_h0):
+    """mamba2-2.7b's 80 heads of 64 x 128 at two batch rows, and an odd
+    shape whose state count is no multiple of the thread block."""
+    from repro_torch.kernels.ssd_scan import (
+        ssd_state_scan, ssd_state_scan_reference)
+    for shape in ((2, c, 80, 64, 128), (3, c, 5, 7, 9)):
+        decay, states, h0 = _ssd_scan_inputs(*shape, cuda, seed=c)
+        h0 = h0 if with_h0 else None
+        before = K.LAUNCHES["ssd_scan"]
+        hb, ht = ssd_state_scan(decay, states, h0)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["ssd_scan"] == before + 1
+        rb, rt = ssd_state_scan_reference(decay, states, h0)
+        assert hb.shape == states.shape and ht.shape == states[:, 0].shape
+        assert torch.equal(hb, rb) and torch.equal(ht, rt)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_state_scan
+    decay, states, h0 = _ssd_scan_inputs(2, 3, 4, 5, 6, cuda, seed=0)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(TypeError, match="fp32"):
+        ssd_state_scan(decay.double(), states.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_state_scan(decay, states.transpose(3, 4))
+    with pytest.raises(ValueError, match="devices"):
+        ssd_state_scan(decay, states, h0.cpu())
+    assert dict(K.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_ssm_smoke_engines_card_equal_cpu(cuda, arch):
+    """mamba2's smoke config and jamba's pattern at (G, D) = (4, 128) (the
+    attention kernels' built instance), fp32, elastic, decode chunks as
+    graphs (a capture, then replays on a second batch), compacting the
+    conv and SSM leaves: the card's greedy tokens equal the CPU's, and the
+    prefills ran S8."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.config import scaled_down
+    from repro_torch.models.params import map_tree
+    from repro_torch.serving import Engine, EngineConfig
+    if arch.startswith("jamba"):
+        cfg = scaled_down(get_config(arch), d_model=128, num_heads=8,
+                          num_kv_heads=2, head_dim=128, d_ff=256,
+                          moe_d_ff=128, num_experts=4, ssm_n_groups=2,
+                          decode_cache_update="scatter")
+    else:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  decode_cache_update="scatter")
+    ecfg = EngineConfig(max_batch=8, max_seq=128, prompt_bucket=16,
+                        decode_chunk=8)
+    gpu = Engine(cfg, ecfg, seed=3, device=cuda)
+    cpu = Engine(cfg, ecfg, device="cpu",
+                 params=map_tree(lambda t: t.cpu(), gpu.params))
+    targets = [20, 3, 9, 14, 2, 30]
+    for seed in (1, 2):
+        prompts = _prompts(6, seed, vocab=cfg.vocab_size)
+        (rg, d), rc = _launch_delta(lambda: gpu.generate(
+            prompts, targets, elastic=True, return_tokens=True)), \
+            cpu.generate(prompts, targets, elastic=True, return_tokens=True)
+        assert rg["tokens"] == rc["tokens"]
+        assert list(rg["produced"]) == targets
+        assert d["ssd_scan"] == cfg.num_layers - (cfg.num_layers // 8
+                                                   if arch.startswith("jamba")
+                                                   else 0)
+        assert d["gather_rows"] > 0 and d["fused_rmsnorm"] > 0

@@ -40,7 +40,10 @@ def test_port_files_found():
                 "core/sessions.py", "serving/resilience.py",
                 "core/memory.py", "kernels/tandem_scan/ops.py",
                 "kernels/tandem_scan/ref.py",
-                "kernels/tandem_scan/csrc/tandem_scan.cu"):
+                "kernels/tandem_scan/csrc/tandem_scan.cu",
+                "models/mamba.py", "configs/mamba2_2_7b.py",
+                "configs/jamba_1_5_large_398b.py", "kernels/ssd_scan/ops.py",
+                "kernels/ssd_scan/ref.py", "kernels/ssd_scan/csrc/ssd_scan.cu"):
         assert port / rel in PORT_FILES or (
             rel.endswith(".cu") and (port / rel).is_file()), rel
 
@@ -50,7 +53,7 @@ def test_every_kernel_source_is_registered():
     launch counter that ``reset_launches`` zeroes."""
     from repro_torch import kernels as K
     sources = sorted((ROOT / "src" / "repro_torch" / "kernels").rglob("*.cu"))
-    assert sorted(K.SOURCES.values()) == sources and len(sources) == 11
+    assert sorted(K.SOURCES.values()) == sources and len(sources) == 12
     K.reset_launches()
     assert {K.LAUNCHES[name] for name in K.SOURCES} == {0}
 
