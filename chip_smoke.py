@@ -4,17 +4,19 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the eleven hand-written kernels from
+  1. build the twelve hand-written kernels from
      ``src/repro_torch/kernels/*/csrc`` with nvcc into ``build/kernels/``,
      one nvcc per source, all started together, and print
      the registers, shared memory and spills ptxas reports for the two
      attention kernels, K4 and the seven simulator kernels;
   2. hold each serving kernel against its plain PyTorch version on the card, at the
      shapes qwen2.5-3b serving gives it (K1 and K3 also at the (G, D)
-     instances of internlm2-1.8b, gemma-7b, mixtral-8x7b and
-     moonshot-v1-16b-a3b), and time kernel, plain version, one PyTorch
+     instances of internlm2-1.8b, gemma-7b, mixtral-8x7b,
+     moonshot-v1-16b-a3b and musicgen-large, K1 at llama-3.2-vision-90b's
+     cross-attention shape), and time kernel, plain version, one PyTorch
      library call and the bound (K1 and K3 also at each config's serving
-     shape, K1 at S = 1024 for the MoE configs; K3 also as TFLOP/s and
+     shape, K1 at S = 1024 for the MoE configs and at the cross-attention
+     shape, B = 16, S = 6,400, every length 6,400; K3 also as TFLOP/s and
      share of the bound; K1 with its split count and grid; K4 at T = 1,
      16, 64 and 4096 rows, with and without ``round_sum``); hold S8, the
      SSD's chunk-state scan, bit for bit to its plain version at
@@ -30,7 +32,11 @@ Phases (any failure raises and the script exits non-zero):
      token for token, with assignments dropped at capacity; then jamba's
      hybrid pattern (attention + MoE, seven Mamba layers) at (G, D) = (4,
      128), card (K1-K4 and S8) against CPU, greedy, token for token,
-     through elastic compaction of the K/V, conv and SSM leaves;
+     through elastic compaction of the K/V, conv and SSM leaves; then
+     small fp32 models of llama-3.2-vision-90b's pattern at (4, 128)
+     (image embeddings, non-zero gates, through ``prefill(cross_kv=)``,
+     decode chunks and compactions of the image K/V), musicgen-large's
+     at (1, 64) and qwen's with bhsd caches, card against CPU, greedy;
   4. serve qwen2.5-3b at full width (random bf16 weights from a seed)
      through ``run_engine_schedule`` with elastic, then dynamic batching
      (every bucket that runs replays a graph), then multi-bin (4 bins),
@@ -79,6 +85,19 @@ Phases (any failure raises and the script exits non-zero):
      (the bf16 weights' read and the SSM state's read and write), one
      decode chunk of 8 steps at bucket 16 profiled by kind of kernel, and
      one long prefill of 4 prompts of 2,048 tokens (S8 at C = 8), timed;
+  4v. after phase 4s, serve the same 12 requests on musicgen-large whole
+     (48 layers, 32/32 heads of 64, sinusoidal positions, 2.42 B params),
+     as 4e (K1-K4, K1 and K3 at (1, 64)), its bucket-16 step beside the
+     floor of its weights' read; then llama-3.2-vision-90b at 4 of its 20
+     groups (16 self- and 4 cross-attention layers, full layer width,
+     19.21 B params, random bf16 weights made on the card with every gate
+     non-zero): one ``prefill(cross_kv=)`` of phase 4's first 16 prompts
+     with random bf16 patch embeddings [16, 6,400, 8,192] on the engine's
+     own bucket-16 cache (K3, K4), decode chunks of 32 steps as graph
+     replays (K1 on the self- and the cross-attention), one compaction 16
+     -> 8 (K2, the image K/V included): decode ms a step by bucket
+     against the weights' and image K/V's read, the prefill's ms, the
+     peak (under 75 GiB), no non-finite logits;
   5. run the adaptive-control serving launcher
      (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width;
   7. run the paper's simulators (``repro_torch.core.fastsim``) on the card:
@@ -124,7 +143,7 @@ Phases (any failure raises and the script exits non-zero):
      record ``pr9_sessions`` (``bench_sessions.py``: router x prefix
      discount on S6 and S1, and the feedback amplification on S1), each
      figure within 1e-9 s of the record and the benchmark's relations
-     asserted, then a 15,000-session single-server cell per batch kernel
+     asserted, then a 4,000-session single-server cell per batch kernel
      (S1, S3, S4, S5) and session model (geometric, chain), each held to
      the NumPy oracle on host processes within 1e-9 s, its passes and
      launches printed, and every launch's device time in the path;
@@ -182,12 +201,17 @@ TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=4e-3, rtol=8e-3)}
 
 # the (Hq, Hkv, D) each ported config gives the attention kernels: (G, D) =
-# (8, 128) for qwen2.5-3b and yi-9b, (2, 128) for internlm2-1.8b, (1, 256)
-# for gemma-7b, (4, 128) for mixtral-8x7b, (1, 128) for moonshot-v1-16b-a3b
+# (8, 128) for qwen2.5-3b, yi-9b and llama-3.2-vision-90b, (2, 128) for
+# internlm2-1.8b, (1, 256) for gemma-7b, (4, 128) for mixtral-8x7b, (1,
+# 128) for moonshot-v1-16b-a3b, (1, 64) for musicgen-large
 ATTN_HEADS = {"qwen2.5-3b": (16, 2, 128), "internlm2-1.8b": (16, 8, 128),
               "yi-9b": (32, 4, 128), "gemma-7b": (16, 16, 256),
               "mixtral-8x7b": (32, 8, 128),
-              "moonshot-v1-16b-a3b": (16, 16, 128)}
+              "moonshot-v1-16b-a3b": (16, 16, 128),
+              "musicgen-large": (32, 32, 64),
+              "llama-3.2-vision-90b": (64, 8, 128)}
+VISION_ARCH, AUDIO_ARCH = "llama-3.2-vision-90b", "musicgen-large"
+VISION_SEQ = 6400          # llama-3.2-vision-90b's image positions
 MOE_ARCHS = ("mixtral-8x7b", "moonshot-v1-16b-a3b")
 # the kernels of the model's serving path (the other two are the
 # simulators' scans, phase 7)
@@ -337,10 +361,40 @@ def _ragged_checks(dev, rng, hq, hkv, d, label):
     return max_err
 
 
-def _ragged_timing(dev, lens, hq, hkv, d, label, s=2048):
+def _ragged_cross_check(dev):
+    """K1 at the vision model's cross-attention shape against its plain
+    version: 64 / 8 heads of 128, B = 16, S = 6,400, every length 6,400,
+    in bf16 and fp32; two calls bit-equal.  Returns the largest |kernel -
+    plain| by dtype."""
+    import torch
+    from repro_torch.kernels.ragged_decode_attention import (
+        decode_attention_reference, ragged_decode_attention)
+    hq, hkv, d = ATTN_HEADS[VISION_ARCH]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    ln = torch.full((16,), VISION_SEQ, dtype=torch.int32, device=dev)
+    max_err = {}
+    for dtype in ("bfloat16", "float32"):
+        td = getattr(torch, dtype)
+        q = torch.randn(16, hq, d, generator=gen, device=dev).to(td)
+        kc, vc = (torch.randn(16, VISION_SEQ, hkv, d, generator=gen,
+                              device=dev).to(td) for _ in range(2))
+        out = ragged_decode_attention(q, kc, vc, ln)
+        ref = decode_attention_reference(q, kc, vc, ln)
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+        assert torch.equal(ragged_decode_attention(q, kc, vc, ln), out)
+        max_err[dtype] = float((out.float() - ref.float()).abs().max())
+        log(f"K1 ragged_decode_attention {VISION_ARCH} cross-attention (G, D) "
+            f"= ({hq // hkv}, {d}) B=16 S={VISION_SEQ} every length "
+            f"{VISION_SEQ} {dtype}: max |kernel - plain| = "
+            f"{max_err[dtype]:.3e}")
+        del q, kc, vc, out, ref
+    return max_err
+
+
+def _ragged_timing(dev, lens, hq, hkv, d, label, s=2048, copies=4):
     """K1 at a serving shape: B = len(lens), cache span S, bf16, the given
-    lengths; four cache copies in rotation so each launch reads past the
-    50 MB L2.  Kernel, plain version, SDPA (length mask, GQA) and the
+    lengths; ``copies`` cache copies in rotation so each launch reads past
+    the 50 MB L2.  Kernel, plain version, SDPA (length mask, GQA) and the
     bytes bound."""
     import torch
     import torch.nn.functional as F
@@ -351,7 +405,7 @@ def _ragged_timing(dev, lens, hq, hkv, d, label, s=2048):
     q = torch.randn(b, hq, d, device=dev, dtype=torch.bfloat16)
     caches = [(torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16),
                torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16))
-              for _ in range(4)]
+              for _ in range(copies)]
     mask = (torch.arange(s, device=dev)[None, :] < ln[:, None])[:, None, None, :]
     ms = time_ms(rotating(lambda k, v: ragged_decode_attention(q, k, v, ln),
                           caches))
@@ -372,19 +426,21 @@ def _ragged_timing(dev, lens, hq, hkv, d, label, s=2048):
         f"({splits}, {hkv}, {b}) = {splits * hkv * b} blocks on 132 SMs, then "
         f"a combine grid of {hkv * b}")
     del caches
-    return {"G": hq // hkv, "D": d, "S": s, "ms": ms[1],
-            "plain_ms": plain_ms[1], "library_ms": lib_ms[1], "bound_ms": bnd,
-            "splits": splits}
+    return {"G": hq // hkv, "D": d, "B": b, "S": s, "kv_rows": kv_rows,
+            "ms": ms[1], "plain_ms": plain_ms[1], "library_ms": lib_ms[1],
+            "bound_ms": bnd, "splits": splits}
 
 
 def check_ragged(dev):
     """K1 at each (G, D) instance against its plain version (qwen2.5-3b's
     heads for (8, 128), internlm2-1.8b's for (2, 128), gemma-7b's for (1,
     256), mixtral-8x7b's for (4, 128), moonshot-v1-16b-a3b's for (1,
-    128)), then timed at each ported config's serving shape (S = 2048 for
-    the dense configs, phase 4e's S = 1024 for the MoE ones); the JSON
-    entry's figures are qwen2.5-3b's, the other configs' under
-    ``shapes``."""
+    128), musicgen-large's for (1, 64)), then timed at each ported
+    config's serving shape (S = 2048 for the dense configs, musicgen and
+    llama-3.2-vision-90b's self-attention, phase 4e's S = 1024 for the MoE
+    ones) and at the vision model's cross-attention shape (B = 16, S =
+    6,400, every length 6,400); the JSON entry's figures are
+    qwen2.5-3b's, the other configs' under ``shapes``."""
     rng = np.random.default_rng(0)
     max_err = dict(_ragged_checks(dev, rng, *ATTN_HEADS["qwen2.5-3b"],
                                   "qwen2.5-3b"))
@@ -392,16 +448,24 @@ def check_ragged(dev):
     lens = (rng.integers(16, 257, 16) + rng.integers(0, 513, 16)).astype(np.int32)
     shapes = {"qwen2.5-3b": _ragged_timing(dev, lens, *ATTN_HEADS["qwen2.5-3b"],
                                            "qwen2.5-3b")}
-    for arch in ("internlm2-1.8b", "gemma-7b") + MOE_ARCHS:
+    for arch in ("internlm2-1.8b", "gemma-7b") + MOE_ARCHS + (AUDIO_ARCH,):
         err = _ragged_checks(dev, np.random.default_rng(1), *ATTN_HEADS[arch],
                              arch)
         for k, v in err.items():
             max_err[k] = max(max_err[k], v)
-    for arch in ("internlm2-1.8b", "yi-9b", "gemma-7b"):
+    # the cross-attention shape: the image K/V, every length vision_seq
+    err = _ragged_cross_check(dev)
+    for k, v in err.items():
+        max_err[k] = max(max_err[k], v)
+    for arch in ("internlm2-1.8b", "yi-9b", "gemma-7b", AUDIO_ARCH,
+                 VISION_ARCH):
         shapes[arch] = _ragged_timing(dev, lens, *ATTN_HEADS[arch], arch)
     for arch in MOE_ARCHS:
         shapes[arch] = _ragged_timing(dev, lens, *ATTN_HEADS[arch], arch,
                                       s=1024)
+    shapes[f"{VISION_ARCH} cross"] = _ragged_timing(
+        dev, np.full(16, VISION_SEQ, np.int32), *ATTN_HEADS[VISION_ARCH],
+        f"{VISION_ARCH} cross-attention", s=VISION_SEQ, copies=2)
     qw = shapes["qwen2.5-3b"]
     return {"name": "ragged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/ragged_decode_attention/csrc/"
@@ -534,8 +598,9 @@ def _flash_timing(dev, b, s, hq, hkv, d, label):
 def check_flash(dev):
     """K3 at each (G, D) instance against its plain version (as K1), timed
     at qwen2.5-3b's B = 16, S = 256 and B = 1, S = 8192 and at each other
-    config's B = 16, S = 256; the JSON entry's figures are qwen's serving
-    shape, the others under ``shapes``."""
+    config's B = 16, S = 256 (musicgen-large's (1, 64) and
+    llama-3.2-vision-90b's self-attention among them); the JSON entry's
+    figures are qwen's serving shape, the others under ``shapes``."""
     rng = np.random.default_rng(2)
     max_err = dict(_flash_checks(dev, rng, *ATTN_HEADS["qwen2.5-3b"],
                                  "qwen2.5-3b"))
@@ -545,12 +610,13 @@ def check_flash(dev):
               "qwen2.5-3b long": _flash_timing(dev, 1, 8192,
                                                *ATTN_HEADS["qwen2.5-3b"],
                                                "qwen2.5-3b")}
-    for arch in ("internlm2-1.8b", "gemma-7b") + MOE_ARCHS:
+    for arch in ("internlm2-1.8b", "gemma-7b") + MOE_ARCHS + (AUDIO_ARCH,):
         err = _flash_checks(dev, np.random.default_rng(3), *ATTN_HEADS[arch],
                             arch)
         for k, v in err.items():
             max_err[k] = max(max_err[k], v)
-    for arch in ("internlm2-1.8b", "yi-9b", "gemma-7b") + MOE_ARCHS:
+    for arch in ("internlm2-1.8b", "yi-9b", "gemma-7b") + MOE_ARCHS + (
+            AUDIO_ARCH, VISION_ARCH):
         shapes[arch] = _flash_timing(dev, 16, 256, *ATTN_HEADS[arch], arch)
     qw = shapes["qwen2.5-3b"]
     return {"name": "flash_attention", "route": "cuda",
@@ -870,6 +936,140 @@ def check_small_jamba(dev):
         f"CPU; compactions to buckets {compacts}; launches {launches}")
     assert rg["tokens"] == rc["tokens"], "card and CPU jamba engines disagree"
     assert compacts, "no compaction ran"
+
+
+def set_gates(cfg, params, seed=0):
+    """Every ``attn_gate`` and ``ffn_gate`` of a cross-attention model's
+    params to values drawn in [0.5, 1.5]: they init to 0, and tanh(0) = 0
+    would make every cross-attention branch add exactly nothing."""
+    rng = np.random.default_rng(seed)
+    for i, (mixer, _) in enumerate(cfg.group_pattern):
+        if mixer == "cross_attn":
+            pos = params["groups"][f"pos{i}"]
+            for leaf in (pos["mixer"]["attn_gate"], pos["ffn_gate"]):
+                leaf.copy_(leaf.new_tensor(rng.uniform(0.5, 1.5, leaf.shape)))
+
+
+def vlm_stream(engine, toks, lens, image, targets, steps=8):
+    """A vision model's path through the engine, which feeds no image
+    embeddings itself: ``prefill(cross_kv=)`` into the engine's own cache
+    of the bucket, decode chunks (graphs on the card), a fused compaction
+    (the image K/V too) once at most half the slots are live, more
+    chunks.  ``toks``/``lens``/``image`` are tensors on the engine's
+    device.  Returns (the greedy tokens each slot emitted, the prefill's
+    last logits, its seconds)."""
+    import torch
+    from repro_torch.models.model import prefill
+    b, dev = toks.shape[0], engine.device
+    cache = engine.new_cache(b)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = prefill(engine.cfg, engine.params, toks, cross_kv=image,
+                          cache=cache, prompt_lens=lens)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = torch.argmax(last, -1).to(torch.int32)
+    out = [[int(t)] for t in tok.cpu()]
+    kv = lens.clone()
+    produced = torch.ones(b, dtype=torch.int32, device=dev)
+    tg = torch.tensor(targets, dtype=torch.int32, device=dev)
+    live = list(range(b))
+    while True:
+        (cache, tok, kv, produced, _, toks_np, active, _, _) = \
+            engine.decode_chunk(cache, kv, tok, produced, tg, steps)
+        for j, slot in enumerate(live):
+            out[slot] += toks_np[active[:, j], j].tolist()
+        still = [slot for slot in live if len(out[slot]) < targets[slot]]
+        if not still:
+            return out, last, prefill_s
+        if len(still) <= len(live) // 2:
+            cache, kv, tok, nb, _ = engine.compact_fused(
+                cache, kv, tok, produced, tg, len(still))
+            # the live slots first, in slot order; padding slots owe nothing
+            n = len(still)
+            produced = torch.zeros(nb, dtype=torch.int32, device=dev)
+            tg = torch.zeros(nb, dtype=torch.int32, device=dev)
+            produced[:n] = torch.tensor([len(out[s]) for s in still],
+                                        dtype=torch.int32, device=dev)
+            tg[:n] = torch.tensor([targets[s] for s in still],
+                                  dtype=torch.int32, device=dev)
+            live = still
+
+
+def check_small_m8c(dev):
+    """Phase 3's last two families and the bhsd layout, fp32, card (decode
+    chunks as graphs) against CPU, greedy, token for token:
+    llama-3.2-vision-90b's 5-layer pattern at (G, D) = (4, 128) with
+    vision_seq 64 and gates drawn non-zero, through ``prefill(cross_kv=)``,
+    decode chunks and compactions of the image K/V (K1 on the self- and
+    cross-attention); musicgen-large's at (1, 64), two layers, through the
+    engine (K1 and K3 at their new instance); qwen's at (8, 128) with
+    head-major caches (decode reads them with the plain version on both
+    devices, as the reference does: no K1)."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import scaled_down
+    from repro_torch.models.params import map_tree
+    from repro_torch.serving import Engine, EngineConfig
+    cfgs = {
+        "vlm": scaled_down(get_config(VISION_ARCH), d_model=128, num_heads=8,
+                           num_kv_heads=2, head_dim=128, d_ff=256,
+                           vision_seq=64, decode_cache_update="scatter"),
+        "audio": scaled_down(get_config(AUDIO_ARCH), num_groups=2,
+                             d_model=256, num_heads=4, num_kv_heads=4,
+                             head_dim=64, d_ff=512, vocab_size=256,
+                             decode_cache_update="scatter"),
+        "bhsd": scaled_down(get_config("qwen2.5-3b"), num_groups=2,
+                            d_model=128, num_heads=16, num_kv_heads=2,
+                            head_dim=128, d_ff=256, cache_layout="bhsd",
+                            decode_cache_update="scatter")}
+    ecfg = EngineConfig(max_batch=8, max_seq=128, prompt_bucket=16,
+                        decode_chunk=8)
+    targets = [20, 3, 9, 14, 2, 30, 5, 11]
+    rng = np.random.default_rng(8)
+    for family, cfg in cfgs.items():
+        gpu = Engine(cfg, ecfg, seed=3, device=dev)
+        set_gates(cfg, gpu.params)
+        cpu = Engine(cfg, ecfg, device="cpu",
+                     params=map_tree(lambda t: t.cpu(), gpu.params))
+        K.reset_launches()
+        if family == "vlm":
+            toks = rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int32)
+            lens = rng.integers(1, 17, 8).astype(np.int32)
+            image = rng.standard_normal((8, cfg.vision_seq, cfg.d_model),
+                                        np.float32)
+            args = [torch.from_numpy(a) for a in (toks, lens, image)]
+            tg = vlm_stream(gpu, *(a.to(dev) for a in args), targets)[0]
+            launches = dict(K.LAUNCHES)
+            tc = vlm_stream(cpu, *args, targets)[0]
+        else:
+            prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                       for n in (5, 17, 9, 30, 3, 12)]
+            tg = gpu.generate(prompts, targets[:6], elastic=True,
+                              return_tokens=True)["tokens"]
+            launches = dict(K.LAUNCHES)
+            tc = cpu.generate(prompts, targets[:6], elastic=True,
+                              return_tokens=True)["tokens"]
+        compacts = [e["batch"] for e in gpu.step_log if e["kind"] == "compact"]
+        same = sum(a == b for x, y in zip(tg, tc) for a, b in zip(x, y))
+        heads = (cfg.num_heads // cfg.num_kv_heads, cfg.head_dim)
+        log(f"small fp32 {family} model ({cfg.num_layers} layers "
+            f"{[m for m, _ in cfg.group_pattern]}, (G, D) = {heads}, cache "
+            f"{cfg.cache_layout}): greedy tokens {same}/"
+            f"{sum(len(t) for t in tg)} equal on card and CPU; compactions "
+            f"to buckets {compacts}; launches {launches}")
+        assert tg == tc, f"card and CPU {family} engines disagree"
+        assert [len(t) for t in tg] == targets[:len(tg)]
+        assert compacts, "no compaction ran"
+        need = ("gather_rows", "flash_attention", "fused_rmsnorm") + (
+            () if family == "bhsd" else ("ragged_decode_attention",))
+        assert all(launches[k] > 0 for k in need), launches
+        if family == "bhsd":     # decode reads head-major caches plainly
+            assert launches["ragged_decode_attention"] == 0, launches
+        del gpu, cpu
 
 
 # ----------------------------------------------------------------------------
@@ -1545,6 +1745,148 @@ def serve_ssm(ecfg, reqs):
     return serve_family("4s", {SSM_ARCH: cfg}, ecfg, reqs,
                         peak_limit_gib=SSM_PEAK_GIB,
                         need=("ssd_scan", "fused_rmsnorm"), extra=_ssm_extra)
+
+
+# phase 4v: musicgen-large whole (2.42 B params, 4.85 GB in bf16) through the
+# engine, then llama-3.2-vision-90b at 4 of its 20 groups (20 layers, 16
+# self- and 4 cross-attention, full layer width: 19.21 B params, 38.4 GB
+# in bf16; the whole model's 163 GiB do not fit the card), both on phase
+# 4e's engine (caches of 1,024 positions)
+VISION_GROUPS = 4
+M8C_PEAK_GIB = 75.0
+# the vision model's decode targets: the first 8 slots run 1 + 5 chunks of
+# 32 steps, the other 8 stop after 3, so bucket 16 replays two chunks and
+# the compaction 16 -> 8 leaves bucket 8 one replay
+VISION_TARGETS = [1 + 5 * 32] * 8 + [1 + 3 * 32] * 8
+
+
+def serve_vision(ecfg, reqs):
+    """Phase 4v's vision model: llama-3.2-vision-90b at ``VISION_GROUPS``
+    groups, full layer width, random bf16 weights made on the card with
+    every gate drawn non-zero, random bf16 patch embeddings [16, 6,400,
+    8,192] from a seed.  One ``prefill(cross_kv=)`` of phase 4's first 16
+    prompts (clamped to the vocabulary) on the engine's own bucket-16 cache
+    (K3 on the self-attention, K4; the cross-attention's dense prefill
+    attention is plain PyTorch), decode chunks of 32 steps as graph
+    replays (K1 on the self- and the cross-attention), one fused
+    compaction 16 -> 8 (K2, the image K/V included).  Logs decode ms a
+    step at each bucket against the bf16 weights' and the caches' read,
+    the prefill's ms, the peak memory and the launches; asserts finite
+    logits, the peak under ``M8C_PEAK_GIB`` and every kernel launched.
+    Returns (launches, row)."""
+    import gc
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving import Engine
+    full = get_config(VISION_ARCH)
+    cfg = dataclasses.replace(
+        full, num_layers=VISION_GROUPS * len(full.group_pattern),
+        decode_cache_update="scatter")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(cfg, ecfg, seed=0)
+    set_gates(cfg, engine.params)
+    gen = torch.Generator(device=engine.device).manual_seed(12)
+    b = 16
+    image = torch.randn(b, cfg.vision_seq, cfg.d_model, generator=gen,
+                        device=engine.device).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    nparams = sum(t.numel() for t in tree_leaves(engine.params))
+    assert nparams == cfg.param_count(), nparams
+    init_s = time.perf_counter() - t0
+    prompts = [np.asarray(r.prompt_tokens) % cfg.vocab_size
+               for r in reqs[:b]]
+    s = max(ecfg.prompt_bucket,
+            -(-max(len(p) for p in prompts) // ecfg.prompt_bucket)
+            * ecfg.prompt_bucket)
+    toks = np.zeros((b, s), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    lens = np.array([len(p) for p in prompts], np.int32)
+    dev = engine.device
+    K.reset_launches()
+    n0 = len(engine.step_log)
+    t1 = time.perf_counter()
+    out, last, prefill_s = vlm_stream(
+        engine, torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
+        image, VISION_TARGETS, steps=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert bool(torch.isfinite(last).all()), "non-finite prefill logits"
+    assert engine.sample_fallbacks == 0, "non-finite decode logits"
+    assert [len(t) for t in out] == VISION_TARGETS
+    chunks = [e for e in engine.step_log[n0:] if e["kind"] == "decode_chunk"]
+    compacts = [e["batch"] for e in engine.step_log[n0:]
+                if e["kind"] == "compact"]
+    assert compacts == [8], compacts
+    replay = {}
+    for e in chunks:
+        if e["graph"] == "replay":
+            acc = replay.setdefault(e["batch"], [0, 0.0])
+            acc[0] += e["steps"]
+            acc[1] += e["seconds"]
+    ms_step = {bb: 1e3 * v[1] / v[0] for bb, v in sorted(replay.items())}
+    assert set(ms_step) == {16, 8}, ms_step
+    weights = 2 * nparams
+    image_kv = (2 * VISION_GROUPS * cfg.vision_seq * cfg.num_kv_heads
+                * cfg.head_dim * 2)          # k_img and v_img, bf16, a slot
+    floors = {bb: 1e3 * (weights + bb * image_kv) / HBM_BYTES_PER_S
+              for bb in ms_step}
+    for k in ("ragged_decode_attention", "gather_rows", "flash_attention",
+              "fused_rmsnorm"):
+        assert launches[k] > 0, f"{k} never ran in phase 4v's vision model"
+    log(f"phase 4v {VISION_ARCH}: {VISION_GROUPS} of {full.num_groups} groups "
+        f"({cfg.num_layers} layers: {VISION_GROUPS * 4} self-attention, "
+        f"{VISION_GROUPS} cross-attention over {cfg.vision_seq} image "
+        f"positions), {nparams / 1e9:.3f} B params, init {init_s:.1f} s; "
+        f"prefill(cross_kv=) of {b} prompts x {s} positions "
+        f"{1e3 * prefill_s:.1f} ms; {len(chunks)} decode chunks of 32 steps "
+        f"({sum(e['graph'] == 'replay' for e in chunks)} graph replays), "
+        f"compaction to {compacts}; decode graph-replay ms a step by bucket "
+        f"{{{', '.join(f'{bb}: {v:.2f}' for bb, v in ms_step.items())}}} "
+        f"against the floors "
+        f"{{{', '.join(f'{bb}: {v:.2f}' for bb, v in floors.items())}}} (the "
+        f"bf16 weights' read, {weights / 1e9:.2f} GB, and the image K/V's, "
+        f"{image_kv / 1e6:.1f} MB a slot, at 3.35 TB/s); wall {wall:.2f} s; "
+        f"no non-finite logits; launches {launches}; peak device memory "
+        f"{peak:.2f} GiB")
+    assert peak < M8C_PEAK_GIB, f"peak {peak:.2f} GiB"
+    row = {"params": nparams, "layers": cfg.num_layers,
+           "prefill_ms": 1e3 * prefill_s, "prefill_shape": [b, s],
+           "ms_per_step": ms_step, "floor_ms": floors, "peak_gib": peak,
+           "launches": {k: launches.get(k, 0) for k in MODEL_KERNELS}}
+    del engine, image
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def serve_m8c(ecfg, reqs):
+    """Phase 4v: musicgen-large whole through ``serve_family`` (elastic b16,
+    phase 4's first 12 requests: K1, K2, K3 at (1, 64), K4), then
+    ``serve_vision``.  Returns the launches summed and the per-model
+    rows."""
+    from repro_torch.configs import get_config
+    totals, rows = serve_family(
+        "4v", {AUDIO_ARCH: dataclasses.replace(
+            get_config(AUDIO_ARCH), decode_cache_update="scatter")},
+        ecfg, reqs, peak_limit_gib=M8C_PEAK_GIB)
+    audio = rows[AUDIO_ARCH]
+    weights = 2 * audio["params"]
+    audio["floor_ms"] = 1e3 * weights / HBM_BYTES_PER_S
+    step = audio["ms_per_step"].get(16)
+    log(f"phase 4v {AUDIO_ARCH}: decode step at bucket 16 "
+        f"{'not replayed' if step is None else f'{step:.2f} ms'} against "
+        f"its floor {audio['floor_ms']:.2f} ms (the bf16 weights' read, "
+        f"{weights / 1e9:.2f} GB, at 3.35 TB/s)")
+    launches, rows[VISION_ARCH] = serve_vision(ecfg, reqs)
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+    return totals, rows
 
 
 # ----------------------------------------------------------------------------
@@ -2642,9 +2984,11 @@ SESS_LAT = dict(k1=0.05, k2=0.5, k3=0.0005, k4=0.02)
 # the fixed point converges in well under its 200 passes (the passes grow
 # with the horizon under load); WAIT has a 2 s timeout, without which each
 # batch waits on the last one's children and 200 passes do not converge.
-# 15,000 sessions keep phases 8a(c) and 8c near 100 s (at 20,000 they took
-# 113-128 s, the cells' host work growing with the turns)
-SESS_N, SESS_LAM, SESS_SEED = 15_000, 0.1, 5
+# 4,000 sessions a cell (15,000 until phase 4v came: 76.5 s for the eight
+# cells, nearly all host work growing with the turns and the passes; the
+# cut keeps every kernel and session model, at less depth, inside the
+# script's time limit)
+SESS_N, SESS_LAM, SESS_SEED = 4_000, 0.1, 5
 SESS_MODELS = {"geometric": ("geometric", {"p": 0.5, "think_mean": 2.0}),
                "chain": ("chain", {"k": 3, "think": 1.0})}
 SESS_POLICIES = {"batch_scan": ("dynamic", {"b_max": 16}),
@@ -3305,6 +3649,7 @@ def main() -> int:
     check_small_model(dev)
     check_small_moe(dev)
     check_small_jamba(dev)
+    check_small_m8c(dev)
     from repro_torch.data.pipeline import make_request_stream
     reqs = make_request_stream(32, 4.0, ClippedLogNormal(np.log(96.0), 0.8, 512),
                                vocab=cfg.vocab_size, prompt_len_range=(16, 257),
@@ -3348,6 +3693,11 @@ def main() -> int:
     paths["ssm family"], ssm = serve_ssm(ecfg, reqs)
     log(f"phase 4s (the state-space family) took "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["m8c families"], m8c = serve_m8c(
+        dataclasses.replace(ecfg, max_seq=MOE_MAX_SEQ), reqs)
+    log(f"phase 4v (the audio and vision families) took "
+        f"{time.perf_counter() - t0:.1f} s")
     paths["launcher"] = serve_launcher(dev)
     t0 = time.perf_counter()
     paths["simulators"], sim_kernels = run_simulators(dev, cal)
@@ -3390,6 +3740,8 @@ def main() -> int:
         if k["name"] in MODEL_KERNELS:
             k["ssm_family"] = {arch: row["launches"][k["name"]]
                                for arch, row in ssm.items()}
+            k["m8c_families"] = {arch: row["launches"][k["name"]]
+                                 for arch, row in m8c.items()}
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in paths.items()}

@@ -25,7 +25,9 @@
 //           digits), outside the 2e-5 band the fp32 model is held to.
 //
 // Instantiated for the (G, D) pairs the repo's configs give it: (8, 128)
-// (qwen2.5-3b, yi-9b), (2, 128) (internlm2-1.8b) and (1, 256) (gemma-7b).
+// (qwen2.5-3b, yi-9b, llama-3.2-vision-90b's self-attention), (2, 128)
+// (internlm2-1.8b), (1, 256) (gemma-7b), (4, 128) (mixtral-8x7b), (1, 128)
+// (moonshot-v1-16b-a3b) and (1, 64) (musicgen-large).
 //
 // bf16 design (flash_attention_wgmma_kernel<G, D>).  One block per (P =
 // 64 / G query positions, KV head, request): its 64 rows are the P
@@ -34,7 +36,8 @@
 // r / G of head r % G.  A consumer warpgroup owns the 64 rows and 128 of
 // O's D columns (one at D = 128, two at D = 256: each computes the whole
 // score tile and its own half of P.V, so O stays at 64 fp32 registers a
-// thread); one more warp is the producer.
+// thread; one at D = 64, over the single 64-wide half, O at 32 registers);
+// one more warp is the producer.
 //   - K/V tiles of 64 keys arrive by TMA (cuTensorMapEncodeTiled, reached
 //     through cudaGetDriverEntryPoint so the library needs no -lcuda) into
 //     a ring of 2 stages in shared memory, with a full and an empty
@@ -53,9 +56,10 @@
 //     2^-9 of each weight, which put an output outside the 4e-3 + 8e-3
 //     band of the fp32 softmax it is held to; hi + lo errs by about 2^-17.
 //     V from shared memory through MN-major descriptors.  16 wgmma
-//     m64n64k16 a warpgroup (4 key steps x its 2 halves of D x hi, lo), so
-//     the tensor cores do 1.5x the flops of S and P.V at D = 128 (2x at D =
-//     256, where both warpgroups compute S).
+//     m64n64k16 a warpgroup (4 key steps x its 2 halves of D x hi, lo; 8
+//     at D = 64, its one half), so the tensor cores do 1.5x the flops of S
+//     and P.V at D = 128 and D = 64 (2x at D = 256, where both warpgroups
+//     compute S).
 //   - The key loop runs from the window's lower edge to the causal
 //     diagonal of the block's last position, so masked tiles are never
 //     loaded; any S (the ragged tail is masked, no block multiple);
@@ -66,8 +70,9 @@
 //     3-stage ring, one block per SM) after a trial build of both on the
 //     H100 (PERF.md).  ptxas -v (nvcc 12.9, sm_90a) at (8, 128): 153
 //     registers, 0 bytes of spill stores or loads, 2 barriers.  D = 256:
-//     288 threads, 164,896 bytes, one block per SM.  chip_smoke prints
-//     every instance.
+//     288 threads, 164,896 bytes, one block per SM.  D = 64: 160 threads,
+//     42,016 bytes.  chip_smoke prints every instance (PERF.md keeps the
+//     (1, 64) ones).
 
 #include <cuda.h>   // CUtensorMap and its enums; the function comes from the runtime
 #include <cuda_runtime.h>
@@ -92,7 +97,9 @@ struct Strides {
 // holds a quarter of the query row and of the fp32 accumulator in
 // registers, and two shuffles finish each dot product.  K/V tiles of 4096
 // / D positions (32 at D = 128, 16 at D = 256: 32 KB of static shared
-// memory either way) are staged through shared memory.
+// memory either way; 16 at D = 64, 8 KB: at 32 ptxas held the row in 128
+// registers and spilled 16 bytes, at 16 it takes 80 and spills nothing)
+// are staged through shared memory.
 
 constexpr float kNegInf = -1e30f;
 constexpr int kRows = 64;      // query rows per block (P positions x G heads)
@@ -120,7 +127,7 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int P = kRows / G;            // query positions per block
   constexpr int NCH = D / (4 * kTpr);     // 4-element stripes per thread
   constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte load
-  constexpr int kBk = 4096 / D;           // keys per K/V tile
+  constexpr int kBk = D >= 128 ? 4096 / D : 16;   // keys per K/V tile
   static_assert(kRows % G == 0 && D % (4 * kTpr) == 0 && D % VEC == 0 && kBk <= 32, "shape");
   __shared__ __align__(16) float ks_tile[kBk][D];
   __shared__ __align__(16) float vs_tile[kBk][D];
@@ -268,20 +275,21 @@ constexpr int STAGES = 2;              // K/V ring depth
 constexpr int Q_HALF_BYTES = ROWS * HALF * 2;        // 8 KB
 
 // the block of the (G, D) instance: P positions x G heads = 64 rows; one
-// consumer warpgroup per 128 columns of O and the producer warp; at D =
-// 128 two blocks fit on an SM
+// consumer warpgroup per 128 columns of O (one over the single half at D =
+// 64) and the producer warp; at D <= 128 two blocks fit on an SM
 template <int G, int D>
 struct Cfg {
   static constexpr int P = ROWS / G;                 // query positions per block
   static constexpr int NH = D / HALF;                // 64-wide halves of D
-  static constexpr int WGS = D / 128;                // consumer warpgroups
+  static constexpr int WGS = D >= 128 ? D / 128 : 1; // consumer warpgroups
+  static constexpr int HW = NH / WGS;                // halves of O a warpgroup owns
   static constexpr int CONSUMERS = 128 * WGS;
   static constexpr int THREADS = CONSUMERS + 32;
   static constexpr int STAGE_BYTES = 2 * NH * KV_BOX_BYTES;   // K halves, then V halves
   static constexpr int SMEM_BYTES =
       1024 + NH * Q_HALF_BYTES + STAGES * STAGE_BYTES + 2 * STAGES * 8;
   static constexpr int MIN_BLOCKS = WGS == 1 ? 2 : 1;
-  static_assert(ROWS % G == 0 && 8 % G == 0 && D % 128 == 0, "shape");
+  static_assert(ROWS % G == 0 && 8 % G == 0 && (D % 128 == 0 || D == 64), "shape");
   static_assert(SMEM_BYTES <= 232448, "shared memory");
 };
 
@@ -424,19 +432,19 @@ __device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t sq, uint32
   }
 }
 
-// O += P . V (issued, not waited) over this warpgroup's 128 columns: 4
-// key steps of 16 keys (2048 bytes of V rows each) x its two 64-wide
-// halves of D (halves 2 wg and 2 wg + 1; V's halves follow K's D / 64) x
-// the hi and lo terms of P
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[2][32], const uint32_t (&ph)[4][4],
+// O += P . V (issued, not waited) over this warpgroup's HW * 64 columns:
+// 4 key steps of 16 keys (2048 bytes of V rows each) x its HW 64-wide
+// halves of D (halves HW wg .. HW wg + HW - 1; V's halves follow K's D /
+// 64) x the hi and lo terms of P
+template <int D, int HW>
+__device__ __forceinline__ void issue_pv(float (&o)[HW][32], const uint32_t (&ph)[4][4],
                                          const uint32_t (&pl)[4][4], uint32_t kv, int wg) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < HW; ++h) {
       const uint64_t dv = desc_sw128(
-          kv + (D / HALF + 2 * wg + h) * KV_BOX_BYTES + kk * 2048, KV_BOX_BYTES, 1024);
+          kv + (D / HALF + HW * wg + h) * KV_BOX_BYTES + kk * 2048, KV_BOX_BYTES, 1024);
       wgmma_rs(o[h], ph[kk], dv);
       wgmma_rs(o[h], pl[kk], dv);
     }
@@ -509,9 +517,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], int t0, const Rows&
   l1 = l1 * alpha1 + ps1;
 }
 
-__device__ __forceinline__ void rescale(float (&o)[2][32], float alpha0, float alpha1) {
+template <int HW>
+__device__ __forceinline__ void rescale(float (&o)[HW][32], float alpha0, float alpha1) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < HW; ++h)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       o[h][4 * j + 0] *= alpha0;
@@ -530,7 +539,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                              Strides qs, int S, int Hkv, int causal, int window,
                              float scale_log2) {
   using C = Cfg<G, D>;
-  constexpr int P = C::P, NH = C::NH, CONSUMERS = C::CONSUMERS;
+  constexpr int P = C::P, NH = C::NH, HW = C::HW, CONSUMERS = C::CONSUMERS;
   constexpr int STAGE_BYTES = C::STAGE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align every region to it
@@ -607,9 +616,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
 
   const uint32_t sq0 = smem_u32(sq);
   const uint32_t kv0 = smem_u32(skv);
-  float o[2][32], s[32];
+  float o[HW][32], s[32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[0][i] = o[1][i] = s[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    s[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < HW; ++h) o[h][i] = 0.f;
+  }
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
   uint32_t ph[4][4], pl[4][4];
   const Rows rows{pos0, pos1, col, S, causal, window, q0, q_last, scale_log2};
@@ -626,14 +639,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     fence_regs(s);
     softmax_tile(s, lo + t * BK, rows, m0, m1, l0, l1, a0, a1, ph, pl);
     rescale(o, a0, a1);
-    fence_regs(o[0]);
-    fence_regs(o[1]);
+#pragma unroll
+    for (int h = 0; h < HW; ++h) fence_regs(o[h]);
     wgmma_fence();
-    issue_pv<D>(o, ph, pl, kv, wg);
+    issue_pv<D, HW>(o, ph, pl, kv, wg);
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(o[0]);
-    fence_regs(o[1]);
+#pragma unroll
+    for (int h = 0; h < HW; ++h) fence_regs(o[h]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       fence_regs(ph[kk]);
@@ -652,9 +665,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
     const int pos = i ? pos1 : pos0;
     if (pos >= S) continue;
     const float inv = i ? inv1 : inv0;
-    __nv_bfloat16* op = out + (((long long)b * S + pos) * Hq + head) * D + 128 * wg + col;
+    __nv_bfloat16* op = out + (((long long)b * S + pos) * Hq + head) * D + HW * HALF * wg + col;
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < HW; ++h)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(op + HALF * h + 8 * j) = __floats2bfloat162_rn(
@@ -741,10 +754,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, Strides
 // no sliding window.  Returns cudaGetLastError() after the launch, -1 for a
 // shape the kernels were not instantiated for, -2 if a TMA tensor map could
 // not be made.  Instantiated only for the (G, D) pairs the repo's configs
-// give the kernel: (8, 128) for qwen2.5-3b (16 / 2 heads) and yi-9b (32 /
-// 4), (2, 128) for internlm2-1.8b (16 / 8), (1, 256) for gemma-7b (16 /
-// 16), (4, 128) for mixtral-8x7b (32 / 8) and (1, 128) for
-// moonshot-v1-16b-a3b (16 / 16).
+// give the kernel: (8, 128) for qwen2.5-3b (16 / 2 heads), yi-9b (32 / 4)
+// and llama-3.2-vision-90b (64 / 8), (2, 128) for internlm2-1.8b (16 /
+// 8), (1, 256) for gemma-7b (16 / 16), (4, 128) for mixtral-8x7b (32 /
+// 8), (1, 128) for moonshot-v1-16b-a3b (16 / 16) and (1, 64) for
+// musicgen-large (32 / 32).
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                long long qsb, long long qss, long long qsh, long long ksb,
                                long long kss, long long ksh, long long vsb, long long vss,
@@ -766,6 +780,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   FLASH_LAUNCH(1, 256)
   FLASH_LAUNCH(4, 128)
   FLASH_LAUNCH(1, 128)
+  FLASH_LAUNCH(1, 64)
 #undef FLASH_LAUNCH
   return -1;
 }

@@ -19,8 +19,10 @@
 // needs enough blocks to fill 132 SMs and enough bytes in flight in each.
 //
 // Instantiated for the (G, D) pairs the repo's configs give it: (8, 128)
-// (qwen2.5-3b, yi-9b), (2, 128) (internlm2-1.8b) and (1, 256) (gemma-7b),
-// in fp32 and bf16.
+// (qwen2.5-3b, yi-9b, and llama-3.2-vision-90b's self- and
+// cross-attention), (2, 128) (internlm2-1.8b), (1, 256) (gemma-7b), (4,
+// 128) (mixtral-8x7b), (1, 128) (moonshot-v1-16b-a3b) and (1, 64)
+// (musicgen-large), in fp32 and bf16.
 //
 // Design: two kernels, launched one after the other by the C entry point.
 //   ragged_decode_split_kernel, grid (splits, Hkv, B), 32 * min(G, 4)
@@ -33,12 +35,14 @@
 //   [split * c, min((split + 1) * c, lengths[b])) with c = ceil(lengths[b] /
 //   splits).  Its share arrives in tiles of TP positions (32 in bf16, 16 in
 //   fp32 at D = 128; half that at D = 256, so that the ring stays in 48 KB
-//   of static shared memory) through a two-stage cp.async ring, 16-byte
+//   of static shared memory; 32 in both at D = 64, a lane a position) through
+//   a two-stage cp.async ring, 16-byte
 //   copies, rows past the share never requested.  Lane j scores position j
 //   of the tile against the warp's heads (q in fp32 in shared memory), the
 //   warp takes the tile's max once, rescales its accumulators once and adds
-//   p . V with each lane holding D / 32 of the columns, 4 in each 128-wide
-//   slice (neighbouring lanes on neighbouring addresses).  Each block
+//   p . V with each lane holding D / 32 of the columns: 4 in each 128-wide
+//   slice at D >= 128, 2 of the one 64-wide slice at D = 64 (neighbouring
+//   lanes on neighbouring addresses).  Each block
 //   writes its fp32 (m, l, acc[G][D]) to scratch; an
 //   empty share writes m = -inf, l = 0 and no acc.
 //   ragged_decode_combine_kernel, grid (Hkv, B), G * D / 4 threads, merges
@@ -47,7 +51,8 @@
 //   bit for bit, from run to run, and any S works.
 //   ptxas -v (nvcc 12.9, sm_90a), split kernel at (8, 128): 91 registers
 //   and 38,912 bytes of shared memory in bf16, 80 and 37,888 in fp32;
-//   combine: 32 registers; no spills.  chip_smoke prints every instance.
+//   combine: 32 registers; no spills.  chip_smoke prints every instance
+//   (PERF.md keeps the (1, 64) ones).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -88,6 +93,21 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
   o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
 }
 
+// 2 consecutive elements of a shared-memory row -> fp32
+__device__ __forceinline__ void load2(const float* p, float (&o)[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  o[0] = v.x; o[1] = v.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float (&o)[2]) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  o[0] = a.x; o[1] = a.y;
+}
+// CW = 4 or 2 consecutive elements
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* p, float (&o)[4]) { load4(p, o); }
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* p, float (&o)[2]) { load2(p, o); }
+
 __device__ __forceinline__ void store4(float* p, const float (&o)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
 }
@@ -96,6 +116,11 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&o)[4]) {
   *reinterpret_cast<__nv_bfloat162*>(&raw.x) = __floats2bfloat162_rn(o[0], o[1]);
   *reinterpret_cast<__nv_bfloat162*>(&raw.y) = __floats2bfloat162_rn(o[2], o[3]);
   *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ void store_cols(float* p, const float (&o)[4]) { store4(p, o); }
+__device__ __forceinline__ void store_cols(float* p, const float (&o)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(o[0], o[1]);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -128,15 +153,19 @@ struct Split {
   static constexpr int WARPS = G < kMaxWarps ? G : kMaxWarps;
   static constexpr int THREADS = 32 * WARPS;
   // positions per tile: 32 in bf16, 16 in fp32 at D = 128, fewer at a
-  // wider D
-  static constexpr int TP = (sizeof(T) == 2 ? 32 : 16) * 128 / D;
+  // wider D; at most 32 (a lane a position)
+  static constexpr int TP0 = (sizeof(T) == 2 ? 32 : 16) * 128 / D;
+  static constexpr int TP = TP0 < 32 ? TP0 : 32;
   static constexpr int VEC = 16 / sizeof(T);            // elements per 16-byte copy
   static constexpr int ROW = D + VEC;                   // smem row, padded 16 bytes
   static constexpr int TILE = TP * ROW;                 // elements of one K or V tile
   static constexpr int HPW = G / WARPS;                 // heads per warp
-  static constexpr int SL = D / 128;                    // 128-column slices in p . V
+  static constexpr int CW = D >= 128 ? 4 : D / 32;      // p . V columns a lane, a slice
+  static constexpr int SW = 32 * CW;                    // columns of one slice
+  static constexpr int SL = D / SW;                     // slices in p . V
   static constexpr int SMEM = G * D * 4 + 2 * 2 * TILE * sizeof(T);
-  static_assert(G % WARPS == 0 && D % 128 == 0 && TP >= 1 && TP <= 32, "shape");
+  static_assert(G % WARPS == 0 && (D % 128 == 0 || D == 64) && TP >= 1 && TP <= 32,
+                "shape");
   static_assert(SMEM <= 48 * 1024, "static shared memory");
 };
 
@@ -150,7 +179,7 @@ ragged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            int Hkv, float scale_log2) {
   using C = Split<T, G, D>;
   constexpr int TP = C::TP, VEC = C::VEC, ROW = C::ROW, TILE = C::TILE, HPW = C::HPW;
-  constexpr int SL = C::SL, kThreads = C::THREADS;
+  constexpr int SL = C::SL, CW = C::CW, SW = C::SW, kThreads = C::THREADS;
   __shared__ __align__(16) float sq[G * D];
   __shared__ __align__(16) T skv[2][2][TILE];   // [stage][K, V][TP rows of ROW]
 
@@ -199,7 +228,7 @@ ragged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       *reinterpret_cast<float4*>(sq + i + e) = make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
   }
 
-  float m[HPW], lp[HPW], acc[HPW][SL][4];
+  float m[HPW], lp[HPW], acc[HPW][SL][CW];
 #pragma unroll
   for (int i = 0; i < HPW; ++i) {
     m[i] = -INFINITY;
@@ -207,7 +236,7 @@ ragged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < SL; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+      for (int e = 0; e < CW; ++e) acc[i][c][e] = 0.f;
   }
 
   for (int t = 0; t < ntiles; ++t) {
@@ -252,21 +281,22 @@ ragged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < SL; ++c)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
+        for (int e = 0; e < CW; ++e) acc[i][c][e] *= alpha;
       m[i] = m_new;
     }
-    // acc += p . V: lane owns columns 128 c + 4 * lane .. + 3 of each slice c
+    // acc += p . V: lane owns columns SW c + CW * lane .. + CW - 1 of each
+    // slice c
     for (int j = 0; j < n; ++j) {
-      float vf[SL][4];
+      float vf[SL][CW];
 #pragma unroll
-      for (int c = 0; c < SL; ++c) load4(vt + j * ROW + 128 * c + 4 * lane, vf[c]);
+      for (int c = 0; c < SL; ++c) load_cols(vt + j * ROW + SW * c + CW * lane, vf[c]);
 #pragma unroll
       for (int i = 0; i < HPW; ++i) {
         const float pj = __shfl_sync(0xffffffffu, p[i], j);
 #pragma unroll
         for (int c = 0; c < SL; ++c)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][c][e] += pj * vf[c][e];
+          for (int e = 0; e < CW; ++e) acc[i][c][e] += pj * vf[c][e];
       }
     }
     __syncthreads();   // every warp is done with this stage
@@ -283,7 +313,7 @@ ragged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ml[2 * g + 1] = l;
     }
 #pragma unroll
-    for (int c = 0; c < SL; ++c) store4(pacc + g * D + 128 * c + 4 * lane, acc[i][c]);
+    for (int c = 0; c < SL; ++c) store_cols(pacc + g * D + SW * c + CW * lane, acc[i][c]);
   }
 }
 
@@ -344,10 +374,11 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
 // (D + 2) floats, 16-byte aligned (the wrapper allocates it).  Returns
 // cudaGetLastError() after the launches, or -1 for a shape the kernels were
 // not instantiated for.  Instantiated only for the (G, D) pairs the repo's
-// configs give the kernel: (8, 128) for qwen2.5-3b (16 / 2 heads) and
-// yi-9b (32 / 4), (2, 128) for internlm2-1.8b (16 / 8), (1, 256) for
-// gemma-7b (16 / 16), (4, 128) for mixtral-8x7b (32 / 8) and (1, 128) for
-// moonshot-v1-16b-a3b (16 / 16).
+// configs give the kernel: (8, 128) for qwen2.5-3b (16 / 2 heads), yi-9b
+// (32 / 4) and llama-3.2-vision-90b (64 / 8), (2, 128) for internlm2-1.8b
+// (16 / 8), (1, 256) for gemma-7b (16 / 16), (4, 128) for mixtral-8x7b (32
+// / 8), (1, 128) for moonshot-v1-16b-a3b (16 / 16) and (1, 64) for
+// musicgen-large (32 / 32).
 extern "C" int ragged_decode_attention(const void* q, const void* k, const void* v,
                                        const void* lengths, void* out, void* scratch, int B,
                                        int S, int Hq, int Hkv, int D, int splits, int dtype,
@@ -369,6 +400,7 @@ extern "C" int ragged_decode_attention(const void* q, const void* k, const void*
   RAGGED_LAUNCH(1, 256)
   RAGGED_LAUNCH(4, 128)
   RAGGED_LAUNCH(1, 128)
+  RAGGED_LAUNCH(1, 64)
 #undef RAGGED_LAUNCH
   return -1;
 }

@@ -17,10 +17,11 @@ from repro_torch.kernels.ragged_decode_attention.ref import (
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (G, D) pairs the kernel is instantiated for: those the repo's configs give
-# it (qwen2.5-3b: G = 16 / 2, yi-9b: 32 / 4, D = 128; internlm2-1.8b: 16 / 8,
-# D = 128; gemma-7b: 16 / 16, D = 256; mixtral-8x7b: 32 / 8, D = 128;
-# moonshot-v1-16b-a3b: 16 / 16, D = 128)
-_SHAPES = ((8, 128), (2, 128), (1, 256), (4, 128), (1, 128))
+# it (qwen2.5-3b: G = 16 / 2, yi-9b: 32 / 4, llama-3.2-vision-90b: 64 / 8,
+# D = 128; internlm2-1.8b: 16 / 8, D = 128; gemma-7b: 16 / 16, D = 256;
+# mixtral-8x7b: 32 / 8, D = 128; moonshot-v1-16b-a3b: 16 / 16, D = 128;
+# musicgen-large: 32 / 32, D = 64)
+_SHAPES = ((8, 128), (2, 128), (1, 256), (4, 128), (1, 128), (1, 64))
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # the H100's streaming multiprocessors; the split rule aims at two blocks
 # on each

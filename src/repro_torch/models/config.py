@@ -5,10 +5,8 @@ reference one.
 
 The one change: ``"auto"`` decode attention resolves from the device of
 the cache tensor (``resolve_decode_attention_impl``) instead of asking a
-framework for its backend.  Attention and Mamba positions with a dense,
-MoE or no FFN are runnable in this package; cross-attention is kept so
-configs stay comparable, and ``repro_torch.models.model`` raises
-``NotImplementedError`` on it.
+framework for its backend.  Every field is runnable in this package but
+``decode_unroll_layers``, which ``repro_torch.models.model`` refuses.
 """
 
 from __future__ import annotations
@@ -76,7 +74,8 @@ class ModelConfig:
     # aliasing option); this package updates caches in place and raises on
     # True
     decode_unroll_layers: bool = False
-    # KV-cache layout: "bshd" (the only one this package runs) or "bhsd"
+    # KV-cache layout: "bshd" (baseline) or "bhsd" (head-major; decode
+    # reads it with the plain decode_attention, as the reference does)
     cache_layout: str = "bshd"
     # decode attention implementation:
     #   auto   - ragged on CUDA, dense on the CPU; resolved at use time

@@ -1,11 +1,18 @@
-"""Core transformer layers: norm specs, RoPE, attention (dense / blockwise /
-decode), dense FFN.  Plain functions over param dicts, mirroring
-``repro.models.layers`` name for name; the sharding constraints of the
-reference are dropped (one device).
+"""Core transformer layers: norm specs, RoPE, sinusoidal positions,
+attention (dense / blockwise / decode, self and cross), dense FFN.  Plain
+functions over param dicts, mirroring ``repro.models.layers`` name for
+name; the sharding constraints of the reference are dropped (one device).
 
 Decode-time cache writes are in place: the reference donates the cache to
 a jitted step and gets a new buffer back; here ``attention_block`` writes
 the new row into the cache tensors it was given and returns them.
+
+Self-attention caches are bshd ([B, S, Hkv, D]) or, with
+``cache_layout="bhsd"``, head-major ([B, Hkv, S, D]).  Decode reads a bshd
+cache with the ragged kernel (``kernels.ragged_decode_attention``) on
+CUDA and a bhsd cache with the plain ``decode_attention(layout="bhsd")``
+on every device: the reference runs its Pallas decode kernel only for
+bshd too, and the kernel is bshd-only.
 """
 
 from __future__ import annotations
@@ -33,6 +40,16 @@ def rmsnorm_specs(d_model: int):
     return Spec((d_model,), ("embed",), init="zeros")
 
 
+def rmsnorm(x, weight, eps: float):
+    """The reference's plain RMSNorm (fp32 math, result in x's dtype), for
+    the per-head ``q_norm``/``k_norm`` of cross-attention, which the
+    reference computes outside any kernel too."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + weight.float())).to(x.dtype)
+
+
 # ----------------------------------------------------------------------------
 # Positional embeddings
 # ----------------------------------------------------------------------------
@@ -47,6 +64,53 @@ def rope_tables(positions, head_dim: int, theta: float):
                              * 2.0 / head_dim))
     angles = positions[..., :, None].float() * freqs
     return torch.cos(angles)[..., :, None, :], torch.sin(angles)[..., :, None, :]
+
+
+# XLA's float32 exp on the CPU (the Cephes scheme: a reduction by ln 2 in
+# two parts and a degree-5 polynomial, its multiply-adds fused) is not
+# torch.exp's: the two differ by one ulp in 1 of 10 arguments, and the
+# sinusoid multiplies a frequency by positions up to thousands, so one ulp
+# of a frequency moves sin(pos * freq) by 2.4e-4 at d_model 2048 and
+# position 4,095.  ``_exp_f32_xla`` computes that scheme step for step; a
+# fused multiply-add of float32 operands is exact in float64 before its
+# one rounding (their product has at most 48 bits), so the fma is a
+# float64 multiply and add rounded once to float32, on either device.  It
+# equals jnp.exp bit for bit over [-87, 88] (tests/test_torch_audio.py).
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def _fma_f32(a, b, c):
+    """a * b + c rounded once to float32 (a, b, c float32 or scalars)."""
+    return (a.double() * b + c).float()
+
+
+def _exp_f32_xla(x):
+    """exp of a float32 tensor, equal to XLA:CPU's float32 exp bit for bit
+    (for |x| < 87, the range before its clamps)."""
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    fx = torch.floor(_fma_f32(x, f32(1.44269504088896341), 0.5))
+    r = x - fx * f32(0.693359375)              # exact: 9 bits times an integer
+    r = _fma_f32(fx, f32(2.12194440e-4), r)
+    z = r * r
+    y = _fma_f32(r, f32(_EXP_POLY[0]), f32(_EXP_POLY[1]))
+    for c in _EXP_POLY[2:]:
+        y = _fma_f32(y, r, f32(c))
+    y = _fma_f32(y, z, r)
+    return torch.ldexp(1.0 + y, fx.to(torch.int32))
+
+
+def sinusoidal_embedding(positions, d_model: int):
+    """The reference's sinusoid table [..., d_model] (sin then cos) at
+    ``positions`` [...], in fp32.  The frequencies are the reference's to
+    the bit (``_exp_f32_xla``); the table is built on the positions'
+    device, so a captured decode graph recomputes it from the device's
+    ``kv_lens``."""
+    half = d_model // 2
+    arg = -np.log(10000.0) * torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half
+    ang = positions[..., None].float() * _exp_f32_xla(arg)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _rotate(x, cos, sin):
@@ -65,7 +129,7 @@ def apply_rope(x, positions, theta: float):
 # Attention
 # ----------------------------------------------------------------------------
 
-def attention_specs(cfg: ModelConfig):
+def attention_specs(cfg: ModelConfig, cross: bool = False):
     d = cfg.d_model
     specs = {
         "wq": Spec((d, cfg.num_heads, cfg.head_dim), ("embed", "heads", "head_dim")),
@@ -77,6 +141,10 @@ def attention_specs(cfg: ModelConfig):
         specs["bq"] = Spec((cfg.num_heads, cfg.head_dim), ("heads", "head_dim"), init="zeros")
         specs["bk"] = Spec((cfg.num_kv_heads, cfg.head_dim), ("kv_heads", "head_dim"), init="zeros")
         specs["bv"] = Spec((cfg.num_kv_heads, cfg.head_dim), ("kv_heads", "head_dim"), init="zeros")
+    if cross:
+        specs["attn_gate"] = Spec((), (), init="zeros")
+        specs["q_norm"] = rmsnorm_specs(cfg.head_dim)
+        specs["k_norm"] = rmsnorm_specs(cfg.head_dim)
     return specs
 
 
@@ -108,9 +176,11 @@ def _expand_kv(k, hq: int):
 
 
 def _softmax_fp32(scores):
+    # in place on the fresh difference: one score-sized buffer beside
+    # ``scores`` (a vision cross-attention prefill's scores take 6.7 GB)
     m = scores.amax(dim=-1, keepdim=True)
-    e = torch.exp(scores - m)
-    return e / e.sum(dim=-1, keepdim=True)
+    e = (scores - m).exp_()
+    return e.div_(e.sum(dim=-1, keepdim=True))
 
 
 def dense_attention(q, k, v, *, causal: bool, window: Optional[int],
@@ -123,18 +193,20 @@ def dense_attention(q, k, v, *, causal: bool, window: Optional[int],
     k = _expand_kv(k, hq)
     v = _expand_kv(v, hq)
     scale = 1.0 / np.sqrt(d)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float().mul_(scale)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
     dev = q.device
     qpos = torch.arange(sq, device=dev)
     kpos = torch.arange(k.shape[1], device=dev)
-    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=dev)
+    mask = None                # none: every key seen (cross-attention)
     if causal:
         mask = kpos[None, :] <= qpos[:, None]
     if window is not None:
-        mask = mask & (kpos[None, :] > qpos[:, None] - window)
-    scores = torch.where(mask[None, None], scores, _NEG_INF)
+        upper = kpos[None, :] > qpos[:, None] - window
+        mask = upper if mask is None else mask & upper
+    if mask is not None:
+        scores = torch.where(mask[None, None], scores, _NEG_INF)
     if kv_len_mask is not None:                              # [B,Skv] bool
         scores = torch.where(kv_len_mask[:, None, None, :], scores, _NEG_INF)
     probs = _softmax_fp32(scores).to(v.dtype)
@@ -184,38 +256,50 @@ def blockwise_attention(q, k, v, *, causal: bool, window: Optional[int],
     return torch.cat(outs, dim=2).transpose(1, 2)        # [b, s, h, d]
 
 
-def decode_attention(q, k_cache, v_cache, kv_lens):
-    """Single-token attention against a padded bshd KV cache.
+def decode_attention(q, k_cache, v_cache, kv_lens, layout: str = "bshd"):
+    """Single-token attention against a padded KV cache.
 
-    q: [B,1,Hq,D]; caches: [B,Smax,Hkv,D]; kv_lens: [B] valid entries.
+    q: [B,1,Hq,D]; caches: [B,Smax,Hkv,D] ("bshd") or [B,Hkv,Smax,D]
+    ("bhsd", head-major); kv_lens: [B] valid entries.
     """
     b, _, hq, d = q.shape
-    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    hm = layout == "bhsd"
+    hkv = k_cache.shape[1] if hm else k_cache.shape[2]
+    smax = k_cache.shape[2] if hm else k_cache.shape[1]
     qg = q.reshape(b, hkv, hq // hkv, d)                     # [B,Hkv,G,D]
     scale = 1.0 / np.sqrt(d)
-    scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float() * scale
+    kv = "bhkd" if hm else "bkhd"
+    scores = torch.einsum(f"bhgd,{kv}->bhgk", qg, k_cache).float() * scale
     kpos = torch.arange(smax, device=q.device)
     mask = kpos[None, :] < kv_lens[:, None]
     scores = torch.where(mask[:, None, None, :], scores, _NEG_INF)
     probs = _softmax_fp32(scores).to(v_cache.dtype)
-    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache)
+    out = torch.einsum(f"bhgk,{kv}->bhgd", probs, v_cache)
     return out.reshape(b, 1, hq, d)
 
 
-def _write_decode_row(cache, new, slot, mode: str):
-    """Write this step's row ``new`` [B,1,H,D] into ``cache`` [B,S,H,D] at
-    ``slot`` [B], in place."""
+def _write_decode_row(cache, new, slot, mode: str, hm: bool = False):
+    """Write this step's row ``new`` [B,1,H,D] into ``cache`` at ``slot``
+    [B], in place: [B,S,H,D], or [B,H,S,D] when ``hm`` (head-major), where
+    the row goes in transposed."""
     new = new.to(cache.dtype)
+    seq = 2 if hm else 1
+    if hm:
+        new = new.transpose(1, 2)                            # [B,H,1,D]
     if mode == "uniform":
         # static-bucket serving: every slot is at the same position
-        cache.index_copy_(1, slot[:1].long(), new)
+        cache.index_copy_(seq, slot[:1].long(), new)
     elif mode == "scatter":
         bidx = torch.arange(cache.shape[0], device=cache.device)
-        cache[bidx, slot.long()] = new[:, 0]
+        if hm:
+            cache[bidx, :, slot.long()] = new[:, :, 0]
+        else:
+            cache[bidx, slot.long()] = new[:, 0]
     else:  # onehot (baseline): arithmetic full-cache read-modify-write
-        span = cache.shape[1]
+        span = cache.shape[seq]
         oh = (torch.arange(span, device=cache.device)[None, :] ==
-              slot[:, None]).to(cache.dtype)[:, :, None, None]
+              slot[:, None]).to(cache.dtype)
+        oh = oh[:, None, :, None] if hm else oh[:, :, None, None]
         cache.copy_(cache * (1 - oh) + oh * new)
 
 
@@ -223,9 +307,10 @@ def attention_block(p, x, cfg: ModelConfig, *, positions, cache=None,
                     kv_lens=None, rope=None):
     """Self-attention mixer. Returns (out, cache).
 
-    cache: dict(k=[B,Smax,Hkv,D], v=...) or None (full-sequence mode); the
-    tensors are updated in place and returned.  ``rope``: (cos, sin) from
-    ``rope_tables`` for ``positions`` (computed here when None).
+    cache: dict(k=[B,Smax,Hkv,D], v=...) ([B,Hkv,Smax,D] for the bhsd
+    layout) or None (full-sequence mode); the tensors are updated in place
+    and returned.  ``rope``: (cos, sin) from ``rope_tables`` for
+    ``positions`` (computed here when None).
     """
     q, k, v = _project_qkv(p, x, cfg)
     if cfg.pos_embedding == "rope":
@@ -236,17 +321,21 @@ def attention_block(p, x, cfg: ModelConfig, *, positions, cache=None,
 
     if cache is not None:
         k_cache, v_cache = cache["k"], cache["v"]
-        span = k_cache.shape[1]
+        hm = cfg.cache_layout == "bhsd"      # head-major cache
+        span = k_cache.shape[2] if hm else k_cache.shape[1]
         if x.shape[1] == 1:
             # ring-buffer slot when a sliding window bounds the cache span
             slot = kv_lens % span
             mode = cfg.decode_cache_update
-            _write_decode_row(k_cache, k, slot, mode)
-            _write_decode_row(v_cache, v, slot, mode)
+            _write_decode_row(k_cache, k, slot, mode, hm)
+            _write_decode_row(v_cache, v, slot, mode, hm)
             valid = torch.clamp(kv_lens + 1, max=span)
             # the ring holds the most recent `valid` tokens; absolute RoPE
             # was applied before caching, so slot order is irrelevant
-            if cfg.resolve_decode_attention_impl(k_cache.device) == "ragged":
+            if hm:
+                out = decode_attention(q, k_cache, v_cache, valid,
+                                       layout="bhsd")
+            elif cfg.resolve_decode_attention_impl(k_cache.device) == "ragged":
                 from repro_torch.kernels.ragged_decode_attention import (
                     ragged_decode_attention)
                 out = ragged_decode_attention(
@@ -259,8 +348,12 @@ def attention_block(p, x, cfg: ModelConfig, *, positions, cache=None,
             out = _self_attention_full(q, k, v, cfg)
             if k.shape[1] > span:
                 k, v = k[:, -span:], v[:, -span:]
-            k_cache[:, :k.shape[1]] = k.to(k_cache.dtype)
-            v_cache[:, :v.shape[1]] = v.to(v_cache.dtype)
+            if hm:
+                k_cache[:, :, :k.shape[1]] = k.transpose(1, 2).to(k_cache.dtype)
+                v_cache[:, :, :v.shape[1]] = v.transpose(1, 2).to(v_cache.dtype)
+            else:
+                k_cache[:, :k.shape[1]] = k.to(k_cache.dtype)
+                v_cache[:, :v.shape[1]] = v.to(v_cache.dtype)
         cache = {"k": k_cache, "v": v_cache}
     else:
         out = _self_attention_full(q, k, v, cfg)
@@ -268,6 +361,63 @@ def attention_block(p, x, cfg: ModelConfig, *, positions, cache=None,
     wo = p["wo"]
     proj = torch.matmul(out.flatten(-2), wo.to(x.dtype).reshape(-1, wo.shape[-1]))
     return proj, cache
+
+
+def tanh_gate(p, name, out):
+    """``tanh(p[name]) * out``, the gate in fp32 rounded to out's dtype."""
+    return torch.tanh(p[name].float()).to(out.dtype) * out
+
+
+def cross_attention_block(p, x, cfg: ModelConfig, cross_kv):
+    """Cross-attention over image embeddings ``cross_kv`` [B, Sv, d] at
+    prefill.  Returns (gated out [B, S, d], k, v): the normed K and the V
+    [B, Sv, Hkv, D] that the cache keeps.
+
+    Q comes from ``x``, K and V from ``cross_kv``; Q gets ``q_norm`` and K
+    ``k_norm``; the attention is dense, non-causal, unmasked and has no
+    RoPE, as the reference's ``attention_block(cross_kv=)``.  It stays
+    plain PyTorch: the reference computes it with ``dense_attention``, and
+    the prefill kernel takes only Sq = Skv causal prompts.  A
+    ``cross_kv`` of another dtype than ``x`` promotes as JAX does: fp32
+    image embeddings in a bf16 model give fp32 K, V, scores and output
+    (the weights cast to x's dtype first, as the reference casts them)."""
+    dt = torch.promote_types(cross_kv.dtype, x.dtype)
+    w = lambda name: p[name].to(x.dtype).to(dt)  # noqa: E731
+    q = _proj(x, p["wq"])
+    k = _proj(cross_kv.to(dt), w("wk"))
+    v = _proj(cross_kv.to(dt), w("wv"))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype).to(dt)
+        v = v + p["bv"].to(x.dtype).to(dt)
+    q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    out = dense_attention(q.to(dt), k, v, causal=False, window=None)
+    wo = p["wo"]
+    proj = torch.matmul(out.flatten(-2),
+                        w("wo").reshape(-1, wo.shape[-1]))
+    return tanh_gate(p, "attn_gate", proj), k, v
+
+
+def cross_attention_decode(p, x, cfg: ModelConfig, k_img, v_img):
+    """One decode token's cross-attention over the cached image K/V
+    (``k_img``/``v_img`` [B, Sv, Hkv, D]), every request at length Sv.
+    On CUDA (``decode_attention_impl`` resolving to ragged) the ragged
+    decode kernel reads the cache, on the CPU the plain
+    ``decode_attention``: the two compute the reference's
+    ``decode_attention`` there."""
+    q = rmsnorm(_proj(x, p["wq"]), p["q_norm"], cfg.norm_eps)
+    b, sv = k_img.shape[0], k_img.shape[1]
+    lens = torch.full((b,), sv, dtype=torch.int32, device=k_img.device)
+    if cfg.resolve_decode_attention_impl(k_img.device) == "ragged":
+        from repro_torch.kernels.ragged_decode_attention import (
+            ragged_decode_attention)
+        out = ragged_decode_attention(q[:, 0], k_img, v_img, lens)[:, None]
+    else:
+        out = decode_attention(q, k_img, v_img, lens)
+    wo = p["wo"]
+    proj = torch.matmul(out.flatten(-2), wo.to(x.dtype).reshape(-1, wo.shape[-1]))
+    return tanh_gate(p, "attn_gate", proj)
 
 
 def _self_attention_full(q, k, v, cfg: ModelConfig):

@@ -3,11 +3,12 @@
 The layer stack is ``cfg.group_pattern`` repeated ``cfg.num_groups`` times
 with parameters (and caches) stacked over a leading group dim, as in
 ``repro.models.model``; the reference's ``lax.scan`` over groups is a
-Python loop here.  Attention and Mamba2 positions (``models.mamba``) with
-a dense, MoE (``models.moe``) or no FFN and the bshd cache layout are
-ported; cross-attention positions, sinusoidal positions, embedding
-inputs, the bhsd layout and ``decode_unroll_layers`` raise
-``NotImplementedError`` (see ROADMAP.md, queue 1, M8).
+Python loop here.  Every position kind of the reference runs: attention
+(bshd or bhsd caches), cross-attention over image embeddings, Mamba2
+(``models.mamba``), with a dense, MoE (``models.moe``) or no FFN; RoPE,
+sinusoidal or no positions; token ids or embeddings in.  Only
+``decode_unroll_layers`` raises ``NotImplementedError``: caches are
+updated in place instead.
 
 Every norm is the fused residual-add + RMSNorm (``kernels.rmsnorm``): the
 residual add of each branch is deferred to the next norm site, and the
@@ -17,8 +18,10 @@ dtype (``round_sum``): the reference's scan over groups carries the
 residual stream in that dtype.  In fp32 the rounding changes nothing.
 
 Two entry points serve the engine:
-  prefill(...)      the prompt; writes the KV / SSM caches, returns last
-                    logits
+  prefill(...)      the prompt (token ids or ``embeds``, and the image
+                    embeddings ``cross_kv`` of a model with cross-attention
+                    positions); writes the KV / image-KV / SSM caches,
+                    returns last logits
   decode_step(...)  one token against the caches (updated in place)
 """
 
@@ -38,20 +41,17 @@ from repro_torch.models.params import Spec, map_tree, stack_specs
 
 def check_supported(cfg: ModelConfig):
     """Raise on the parts of ``ModelConfig`` this package does not run."""
-    for mixer, ffn in cfg.group_pattern:
-        if mixer not in ("attn", "mamba") or ffn not in ("dense", "moe", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: ({mixer}, {ffn}) positions are not ported yet "
-                "(ROADMAP.md, queue 1, M8)")
-    if cfg.pos_embedding not in ("rope", "none") or cfg.embeddings_input:
-        raise NotImplementedError(
-            f"{cfg.name}: sinusoidal positions and embedding inputs are not "
-            "ported yet (ROADMAP.md, queue 1, M8)")
-    if cfg.cache_layout != "bshd":
-        raise NotImplementedError("cache_layout='bhsd' is not ported yet")
     if cfg.decode_unroll_layers:
         raise NotImplementedError("decode_unroll_layers is not ported; "
                                   "caches are updated in place instead")
+
+
+# the error of a prefill that a model with cross-attention positions gets
+# without image embeddings
+NO_IMAGE_EMBEDDINGS = (
+    "{name}: cross-attention positions need image embeddings (prefill("
+    "cross_kv=...)); the serving engine feeds no image embeddings, as the "
+    "reference's does not")
 
 
 # ----------------------------------------------------------------------------
@@ -60,11 +60,13 @@ def check_supported(cfg: ModelConfig):
 
 def _position_specs(cfg: ModelConfig, mixer: str, ffn: str):
     s = {"pre_norm": L.rmsnorm_specs(cfg.d_model),
-         "mixer": (L.attention_specs(cfg) if mixer == "attn"
-                   else mamba_specs(cfg))}
+         "mixer": (mamba_specs(cfg) if mixer == "mamba" else
+                   L.attention_specs(cfg, cross=mixer == "cross_attn"))}
     if ffn != "none":
         s["ffn"] = L.ffn_specs(cfg) if ffn == "dense" else moe_specs(cfg)
         s["ffn_norm"] = L.rmsnorm_specs(cfg.d_model)
+        if ffn == "dense" and mixer == "cross_attn":
+            s["ffn_gate"] = Spec((), (), init="zeros")
     return s
 
 
@@ -91,10 +93,20 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int):
         if mixer == "attn":
             span = max_seq if cfg.sliding_window is None else min(
                 max_seq, cfg.sliding_window)
-            shp = (g, batch, span, cfg.num_kv_heads, cfg.head_dim)
-            ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+            if cfg.cache_layout == "bhsd":
+                shp = (g, batch, cfg.num_kv_heads, span, cfg.head_dim)
+                ax = ("layers", "batch", "kv_heads", "kv_seq", "head_dim")
+            else:
+                shp = (g, batch, span, cfg.num_kv_heads, cfg.head_dim)
+                ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
             tree[f"pos{i}"] = {"k": Spec(shp, ax, init="zeros"),
                                "v": Spec(shp, ax, init="zeros")}
+        elif mixer == "cross_attn":
+            # the image K/V, bshd in either layout (as the reference's)
+            shp = (g, batch, cfg.vision_seq, cfg.num_kv_heads, cfg.head_dim)
+            ax = ("layers", "batch", "vis_seq", "kv_heads", "head_dim")
+            tree[f"pos{i}"] = {"k_img": Spec(shp, ax, init="zeros"),
+                               "v_img": Spec(shp, ax, init="zeros")}
         else:
             ck = (g, batch, cfg.ssm_conv_kernel - 1, cfg.ssm_conv_dim)
             ss = (g, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
@@ -122,29 +134,46 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 # ----------------------------------------------------------------------------
 
 def _apply_position(cfg: ModelConfig, mixer: str, ffn: str, p, x, delta, *,
-                    positions, pos_cache, kv_lens, rope, first=False):
+                    positions, pos_cache, kv_lens, rope, cross_kv=None,
+                    first=False):
     """One (mixer, ffn) layer.  ``x`` is the residual stream and ``delta``
     the previous branch's output, not yet added: the fused kernel adds it
     while it normalizes (rounding the sum first at a group's ``first``
     position).  Returns (x, delta, pos_cache); an MoE FFN's load-balance
-    loss is not needed for serving and is dropped."""
+    loss is not needed for serving and is dropped.  A cross-attention
+    position reads ``cross_kv`` at prefill (and writes the image K/V into
+    its cache) and the cached image K/V at decode (``cross_kv`` None)."""
     x, h = fused_rmsnorm(delta, x, p["pre_norm"], eps=cfg.norm_eps,
                          round_sum=first)
     if mixer == "attn":
         out, pos_cache = L.attention_block(
             p["mixer"], h, cfg, positions=positions, cache=pos_cache,
             kv_lens=kv_lens, rope=rope)
+    elif mixer == "cross_attn":
+        if cross_kv is None:
+            out = L.cross_attention_decode(p["mixer"], h, cfg,
+                                           pos_cache["k_img"],
+                                           pos_cache["v_img"])
+        else:
+            out, k, v = L.cross_attention_block(p["mixer"], h, cfg, cross_kv)
+            if pos_cache is not None:
+                pos_cache["k_img"].copy_(k)
+                pos_cache["v_img"].copy_(v)
     else:
         out, pos_cache = mamba_block(p["mixer"], h, cfg, state=pos_cache)
     if ffn == "none":
         return x, out, pos_cache
     x, h2 = fused_rmsnorm(out, x, p["ffn_norm"], eps=cfg.norm_eps)
     if ffn == "dense":
-        return x, L.ffn_block(p["ffn"], h2, cfg), pos_cache
+        out = L.ffn_block(p["ffn"], h2, cfg)
+        if "ffn_gate" in p:
+            out = L.tanh_gate(p, "ffn_gate", out)
+        return x, out, pos_cache
     return x, moe_block(p["ffn"], h2, cfg)[0], pos_cache
 
 
-def _run_groups(cfg: ModelConfig, params, x, *, positions, cache, kv_lens):
+def _run_groups(cfg: ModelConfig, params, x, *, positions, cache, kv_lens,
+                cross_kv=None):
     """Loop over the stacked group dim; layer g reads the views
     ``leaf[g]`` of the stacked params and caches (cache writes land in the
     stacked tensors).  Returns (x, delta): the residual stream and the last
@@ -163,7 +192,8 @@ def _run_groups(cfg: ModelConfig, params, x, *, positions, cache, kv_lens):
                 pos_cache = {name: leaf[g] for name, leaf in cache[key].items()}
             x, delta, _ = _apply_position(
                 cfg, mixer, ffn, gparams[key], x, delta, positions=positions,
-                pos_cache=pos_cache, kv_lens=kv_lens, rope=rope, first=i == 0)
+                pos_cache=pos_cache, kv_lens=kv_lens, rope=rope,
+                cross_kv=cross_kv, first=i == 0)
     return x, delta
 
 
@@ -171,15 +201,25 @@ def _run_groups(cfg: ModelConfig, params, x, *, positions, cache, kv_lens):
 # Entry points
 # ----------------------------------------------------------------------------
 
-def _embed_inputs(cfg: ModelConfig, params, tokens):
-    tok = torch.clamp(tokens, 0, cfg.padded_vocab - 1)
-    x = F.embedding(tok.long(), params["embed"].to(
-        torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32))
+def _embed_inputs(cfg: ModelConfig, params, tokens=None, embeds=None,
+                  positions=None):
+    """Token ids through the embedding table, or ``embeds`` as given (in
+    their own dtype, uncast, as the reference takes them); then gemma's
+    scale and the sinusoid at ``positions`` (in fp32, cast to x's
+    dtype)."""
+    if embeds is not None:
+        x = embeds
+    else:
+        tok = torch.clamp(tokens, 0, cfg.padded_vocab - 1)
+        x = F.embedding(tok.long(), params["embed"].to(
+            torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32))
     if cfg.scale_embeddings:
         # gemma's sqrt(d_model), rounded to the activations' dtype before
         # the multiply, as the reference does (55.43 is 55.5 in bf16); a
         # host scalar, so a captured decode graph holds no copy
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    if cfg.pos_embedding == "sinusoidal":
+        x = x + L.sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
     return x
 
 
@@ -196,20 +236,38 @@ def _head(cfg: ModelConfig, params, x, delta):
     return logits
 
 
-def prefill(cfg: ModelConfig, params, tokens, *, cache, prompt_lens=None):
+def prefill(cfg: ModelConfig, params, tokens=None, *, embeds=None,
+            cross_kv=None, cache, prompt_lens=None):
     """Run the prompt, fill the caches (in place), return (last-position
-    logits [B, vocab], cache).  Only the rows at ``prompt_lens - 1`` go
-    through the head: the head is row-wise, so this equals the reference's
-    take-after-head and skips a [B, S, vocab] logits tensor."""
+    logits [B, vocab], cache).  The prompt is token ids ``tokens`` [B, S]
+    or embeddings ``embeds`` [B, S, d_model]; a model with cross-attention
+    positions needs ``cross_kv`` [B, vision_seq, d_model], the image
+    embeddings its cross-attention reads (a ``ValueError`` without them).
+    Only the rows at ``prompt_lens - 1`` go through the head: the head is
+    row-wise, so this equals the reference's take-after-head and skips a
+    [B, S, vocab] logits tensor."""
     check_supported(cfg)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    src = tokens if tokens is not None else embeds
+    b, s = src.shape[:2]
+    if cross_kv is None and any(m == "cross_attn"
+                                for m, _ in cfg.group_pattern):
+        raise ValueError(NO_IMAGE_EMBEDDINGS.format(name=cfg.name))
+    positions = torch.arange(s, device=src.device).expand(b, s)
     if prompt_lens is None:
         prompt_lens = torch.full((b,), s, dtype=torch.int32,
-                                 device=tokens.device)
-    x = _embed_inputs(cfg, params, tokens)
+                                 device=src.device)
+    x = _embed_inputs(cfg, params, tokens, embeds, positions)
+    if cross_kv is not None and \
+            torch.promote_types(cross_kv.dtype, x.dtype) != x.dtype:
+        # the cross branch would come out in the wider dtype and turn the
+        # residual stream to it; the reference's group scan refuses such
+        # a carry with a TypeError too
+        raise TypeError(
+            f"{cfg.name}: cross_kv in {cross_kv.dtype} would change the "
+            f"{x.dtype} residual stream's dtype at the cross-attention "
+            f"positions")
     x, delta = _run_groups(cfg, params, x, positions=positions, cache=cache,
-                           kv_lens=prompt_lens)
+                           kv_lens=prompt_lens, cross_kv=cross_kv)
     last = (prompt_lens.long() - 1).view(b, 1, 1).expand(b, 1, x.shape[-1])
     return _head(cfg, params, torch.gather(x, 1, last),
                  torch.gather(delta, 1, last))[:, 0], cache
@@ -219,10 +277,11 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, kv_lens):
     """One decode step. tokens: [B] int32; kv_lens: [B] current lengths.
 
     Returns (logits [B, vocab], cache); the cache tensors are updated in
-    place (the reference donates them to its jitted step instead)."""
+    place (the reference donates them to its jitted step instead).  A
+    cross-attention position reads the image K/V its prefill cached."""
     check_supported(cfg)
     positions = kv_lens[:, None]
-    x = _embed_inputs(cfg, params, tokens[:, None])
+    x = _embed_inputs(cfg, params, tokens[:, None], positions=positions)
     x, delta = _run_groups(cfg, params, x, positions=positions, cache=cache,
                            kv_lens=kv_lens)
     return _head(cfg, params, x, delta)[:, 0], cache

@@ -78,7 +78,7 @@ def test_ragged_kernel_rejects_what_it_does_not_take(cuda):
         ragged_decode_attention(q, kc, kc, ln)
     q64 = _randn((2, 16, 64), torch.float32, cuda, 0)
     k64 = _randn((2, 64, 2, 64), torch.float32, cuda, 1)
-    with pytest.raises(ValueError, match="built for"):    # D = 64
+    with pytest.raises(ValueError, match="built for"):    # (8, 64)
         ragged_decode_attention(q64, k64, k64, ln)
     with pytest.raises(TypeError):                        # mixed dtypes
         ragged_decode_attention(q[:, :4].contiguous().half(), kc, kc, ln)
@@ -235,7 +235,7 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(q, k, k)
     q64 = _randn((1, 32, 16, 64), torch.float32, cuda, 0)
     k64 = _randn((1, 32, 2, 64), torch.float32, cuda, 1)
-    with pytest.raises(ValueError, match="built for"):    # D = 64
+    with pytest.raises(ValueError, match="built for"):    # (8, 64)
         flash_attention(q64, k64, k64)
     q16 = _randn((1, 32, 16, 128), torch.float32, cuda, 0)
     with pytest.raises(TypeError):                        # mixed dtypes
@@ -246,13 +246,14 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
 
 # ----------------------------------------------------------------------------
 # K1 and K3 at the (G, D) pairs of internlm2-1.8b (16 / 8 heads of 128),
-# gemma-7b (16 / 16 heads of 256), mixtral-8x7b (32 / 8 heads of 128) and
-# moonshot-v1-16b-a3b (16 / 16 heads of 128), over the edge cases of
-# (8, 128) above
+# gemma-7b (16 / 16 heads of 256), mixtral-8x7b (32 / 8 heads of 128),
+# moonshot-v1-16b-a3b (16 / 16 heads of 128) and musicgen-large (32 / 32
+# heads of 64), over the edge cases of (8, 128) above
 # ----------------------------------------------------------------------------
 
 NEW_PAIRS = {"g2d128": (16, 8, 128), "g1d256": (16, 16, 256),
-             "g4d128": (32, 8, 128), "g1d128": (16, 16, 128)}
+             "g4d128": (32, 8, 128), "g1d128": (16, 16, 128),
+             "g1d64": (32, 32, 64)}     # musicgen-large's 32 / 32 heads of 64
 
 
 @pytest.mark.gpu
@@ -2117,3 +2118,138 @@ def test_ssm_smoke_engines_card_equal_cpu(cuda, arch):
                                                    if arch.startswith("jamba")
                                                    else 0)
         assert d["gather_rows"] > 0 and d["fused_rmsnorm"] > 0
+
+
+# ----------------------------------------------------------------------------
+# The last two families (M8c): llama-3.2-vision-90b's cross-attention, the
+# audio family's (1, 64) heads and the head-major cache layout
+# ----------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_at_the_cross_attention_shape(cuda, dtype):
+    """K1 over a vision cross-attention position's image K/V: 64 / 8 heads
+    of 128, B = 16, S = vision_seq = 6,400, every length 6,400; also a
+    smaller B, and two calls bit-equal."""
+    for b in (16, 3):
+        q = _randn((b, 64, 128), dtype, cuda, 0)
+        kc = _randn((b, 6400, 8, 128), dtype, cuda, 1)
+        vc = _randn((b, 6400, 8, 128), dtype, cuda, 2)
+        ln = torch.full((b,), 6400, dtype=torch.int32, device=cuda)
+        out = ragged_decode_attention(q, kc, vc, ln)
+        torch.testing.assert_close(
+            out.float(), decode_attention_reference(q, kc, vc, ln).float(),
+            **TOL[dtype])
+        assert torch.equal(ragged_decode_attention(q, kc, vc, ln), out)
+
+
+def _set_gates(cfg, params):
+    """Every ``attn_gate`` and ``ffn_gate`` of a cross-attention model to a
+    value in [0.5, 1.5] (they init to 0, and tanh(0) = 0)."""
+    for i, (mixer, _) in enumerate(cfg.group_pattern):
+        if mixer == "cross_attn":
+            pos = params["groups"][f"pos{i}"]
+            pos["mixer"]["attn_gate"].fill_(0.8 + 0.1 * i)
+            pos["ffn_gate"].fill_(1.2 - 0.1 * i)
+
+
+def _vlm_stream(engine, toks, lens, image, targets, steps=8):
+    """A vision model's path through the engine: ``prefill(cross_kv=)`` into
+    the engine's own cache of the bucket, decode chunks (graphs on the
+    card), one fused compaction to the live slots, more chunks.  Returns
+    the greedy tokens each slot emitted."""
+    from repro_torch.models.model import prefill
+    b = toks.shape[0]
+    dev = engine.device
+    cache = engine.new_cache(b)
+    last, cache = prefill(engine.cfg, engine.params,
+                          torch.from_numpy(toks).to(dev),
+                          cross_kv=torch.from_numpy(image).to(dev),
+                          cache=cache, prompt_lens=torch.from_numpy(lens).to(dev))
+    tok = torch.argmax(last, -1).to(torch.int32)
+    out = [[int(t)] for t in tok.cpu()]
+    kv = torch.from_numpy(lens).to(dev)
+    produced = torch.ones(b, dtype=torch.int32, device=dev)
+    tg = torch.tensor(targets, dtype=torch.int32, device=dev)
+    live = list(range(b))
+    while True:
+        (cache, tok, kv, produced, _, toks_np, active, _, _) = \
+            engine.decode_chunk(cache, kv, tok, produced, tg, steps)
+        for j, slot in enumerate(live):
+            out[slot] += toks_np[active[:, j], j].tolist()
+        still = [slot for slot in live if len(out[slot]) < targets[slot]]
+        if not still:
+            return out
+        if len(still) <= len(live) // 2:
+            cache, kv, tok, nb, _ = engine.compact_fused(
+                cache, kv, tok, produced, tg, len(still))
+            # the live slots first, in slot order; padding slots owe nothing
+            n = len(still)
+            produced = torch.zeros(nb, dtype=torch.int32, device=dev)
+            tg = torch.zeros(nb, dtype=torch.int32, device=dev)
+            produced[:n] = torch.tensor([len(out[s]) for s in still],
+                                        dtype=torch.int32, device=dev)
+            tg[:n] = torch.tensor([targets[s] for s in still],
+                                  dtype=torch.int32, device=dev)
+            live = still
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["vlm", "audio", "bhsd"])
+def test_m8c_small_models_card_equal_cpu(cuda, family):
+    """Small fp32 models of the last two families and the bhsd layout, card
+    (K1-K4, decode chunks as graphs) against CPU, greedy, token for token:
+    llama-3.2-vision-90b's pattern at (G, D) = (4, 128) with vision_seq 64
+    and non-zero gates (through ``prefill(cross_kv=)``, decode chunks and
+    a compaction of the image K/V); musicgen-large's at (1, 64), two
+    layers, through the engine; qwen's at (8, 128) with head-major caches
+    (decode reads them with the plain version on both devices, as the
+    reference does)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import scaled_down
+    from repro_torch.models.params import map_tree
+    from repro_torch.serving import Engine, EngineConfig
+    if family == "vlm":
+        cfg = scaled_down(get_config("llama-3.2-vision-90b"), d_model=128,
+                          num_heads=8, num_kv_heads=2, head_dim=128, d_ff=256,
+                          vision_seq=64, decode_cache_update="scatter")
+    elif family == "audio":
+        cfg = scaled_down(get_config("musicgen-large"), num_groups=2,
+                          d_model=256, num_heads=4, num_kv_heads=4,
+                          head_dim=64, d_ff=512, vocab_size=256,
+                          decode_cache_update="scatter")
+    else:
+        cfg = scaled_down(get_config("qwen2.5-3b"), num_groups=2, d_model=128,
+                          num_heads=16, num_kv_heads=2, head_dim=128,
+                          d_ff=256, cache_layout="bhsd",
+                          decode_cache_update="scatter")
+    ecfg = EngineConfig(max_batch=8, max_seq=128, prompt_bucket=16,
+                        decode_chunk=8)
+    gpu = Engine(cfg, ecfg, seed=3, device=cuda)
+    _set_gates(cfg, gpu.params)
+    cpu = Engine(cfg, ecfg, device="cpu",
+                 params=map_tree(lambda t: t.cpu(), gpu.params))
+    targets = [20, 3, 9, 14, 2, 30, 5, 11]
+    for seed in (1, 2):
+        if family == "vlm":
+            rng = np.random.default_rng(seed)
+            toks = rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int32)
+            lens = rng.integers(1, 17, 8).astype(np.int32)
+            image = rng.standard_normal((8, cfg.vision_seq, cfg.d_model),
+                                        np.float32)
+            tg, d = _launch_delta(lambda: _vlm_stream(gpu, toks, lens, image,
+                                                      targets))
+            tc = _vlm_stream(cpu, toks, lens, image, targets)
+        else:
+            prompts = _prompts(6, seed, vocab=cfg.vocab_size)
+            (rg, d), rc = _launch_delta(lambda: gpu.generate(
+                prompts, targets[:6], elastic=True, return_tokens=True)), \
+                cpu.generate(prompts, targets[:6], elastic=True,
+                             return_tokens=True)
+            tg, tc = rg["tokens"], rc["tokens"]
+        assert tg == tc
+        assert [len(t) for t in tg] == targets[:len(tg)]
+        assert d["flash_attention"] > 0 and d["fused_rmsnorm"] > 0
+        assert d["gather_rows"] > 0
+        # bhsd decode reads the cache with the plain version
+        assert (d.get("ragged_decode_attention", 0) > 0) == (family != "bhsd")

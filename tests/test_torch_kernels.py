@@ -97,7 +97,9 @@ def _ragged_inputs(b, s, hq, hkv, d, lens, seed=0):
     (4, 300, 4, 4, 256, [1, 300, 3, 150]),       # gemma-7b's (1, 256)
     (4, 300, 16, 4, 128, [1, 300, 3, 150]),      # mixtral-8x7b's (4, 128)
     (4, 300, 8, 8, 128, [1, 300, 3, 150]),       # moonshot-v1-16b-a3b's (1, 128)
-])
+    (4, 300, 8, 8, 64, [1, 300, 3, 150]),        # musicgen-large's (1, 64)
+    (2, 160, 16, 2, 128, [160, 160]),            # vision cross-attention: every
+])                                               # length the image's
 def test_ragged_plain_matches_pallas_and_oracle(b, s, hq, hkv, d, lens, dtype):
     q, kc, vc, ln = _ragged_inputs(b, s, hq, hkv, d, lens)
     jq, tq = _pair(q, dtype)
@@ -314,6 +316,7 @@ def _attn_inputs(b, s, hq, hkv, d, seed=0):
     (2, 192, 4, 4, 256, None),     # gemma-7b's (1, 256)
     (2, 192, 16, 4, 128, 40),      # mixtral-8x7b's (4, 128), windowed
     (2, 192, 8, 8, 128, None),     # moonshot-v1-16b-a3b's (1, 128)
+    (2, 192, 8, 8, 64, None),      # musicgen-large's (1, 64)
 ])
 def test_flash_plain_matches_pallas(b, s, hq, hkv, d, win, dtype):
     """The ``test_flash_attention_sweep`` shapes of ``tests/test_kernels.py``

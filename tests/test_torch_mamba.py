@@ -182,13 +182,17 @@ def test_chunked_init_of_jamba_stacked_experts(monkeypatch):
 
 
 def test_unported_parts_still_raise():
+    """The one part of the model the port still refuses,
+    ``decode_unroll_layers``, raises on a state-space config too;
+    cross-attention positions and the two families once refused
+    (llama-3.2-vision-90b, musicgen-large) now build."""
     _, tc = _cfgs("mamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.param_specs(dataclasses.replace(
-            tc, group_pattern=(("cross_attn", "dense"),)))
+    with pytest.raises(NotImplementedError, match="decode_unroll_layers"):
+        TM.param_specs(dataclasses.replace(tc, decode_unroll_layers=True))
+    TM.param_specs(dataclasses.replace(
+        tc, group_pattern=(("cross_attn", "dense"),), vision_seq=8))
     for arch in ("llama-3.2-vision-90b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+        assert get_config(arch).name == arch
 
 
 # ----------------------------------------------------------------------------

@@ -18,12 +18,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import get_smoke_config as jax_get_smoke  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models.params import init_params as jax_init_params  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    ARCH_IDS, get_config, get_smoke_config)
 from repro_torch.kernels.rmsnorm import fused_rmsnorm  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
@@ -62,18 +64,23 @@ def _assert_cache_close(tcache, jcache):
 # ----------------------------------------------------------------------------
 
 def test_configs_equal_reference_field_for_field():
-    assert dataclasses.asdict(get_config("qwen2.5-3b")) == \
-        dataclasses.asdict(jax_get_config("qwen2.5-3b"))
-    assert dataclasses.asdict(get_smoke_config("qwen2.5-3b")) == \
-        dataclasses.asdict(jax_get_smoke("qwen2.5-3b"))
-    assert get_config("qwen2.5-3b").param_count() == \
-        jax_get_config("qwen2.5-3b").param_count()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("llama-3.2-vision-90b")
+    """The registries serve the same ten ids in the same order, and every
+    config and smoke config compares field for field."""
+    assert ARCH_IDS == JAX_ARCH_IDS and len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jax_get_config(arch)), arch
+        assert dataclasses.asdict(get_smoke_config(arch)) == \
+            dataclasses.asdict(jax_get_smoke(arch)), arch
+        assert get_config(arch).param_count() == \
+            jax_get_config(arch).param_count(), arch
+    with pytest.raises(KeyError):
+        get_config("no-such-model")
 
 
-def test_specs_equal_reference():
-    jc, tc = _cfgs()
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_specs_equal_reference(layout):
+    jc, tc = _cfgs(cache_layout=layout)
     is_spec = lambda s: hasattr(s, "axes")  # noqa: E731
     for jt, tt in ((JM.param_specs(jc), TM.param_specs(tc)),
                    (JM.cache_specs(jc, 4, 64), TM.cache_specs(tc, 4, 64))):
@@ -101,12 +108,19 @@ def test_params_round_trip_bit_exact(jax_params):
 
 
 def test_unported_model_parts_raise():
+    """Only ``decode_unroll_layers`` stays refused (the port updates caches
+    in place instead); cross-attention positions, the bhsd layout and
+    sinusoidal positions, refused before, now build."""
     _, tc = _cfgs()
-    for bad in (dict(group_pattern=(("cross_attn", "dense"),)),
-                dict(cache_layout="bhsd"), dict(decode_unroll_layers=True),
-                dict(pos_embedding="sinusoidal")):
-        with pytest.raises(NotImplementedError):
-            TM.param_specs(dataclasses.replace(tc, **bad))
+    with pytest.raises(NotImplementedError, match="decode_unroll_layers"):
+        TM.param_specs(dataclasses.replace(tc, decode_unroll_layers=True))
+    for ported in (dict(group_pattern=(("cross_attn", "dense"),),
+                        vision_seq=8),
+                   dict(cache_layout="bhsd"),
+                   dict(pos_embedding="sinusoidal")):
+        cfg = dataclasses.replace(tc, **ported)
+        TM.param_specs(cfg)
+        TM.cache_specs(cfg, 2, 16)
 
 
 def test_auto_decode_attention_resolves_from_device():
@@ -222,3 +236,77 @@ def test_blockwise_attention_matches_reference():
     out = TL.blockwise_attention(*map(torch.from_numpy, (q, k, v)), **kw)
     ref = JL.blockwise_attention(*map(jnp.asarray, (q, k, v)), **kw)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+# ----------------------------------------------------------------------------
+# The head-major (bhsd) cache layout
+# ----------------------------------------------------------------------------
+
+def test_decode_attention_bhsd_matches_reference():
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((3, 1, 4, 16), np.float32)
+    k, v = (rng.standard_normal((3, 2, 20, 16), np.float32) for _ in range(2))
+    lens = np.array([20, 1, 7], np.int32)
+    out = TL.decode_attention(*map(torch.from_numpy, (q, k, v, lens)),
+                              layout="bhsd")
+    ref = JL.decode_attention(*map(jnp.asarray, (q, k, v, lens)), window=None,
+                              layout="bhsd")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    # the same cache in bshd gives the same attention
+    bshd = TL.decode_attention(*map(torch.from_numpy, (
+        q, k.transpose(0, 2, 1, 3).copy(), v.transpose(0, 2, 1, 3).copy(),
+        lens)))
+    np.testing.assert_allclose(out.numpy(), bshd.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("mode", ["onehot", "scatter", "uniform"])
+@pytest.mark.parametrize("impl", ["dense", "ragged"])
+def test_bhsd_prefill_and_decode_match_reference(jax_params, impl, mode):
+    """Head-major caches [g, B, Hkv, S, D]: prefill writes its K/V
+    transposed, every decode mode writes its row transposed, and decode
+    reads them with the plain ``decode_attention(layout="bhsd")`` whatever
+    ``decode_attention_impl`` says (the ragged kernel is bshd-only), as
+    the reference routes them."""
+    jc, tc = _cfgs(decode_attention_impl=impl, decode_cache_update=mode,
+                   cache_layout="bhsd")
+    tp = _cpu(jax_params)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, 512, (3, 16)).astype(np.int32)
+    lens = np.full(3, 16, np.int32) if mode == "uniform" else \
+        np.array([16, 5, 9], np.int32)
+    jl, jcache, tl, tcache = _prefill_both(jc, tc, jax_params, tp, toks,
+                                           lens, 64)
+    assert tcache["pos0"]["k"].shape == (2, 3, 2, 64, 16)
+    step = jax.jit(lambda p, c, t, l: JM.decode_step(jc, p, c, t, l))
+    tok = np.array(jnp.argmax(jl, -1), np.int32)
+    kv = lens.copy()
+    for _ in range(8):
+        jl, jcache = step(jax_params, jcache, jnp.asarray(tok), jnp.asarray(kv))
+        tl, tcache = TM.decode_step(tc, tp, tcache, torch.from_numpy(tok),
+                                    torch.from_numpy(kv))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        tok = np.array(jnp.argmax(jl, -1), np.int32)
+        kv = kv + 1
+    _assert_cache_close(tcache, jcache)
+
+
+@pytest.mark.parametrize("elastic", [False, True])
+def test_bhsd_engine_greedy_streams_equal_reference(jax_params, elastic):
+    """A bhsd qwen smoke model served by both engines: the same greedy
+    tokens, through elastic compaction of the head-major caches."""
+    from repro.serving.engine import Engine as JaxEngine
+    from repro.serving.engine import EngineConfig as JaxEngineConfig
+    from repro_torch.serving import Engine, EngineConfig
+    jc, tc = _cfgs(cache_layout="bhsd")
+    ecfg = dict(max_batch=4, max_seq=128, prompt_bucket=16)
+    jeng = JaxEngine(jc, JaxEngineConfig(**ecfg), params=jax_params)
+    teng = Engine(tc, EngineConfig(**ecfg), params=_cpu(jax_params),
+                  device="cpu")
+    prompts = [np.arange(4, dtype=np.int32) * 7 + i for i in range(3)]
+    targets = [17, 3, 9]
+    jr = jeng.generate(prompts, targets, elastic=elastic, chunk=4,
+                       return_tokens=True)
+    tr = teng.generate(prompts, targets, elastic=elastic, chunk=4,
+                       return_tokens=True)
+    assert tr["tokens"] == [list(map(int, t)) for t in jr["tokens"]]
+    assert list(tr["produced"]) == list(jr["produced"]) == targets
