@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the twelve hand-written kernels from
-     ``src/repro_torch/kernels/*/csrc`` with nvcc into ``build/kernels/``,
-     one nvcc per source, all started together, and print
-     the registers, shared memory and spills ptxas reports for the two
-     attention kernels, K4 and the seven simulator kernels;
+  1. build the fourteen hand-written kernel sources (K3's and K4's
+     backward among them) from ``src/repro_torch/kernels/*/csrc`` with
+     nvcc into ``build/kernels/``, one nvcc per source, all started
+     together, and print the registers, shared memory and spills ptxas
+     reports for the two attention kernels, K4, both backward sources,
+     the seven simulator kernels and S8;
   2. hold each serving kernel against its plain PyTorch version on the card, at the
      shapes qwen2.5-3b serving gives it (K1 and K3 also at the (G, D)
      instances of internlm2-1.8b, gemma-7b, mixtral-8x7b,
@@ -22,7 +23,12 @@ Phases (any failure raises and the script exits non-zero):
      SSD's chunk-state scan, bit for bit to its plain version at
      mamba2-2.7b's shapes (B = 16, C = 1 with and without h0; B = 4, C =
      8) and jamba's full mixer (B = 4, C = 8), timed against its bytes
-     bound;
+     bound; hold K3's backward (every (G, D) instance, both dtypes, with
+     and without a window, on views of one projection too) and K4's (one
+     row to 4,096, an fp32 weight beside bf16 rows too, ``round_sum`` off
+     and on) to the plain versions' autograd grads, and time both at
+     phase 9t(c)'s shape beside the plain backward, the library's
+     backward (SDPA; ``add`` + ``rms_norm``) and the bound;
   3. check a small fp32 model end to end: the engine on the card (all four
      kernels, decode chunks as CUDA graphs) emits the same greedy tokens as
      the engine on the CPU (plain paths); sampled at a fixed seed, the two
@@ -98,6 +104,19 @@ Phases (any failure raises and the script exits non-zero):
      -> 8 (K2, the image K/V included): decode ms a step by bucket
      against the weights' and image K/V's read, the prefill's ms, the
      peak (under 75 GiB), no non-finite logits;
+  9t. after phase 4v, on freed memory, train (``repro_torch.training``,
+     K3 and K4 forward and backward): (a) qwen2.5-3b's smoke config at 2
+     layers with 16 / 2 heads of 128, three fp32 AdamW steps on the card
+     and on the CPU from the same params and batches, remat off and on,
+     losses, grad norms and params held to each other; (b) the training
+     launcher ``repro_torch.launch.train`` on that model, 12 steps, a
+     checkpoint every 4 under ``build/``, a failure injected at step 6:
+     restored at step 4 and data index 4, the last loss below the first;
+     (c) qwen2.5-3b at full width (36 layers, remat, random weights made
+     on the card), 4 x 512 tokens a step, 4 steps with fp32 params, then
+     4 with bf16 params, fp32 moments both: ms a step, peak (under 75
+     GiB), losses (finite), and each training kernel's launches and
+     device ms a step beside the device ms outside them;
   5. run the adaptive-control serving launcher
      (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width;
   7. run the paper's simulators (``repro_torch.core.fastsim``) on the card:
@@ -294,8 +313,9 @@ def ptxas_report(build_log):
             entry = name.group(1) if name else mangled
             entry += (" (bf16)" if "_kernelI13__nv_bfloat16" in mangled else
                       " (fp32)" if "_kernelIf" in mangled else "")
-            gd = re.search(r"(?:ragged_decode|flash_attention)_\w+?_kernelI"
-                           r"(?:13__nv_bfloat16|f)?Li(\d+)ELi(\d+)E", mangled)
+            gd = re.search(r"(?:ragged_decode|flash_attention|flash_bwd)_\w+?"
+                           r"_kernelI(?:13__nv_bfloat16|f)?Li(\d+)ELi(\d+)E",
+                           mangled)
             entry += f" G={gd.group(1)} D={gd.group(2)}" if gd else ""
             vpt = re.search(r"fused_rmsnorm_kernelI\w+?Li(\d+)E", mangled)
             entry += f" VPT={vpt.group(1)}" if vpt else ""
@@ -706,6 +726,202 @@ def check_rmsnorm(dev):
                      "bound_by": "bytes", "library_ms": lib_ms[1],
                      "shapes": shapes}
     return entry
+
+
+# the backward kernels: each gradient's largest |kernel - plain| as a
+# fraction of the plain gradient's max-abs.  fp32: both sides sum in fp32
+# in other orders over up to S positions; bf16: the kernel rounds each
+# gradient once to bf16 (2^-8 relative) and forms rowsum(dO * O) from the
+# forward kernel's bf16 O, the plain autograd from its fp32 O
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the training shape of phase 9t(c): qwen2.5-3b's global batch 4 x 512
+TRAIN_B, TRAIN_S = 4, 512
+
+
+def _grad_gap(got, ref):
+    scale = float(ref.float().abs().max())
+    return float((got.float() - ref.float()).abs().max()) / max(scale, 1e-30)
+
+
+def _flash_bwd_checks(dev, rng, g, d):
+    """K3's backward at (G, D) against the plain version's autograd grads,
+    in both dtypes, causal with and without a window, on contiguous q, k, v
+    and on views of one fused projection.  Returns the largest gap (a
+    fraction of each gradient's max-abs) by dtype."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.flash_attention import (
+        attention_reference, flash_attention)
+    hkv = 2
+    hq = g * hkv
+    cases = [(2, 80, None), (2, 192, 64), (1, 300, None), (3, 65, 16)]
+    gaps = {}
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        worst = 0.0
+        for i, (b, s, win) in enumerate(cases):
+            fused = i == len(cases) - 1      # q, k, v views of one tensor
+            if fused:
+                qkv = torch.from_numpy(rng.standard_normal(
+                    (b, s, hq + 2 * hkv, d), np.float32)).to(dev, td)
+                base = qkv.requires_grad_()
+                q, k, v = base.split((hq, hkv, hkv), dim=2)
+                leaves = (base,)
+            else:
+                q, k, v = (torch.from_numpy(rng.standard_normal(
+                    (b, s, h, d), np.float32)).to(dev, td).requires_grad_()
+                    for h in (hq, hkv, hkv))
+                leaves = (q, k, v)
+            do = torch.from_numpy(rng.standard_normal(
+                (b, s, hq, d), np.float32)).to(dev, td)
+            before = K.LAUNCHES["flash_attention_bwd"]
+            got = torch.autograd.grad(flash_attention(q, k, v, window=win),
+                                      leaves, do)
+            assert K.LAUNCHES["flash_attention_bwd"] == before + 1
+            ref = torch.autograd.grad(
+                attention_reference(q, k, v, window=win), leaves, do)
+            for a, c in zip(got, ref):
+                assert a.dtype == td and a.shape == c.shape
+                gap = _grad_gap(a, c)
+                assert gap <= GRAD_TOL[dtype], (g, d, dtype, b, s, win, gap)
+                worst = max(worst, gap)
+        gaps[dtype] = worst
+        log(f"K3 backward (G, D) = ({g}, {d}) {dtype}: dq, dk, dv within "
+            f"{worst:.3e} of the plain grads' max-abs over (B, S, window) "
+            f"in {cases} (the last on q, k, v views of one projection)")
+    return gaps
+
+
+def check_flash_bwd(dev):
+    """K3's backward kernels at every (G, D) of ``_SHAPES`` in both dtypes
+    against the plain version under autograd; timed at the training shape
+    (qwen2.5-3b, B = 4, S = 512, bf16, causal) beside the plain version's
+    backward, SDPA's backward and the bound (2.5x the forward's causal
+    operations, or the bytes of q, k, v, o, dout, dq, dk, dv)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_reference, flash_attention, ops)
+    rng = np.random.default_rng(11)
+    worst = {}
+    for g, d in ops._SHAPES:
+        for dtype, gap in _flash_bwd_checks(dev, rng, g, d).items():
+            worst[dtype] = max(worst.get(dtype, 0.0), gap)
+    hq, hkv, d = ATTN_HEADS["qwen2.5-3b"]
+    b, s = TRAIN_B, TRAIN_S
+    q = torch.randn(b, s, hq, d, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn_like(q)
+    out = flash_attention(q, k, v)
+    ms = time_ms(lambda: ops._launch_bwd(q, k, v, out, do, True, None))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    plain_out = attention_reference(qg, kg, vg)
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        plain_out, (qg, kg, vg), do, retain_graph=True), iters=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (qg, kg, vg))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), do.transpose(1, 2), retain_graph=True))
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel())
+    flops = 2.5 * 4 * b * hq * d * (s * (s + 1) // 2)
+    bnd = bound_ms(nbytes, flops, "bfloat16")
+    by = "operations" if flops / PEAK_FLOPS["bfloat16"] > \
+        nbytes / HBM_BYTES_PER_S else "bytes"
+    log(f"K3 backward timing qwen2.5-3b ({hq}/{hkv} heads of {d}) B={b} "
+        f"S={s} bf16 causal: kernel {fmt(ms)}, plain backward "
+        f"{fmt(plain_ms)}, sdpa backward {fmt(lib_ms)}, bound {bnd:.4f} ms "
+        f"({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
+        f"{flops / ms[1] / 1e9:.1f} TFLOP/s, {100 * bnd / ms[1]:.1f}% of "
+        f"the bound")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
+            "max_abs_err": max(worst.values()),
+            "max_err_is": "fraction of each gradient's max-abs",
+            "ms": ms[1], "call_ms": ms[0], "plain_ms": plain_ms[1],
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms[1],
+            "shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
+                      "dtype": "bfloat16"}}
+
+
+def check_rmsnorm_bwd(dev):
+    """K4's backward against the plain version under autograd (the grads of
+    x, the residual and the weight from both outputs) at the row counts of
+    training (one row to 4,096) in both dtypes, with an fp32 weight beside
+    bf16 rows too, round_sum off and on; timed at phase 9t(c)'s 2,048 rows
+    beside the plain backward, ``add`` + ``rms_norm``'s backward and the
+    bytes bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    from repro_torch.kernels.rmsnorm import fused_rmsnorm, rmsnorm_reference
+    from repro_torch.kernels.rmsnorm import ops
+    d, eps = 2048, 1e-6
+    rng = np.random.default_rng(12)
+    worst = {}
+    for xdt, wdt in ((torch.float32, torch.float32),
+                     (torch.bfloat16, torch.bfloat16),
+                     (torch.bfloat16, torch.float32)):
+        name = str(xdt).removeprefix("torch.")
+        for t in (1, 16, 600, 4096):
+            x, r = (torch.from_numpy(rng.standard_normal(
+                (t, d), np.float32)).to(dev, xdt).requires_grad_()
+                for _ in range(2))
+            w = torch.from_numpy(rng.standard_normal(d, np.float32) * 0.1
+                                 ).to(dev, wdt).requires_grad_()
+            ds, dn = (torch.from_numpy(rng.standard_normal(
+                (t, d), np.float32)).to(dev, xdt) for _ in range(2))
+            for round_sum in (False, True):
+                before = K.LAUNCHES["fused_rmsnorm_bwd"]
+                got = torch.autograd.grad(fused_rmsnorm(
+                    x, r, w, eps=eps, round_sum=round_sum), (x, r, w),
+                    (ds, dn))
+                assert K.LAUNCHES["fused_rmsnorm_bwd"] == before + 1
+                ref = torch.autograd.grad(rmsnorm_reference(
+                    x, r, w, eps, round_sum), (x, r, w), (ds, dn))
+                for a, c in zip(got, ref):
+                    assert a.dtype == c.dtype and a.shape == c.shape
+                    gap = _grad_gap(a, c)
+                    assert gap <= GRAD_TOL[name], (xdt, wdt, t, gap)
+                    worst[name] = max(worst.get(name, 0.0), gap)
+        log(f"K4 backward rows {xdt}, weight {wdt}: dx, dresidual, dweight "
+            f"within {worst[name]:.3e} of the plain grads' max-abs over T "
+            f"in (1, 16, 600, 4096), D={d}, round_sum off and on")
+    t = TRAIN_B * TRAIN_S
+    sets = [tuple(torch.randn(t, d, device=dev, dtype=torch.bfloat16)
+                  for _ in range(4)) for _ in range(4)]
+    w = torch.randn(d, device=dev, dtype=torch.bfloat16) * 0.1
+    ms = time_ms(rotating(lambda x, r, ds, dn: ops._launch_bwd(
+        x, r, w, ds, dn, eps, False), sets))
+    x, r = (sets[0][i].clone().requires_grad_() for i in range(2))
+    wg = w.clone().requires_grad_()
+    ds, dn = sets[0][2], sets[0][3]
+    plain = rmsnorm_reference(x, r, wg, eps)
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        plain, (x, r, wg), (ds, dn), retain_graph=True), iters=10)
+    w1 = (1.0 + w.float()).to(torch.bfloat16).requires_grad_()
+    s_lib = torch.add(x, r)
+    lib = (s_lib, F.rms_norm(s_lib, (d,), weight=w1, eps=eps))
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        lib, (x, r, w1), (ds, dn), retain_graph=True), iters=10)
+    nbytes = 2 * (5 * t * d + 2 * d)
+    bnd = bound_ms(nbytes, 0, "bfloat16")
+    log(f"K4 backward timing T={t} D={d} bf16: kernel {fmt(ms)}, plain "
+        f"backward {fmt(plain_ms)}, add + rms_norm backward {fmt(lib_ms)}, "
+        f"bound {bnd:.5f} ms (bytes; {nbytes / 1e6:.3f} MB; the kernel at "
+        f"{100 * bnd / ms[1]:.1f}% of it)")
+    return {"name": "fused_rmsnorm_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/rmsnorm/csrc/"
+                      "fused_rmsnorm_bwd.cu",
+            "replaces": "src/repro/kernels/rmsnorm/kernel.py:26",
+            "max_abs_err": max(worst.values()),
+            "max_err_is": "fraction of each gradient's max-abs",
+            "ms": ms[1], "call_ms": ms[0], "plain_ms": plain_ms[1],
+            "bound_ms": bnd, "bound_by": "bytes", "library_ms": lib_ms[1],
+            "shape": {"T": t, "D": d, "dtype": "bfloat16"}}
 
 
 # kernel S8's shapes (B, C, H, P, N): mamba2-2.7b's at phase 4s's prefills
@@ -1170,7 +1386,9 @@ def _kernel_kinds(prof):
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.name.lower()
-        kind = ("ragged_decode_attention" if "ragged_decode" in name else
+        kind = ("flash_attention_bwd" if "flash_bwd" in name else
+                "fused_rmsnorm_bwd" if "rmsnorm_bwd" in name else
+                "ragged_decode_attention" if "ragged_decode" in name else
                 "fused_rmsnorm" if "fused_rmsnorm" in name else
                 "flash_attention" if "flash_attention" in name else
                 "ssd_scan" if "ssd_state_scan" in name else
@@ -1192,9 +1410,10 @@ def profile_decode(engine, reqs, steps=8, exact=True):
     time per step of each from a profiled chunk (kernels by kind), and the
     replay's time by CUDA events.  Asserts that each profiled chunk ran
     the K1 and K4 kernels that the graph's record adds to ``LAUNCHES`` on
-    a replay; with ``exact=False`` a window short of them is logged
-    instead (CUPTI has been seen to drop a kernel record of a chunk of
-    about 30,000 kernels: 519 of mamba2's 520 K4 launches)."""
+    a replay, in one of three profiled windows (CUPTI has been seen to
+    drop a kernel record of a chunk: 519 of mamba2's 520 K4 launches, 583
+    of qwen's 584); with ``exact=False`` a third window short of them is
+    logged instead."""
     import torch
     dev = engine.device
     cache, kv_lens, last, b, pre_s = engine.prefill_batch(
@@ -1235,28 +1454,38 @@ def profile_decode(engine, reqs, steps=8, exact=True):
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / steps
-    state = out[1:4]
-    pg, out = profiled(lambda: engine.decode_chunk(
-        cache, state[1], state[0], state[2], targets, steps))
-    wall_graph_prof = out[-1] / steps
-    state = out[1:4]
-    pe, (_, _, dt) = profiled(lambda: eager(eager_state))
-    wall_eager_prof = dt / steps
-    kinds = {"graph": _kernel_kinds(pg), "eager": _kernel_kinds(pe)}
+    state = [out[1:4]]
     # a replay adds the launches its capture recorded to LAUNCHES: hold
     # that record to the kernels the profiler saw (K1 is a split and a
-    # combine kernel per call)
+    # combine kernel per call).  CUPTI drops a kernel record in some
+    # windows (one of 584 K4 records of an eager chunk has been seen
+    # missing): a window short of the record is logged and profiled
+    # again, three windows at most; with ``exact`` the last must match
     rec = engine._graphs[(b, steps, 0.0, None)].launches
     want = {"ragged_decode_attention": 2 * rec["ragged_decode_attention"],
             "fused_rmsnorm": rec["fused_rmsnorm"]}
-    for k in ("graph", "eager"):
-        seen = {n: kinds[k].get(n, [0])[0] for n in want}
-        if exact or seen == want:
+
+    def graph_chunk():
+        st = state[0]
+        res = engine.decode_chunk(cache, st[1], st[0], st[2], targets, steps)
+        state[0] = res[1:4]
+        return res[-1]
+
+    kinds, walls = {}, {}
+    for k, run in (("graph", graph_chunk),
+                   ("eager", lambda: eager(eager_state)[2])):
+        for window in range(1, 4):
+            prof, seconds = profiled(run)
+            kinds[k], walls[k] = _kernel_kinds(prof), seconds / steps
+            seen = {n: kinds[k].get(n, [0])[0] for n in want}
+            if seen == want:
+                break
+            log(f"the profiled {k} chunk saw {seen} of the graph record's "
+                f"{want} in window {window}: CUPTI dropped kernel records")
+        if exact:
             assert seen == want, f"{k} chunk ran {seen}, the graph record " \
                 f"says {want}"
-        else:
-            log(f"the profiled {k} chunk saw {seen} of the graph record's "
-                f"{want}: CUPTI dropped kernel records in this window")
+    wall_graph_prof, wall_eager_prof = walls["graph"], walls["eager"]
     log(f"profiled kernels per chunk against the graph record's launches: "
         f"{want} (K1 as split + combine)")
     busy = {k: sum(v[1] for v in kd.values()) / steps for k, kd in kinds.items()}
@@ -1887,6 +2116,273 @@ def serve_m8c(ecfg, reqs):
     for k, v in launches.items():
         totals[k] = totals.get(k, 0) + v
     return totals, rows
+
+
+# ----------------------------------------------------------------------------
+# Phase 9t: training
+# ----------------------------------------------------------------------------
+
+# the kernels of the training path: K3 and K4 forward and backward
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "fused_rmsnorm",
+                 "fused_rmsnorm_bwd")
+# phase 9t(a): three fp32 steps card against CPU, lr 1e-4.  The small
+# model's fp32 gradients depend on the order of their sums: the card and
+# the CPU part by up to 6.9e-4 of a leaf's max-abs at step 0 with the
+# kernels and the same with the plain K3 and K4 backward on the card
+# (one H100), as two orders on the CPU part (1.3e-4).  AdamW's
+# first steps move a parameter by about lr * sign(g), so a gradient inside
+# that noise can step either way on either device: the params are held to
+# two steps of lr a step, and the losses, the grad norms and the step-0
+# gradients to the noise
+TRAIN_SMALL_STEPS = 3
+TRAIN_LR = 1e-4
+TRAIN_TOL = {"loss": 2e-5, "grad_norm": 1e-3, "grad": 2e-3,
+             "params": 2 * TRAIN_LR * TRAIN_SMALL_STEPS}
+TRAIN_PEAK_GIB = 75.0
+TRAIN_CKPT = ROOT / "build" / "chip_smoke_train_ckpt"
+
+
+def _small_train_cfg(**kw):
+    """qwen2.5-3b's smoke config at 2 layers with its heads widened to 16
+    / 2 of 128 (the smoke config's 16-dim heads are no (G, D) the
+    attention kernels are built for), as phase 3's small model."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import scaled_down
+    return scaled_down(get_config("qwen2.5-3b"), num_groups=2, d_model=128,
+                       num_heads=16, num_kv_heads=2, head_dim=128, d_ff=256,
+                       **kw)
+
+
+def _train_steps(cfg, params, batches, device):
+    """TRAIN_SMALL_STEPS AdamW steps of ``cfg`` from ``params`` on
+    ``device``; returns (losses, grad norms, final params on the CPU)."""
+    import torch
+    from repro_torch.models.params import map_tree
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=TRAIN_LR, warmup_steps=0))
+    p = map_tree(lambda t: t.to(device, copy=True), params)
+    opt = adamw_init(p, tcfg.adamw)
+    step = make_train_step(cfg, tcfg)
+    losses, norms = [], []
+    for b in batches:
+        p, opt, m = step(p, opt, {k: torch.from_numpy(v).to(device)
+                                  for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, map_tree(lambda t: t.cpu(), p)
+
+
+def _step0_grads(cfg, params, batch, device):
+    import torch
+    from repro_torch.models.params import map_tree, tree_leaves
+    from repro_torch.training.train_step import TrainConfig, make_grad_fn
+    p = map_tree(lambda t: t.to(device, copy=True), params)
+    g, _ = make_grad_fn(cfg, TrainConfig())(
+        p, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+    return [t.cpu() for t in tree_leaves(g)]
+
+
+def train_card_vs_cpu():
+    """Phase 9t(a): the small model's step-0 gradients and three train
+    steps on the card (K3 and K4 forward and backward) and on the CPU
+    (plain versions) from the same fp32 params and batches, remat off and
+    on.  Returns the launches of the card's runs."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.params import init_params, tree_leaves
+    launches = {}
+    for remat in (False, True):
+        cfg = _small_train_cfg(remat=remat)
+        params = init_params(param_specs(cfg),
+                             torch.Generator().manual_seed(9), device="cpu")
+        ds = SyntheticLMDataset(cfg, 64, 8, seed=0)
+        batches = [ds.batch(i) for i in range(TRAIN_SMALL_STEPS)]
+        K.reset_launches()
+        g_card = _step0_grads(cfg, params, batches[0], "cuda")
+        card = _train_steps(cfg, params, batches, "cuda")
+        torch.cuda.synchronize()
+        for k, v in K.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        missing = [k for k in TRAIN_KERNELS if K.LAUNCHES[k] == 0]
+        assert not missing, f"9t(a): {missing} never launched"
+        g_cpu = _step0_grads(cfg, params, batches[0], "cpu")
+        grad_gap = max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip(g_card, g_cpu))
+        cpu = _train_steps(cfg, params, batches, "cpu")
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+        norm_gap = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+        param_gap = max(float((a - b).abs().max()) for a, b in
+                        zip(tree_leaves(card[2]), tree_leaves(cpu[2])))
+        log(f"phase 9t(a) remat {'on' if remat else 'off'}: step-0 grads "
+            f"card vs CPU within {grad_gap:.2e} of a leaf's max-abs; "
+            f"{TRAIN_SMALL_STEPS} fp32 steps card vs CPU: losses "
+            f"{[round(x, 6) for x in card[0]]} (CPU "
+            f"{[round(x, 6) for x in cpu[0]]}; gap {loss_gap:.2e} relative), "
+            f"grad norms gap {norm_gap:.2e} relative, params within "
+            f"{param_gap:.2e}; launches "
+            f"{ {k: K.LAUNCHES[k] for k in TRAIN_KERNELS} }")
+        assert grad_gap <= TRAIN_TOL["grad"], grad_gap
+        assert loss_gap <= TRAIN_TOL["loss"], loss_gap
+        assert norm_gap <= TRAIN_TOL["grad_norm"], norm_gap
+        assert param_gap <= TRAIN_TOL["params"], param_gap
+    return launches
+
+
+def train_launcher():
+    """Phase 9t(b): ``repro_torch.launch.train`` on the card, the small
+    model, 12 steps, a checkpoint every 4 under build/, a failure injected
+    at step 6: it must restore step 4 at data index 4 and end with a lower
+    loss than it started with.  Returns the launches."""
+    import shutil
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.launch import train as launcher
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = launcher.main([
+        "--arch", "qwen2.5-3b", "--smoke", "--set", "num_layers=2",
+        "--set", "d_model=128", "--set", "num_heads=16",
+        "--set", "head_dim=128", "--set", "d_ff=256", "--steps", "12",
+        "--global-batch", "8", "--seq-len", "64", "--ckpt-every", "4",
+        "--simulate-failure-at", "6", "--ckpt-dir", str(TRAIN_CKPT),
+        "--lr", "1e-2"])
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    losses = out["losses"]
+    log(f"phase 9t(b) launcher: {out['attempts']} attempts, restored "
+        f"{out['restored']} (step, data index), losses "
+        f"{[round(losses[i], 4) for i in sorted(losses)]}, launches "
+        f"{ {k: launches[k] for k in TRAIN_KERNELS} }, "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert out["attempts"] == 2 and out["restored"] == [(4, 4)], out
+    assert sorted(losses) == list(range(12))
+    assert losses[11] < losses[0], losses
+    assert all(launches[k] > 0 for k in TRAIN_KERNELS), launches
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    return launches
+
+
+def _step_profile(step_once):
+    """Device ms of one train step by kernel: each training kernel's ms,
+    the rest, the rest by kind (``_kernel_kinds``) and its five largest
+    kernels by name; from torch.profiler."""
+    from torch.autograd import DeviceType
+    prof, _ = profiled(step_once)
+    kinds = _kernel_kinds(prof)
+    out = {k: kinds.get(k, [0, 0.0])[1] for k in TRAIN_KERNELS}
+    out["total"] = sum(ms for _, ms in kinds.values())
+    out["outside"] = out["total"] - sum(out[k] for k in TRAIN_KERNELS)
+    out["by_kind"] = {k: [n, round(ms, 3)] for k, (n, ms) in kinds.items()}
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not any(
+                n in e.name for n in ("flash_", "rmsnorm")):
+            acc = names.setdefault(e.name[:70], [0, 0.0])
+            acc[0] += 1
+            acc[1] += e.device_time / 1e3
+    out["top_outside"] = sorted(([n, c, round(ms, 3)] for n, (c, ms) in
+                                 names.items()), key=lambda r: -r[2])[:5]
+    return out
+
+
+def train_full_width(steps=4):
+    """Phase 9t(c): qwen2.5-3b at full width (36 layers, remat on, bf16
+    activations, random weights made on the card), global batch 4 x 512:
+    ``steps`` steps with fp32 params and moments (the reference launcher's
+    params), then ``steps`` with bf16 params and fp32 moments (what the
+    reference's dry-run specs pick for it).  Prints ms a step (the first
+    apart), the peak, the losses, each training kernel's launches and
+    device ms a step and the device ms outside them.  Returns (launches,
+    rows)."""
+    import gc
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    cfg = get_config("qwen2.5-3b")
+    assert cfg.remat and cfg.num_layers == 36 and cfg.tie_embeddings
+    ds = SyntheticLMDataset(cfg, TRAIN_S, TRAIN_B, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                ds.batch(i).items()} for i in range(steps + 1)]
+    launches, rows = {}, {}
+    for name, pdt in (("fp32 params", torch.float32),
+                      ("bf16 params", torch.bfloat16)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tcfg = TrainConfig(adamw=AdamWConfig(lr=1e-4, warmup_steps=0,
+                                             moment_dtype="float32"))
+        t0 = time.perf_counter()
+        params = init_params(param_specs(cfg), torch.Generator(
+            device="cuda").manual_seed(0), pdt, device="cuda")
+        opt = adamw_init(params, tcfg.adamw)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        nparams = sum(t.numel() for t in tree_leaves(params))
+        step = make_train_step(cfg, tcfg)
+        K.reset_launches()
+        times, losses = [], []
+        per_step = None
+        for i in range(steps):
+            before = dict(K.LAUNCHES)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batches[i])
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            per_step = {k: K.LAUNCHES[k] - before.get(k, 0)
+                        for k in TRAIN_KERNELS}
+        for k, v in K.LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        box = {}
+
+        def one():
+            box["m"] = step(params, opt, batches[steps])[2]
+        prof = _step_profile(one)
+        row = {"params_b": nparams / 1e9, "init_s": init_s,
+               "first_step_ms": times[0],
+               "ms_per_step": float(np.mean(times[1:])),
+               "step_ms": times, "losses": losses, "peak_gib": peak,
+               "launches_per_step": per_step, "device_ms": prof}
+        rows[name] = row
+        log(f"phase 9t(c) qwen2.5-3b full width, {name} ({nparams / 1e9:.3f} "
+            f"B), fp32 moments, batch {TRAIN_B} x {TRAIN_S}, remat: first "
+            f"step {times[0]:.1f} ms, then {row['ms_per_step']:.1f} ms a step "
+            f"({', '.join(f'{t:.1f}' for t in times[1:])}); peak {peak:.2f} "
+            f"GiB; losses {[round(x, 4) for x in losses]}; launches a step "
+            f"{per_step}; device ms a step (profiled step): "
+            + ", ".join(f"{k} {prof[k]:.3f}" for k in (
+                *TRAIN_KERNELS, "outside", "total"))
+            + f"; by kind [launches, ms] {prof['by_kind']}; the largest "
+            f"kernels outside [name, launches, ms] {prof['top_outside']}")
+        assert all(np.isfinite(losses)), losses
+        assert np.isfinite(float(box["m"]["loss"]))
+        assert peak < TRAIN_PEAK_GIB, peak
+        assert all(per_step[k] > 0 for k in TRAIN_KERNELS), per_step
+        del params, opt, step, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def run_training():
+    """Phase 9t: (a), (b) and (c), each a counted path."""
+    t0 = time.perf_counter()
+    paths = {"train small (card vs CPU)": train_card_vs_cpu(),
+             "train launcher": train_launcher()}
+    launches, rows = train_full_width()
+    paths["train full width"] = launches
+    log(f"phase 9t (training) took {time.perf_counter() - t0:.1f} s")
+    return paths, rows
 
 
 # ----------------------------------------------------------------------------
@@ -3625,8 +4121,9 @@ def main() -> int:
     secs = K.build()
     log(f"build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, parallel)")
-    for name in ("flash_attention", "ragged_decode_attention", "fused_rmsnorm",
-                 "batch_scan", "impatience_scan", "multibin_scan", "wait_scan",
+    for name in ("flash_attention", "flash_attention_bwd",
+                 "ragged_decode_attention", "fused_rmsnorm",
+                 "fused_rmsnorm_bwd", "batch_scan", "impatience_scan", "multibin_scan", "wait_scan",
                  "srpt_scan", "backlog_scan", "tandem_scan", "ssd_scan"):
         for line in ptxas_report(K.build_log(name)):
             log(f"ptxas {name}: {line}")
@@ -3645,7 +4142,8 @@ def main() -> int:
         f"{cfg.resolve_decode_attention_impl(engine.device)}")
 
     kernels = [check_ragged(dev), check_gather(dev, engine, cfg),
-               check_flash(dev), check_rmsnorm(dev), check_ssd_scan(dev)]
+               check_flash(dev), check_rmsnorm(dev), check_flash_bwd(dev),
+               check_rmsnorm_bwd(dev), check_ssd_scan(dev)]
     check_small_model(dev)
     check_small_moe(dev)
     check_small_jamba(dev)
@@ -3698,6 +4196,12 @@ def main() -> int:
         dataclasses.replace(ecfg, max_seq=MOE_MAX_SEQ), reqs)
     log(f"phase 4v (the audio and vision families) took "
         f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9t starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB allocated on the card")
+    train_paths, train_rows = run_training()
+    paths.update(train_paths)
     paths["launcher"] = serve_launcher(dev)
     t0 = time.perf_counter()
     paths["simulators"], sim_kernels = run_simulators(dev, cal)
@@ -3742,6 +4246,12 @@ def main() -> int:
                                for arch, row in ssm.items()}
             k["m8c_families"] = {arch: row["launches"][k["name"]]
                                  for arch, row in m8c.items()}
+    for k in kernels:
+        if k["name"] in TRAIN_KERNELS:
+            k["train_full_width"] = {
+                name: {"launches_per_step": row["launches_per_step"][k["name"]],
+                       "device_ms_per_step": row["device_ms"][k["name"]]}
+                for name, row in train_rows.items()}
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in paths.items()}

@@ -1,14 +1,71 @@
-"""Poisson request workloads for serving: a copy of the reference
-package's ``Request`` and ``make_request_stream`` (``repro.data.pipeline``)
-with modulated traffic and the multi-turn session expansion.  The rng
-call order is the reference's, so equal seeds and an equal ``dist`` give
-equal streams."""
+"""Data: synthetic LM token streams for training and Poisson request
+workloads for serving, copies of the reference package's
+``SyntheticLMDataset``, ``Request`` and ``make_request_stream``
+(``repro.data.pipeline``), with modulated traffic and the multi-turn
+session expansion.  NumPy only; the rng call order is the reference's, so
+equal seeds (and an equal ``dist``) give equal batches and streams, bit
+for bit."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Optional
 
 import numpy as np
+
+
+class SyntheticLMDataset:
+    """Zipf-distributed token sequences with structure (every even
+    position a function of the token before it) so smoke training shows a
+    real falling loss.  Batch ``index`` is drawn from its own generator
+    seeded by (seed, index), so a restart that restores ``index`` from a
+    checkpoint replays from the same position."""
+
+    def __init__(self, cfg, seq_len: int, global_batch: int, seed: int = 0):
+        self.cfg = cfg
+        self.seq_len = seq_len
+        self.global_batch = global_batch
+        self.seed = seed
+        self.index = 0
+        v = cfg.vocab_size
+        ranks = np.arange(1, v + 1, dtype=np.float64)
+        self._probs = (1.0 / ranks ** 1.1)
+        self._probs /= self._probs.sum()
+
+    def _rng(self, index: int) -> np.random.Generator:
+        return np.random.default_rng((self.seed, index))
+
+    def batch(self, index: Optional[int] = None) -> dict:
+        """Batch ``index`` (default: the next one, advancing ``index``) as
+        NumPy arrays: ``labels`` and ``tokens`` (int32) or ``embeds``
+        (fp32), and ``image_embeds`` (fp32) for a vision config."""
+        idx = self.index if index is None else index
+        rng = self._rng(idx)
+        b, s, v = self.global_batch, self.seq_len, self.cfg.vocab_size
+        base = rng.choice(v, size=(b, s + 1), p=self._probs)
+        base[:, 2::2] = (base[:, 1:-1:2] * 7 + 13) % v
+        tokens = base[:, :-1].astype(np.int32)
+        labels = base[:, 1:].astype(np.int32)
+        out = {"labels": labels}
+        if self.cfg.embeddings_input:
+            erng = self._rng(idx + 10 ** 9)
+            out["embeds"] = erng.normal(
+                0, 0.02, (b, s, self.cfg.d_model)).astype(np.float32)
+            out["labels"] = labels % self.cfg.vocab_size
+        else:
+            out["tokens"] = tokens
+        if self.cfg.vision_seq:
+            irng = self._rng(idx + 2 * 10 ** 9)
+            out["image_embeds"] = irng.normal(
+                0, 0.02, (b, self.cfg.vision_seq, self.cfg.d_model)
+            ).astype(np.float32)
+        if index is None:
+            self.index += 1
+        return out
+
+    def __iter__(self) -> Iterator[dict]:
+        while True:
+            yield self.batch()
 
 
 @dataclasses.dataclass

@@ -41,6 +41,10 @@ SOURCES = {
     "gather_rows": _PKG / "compaction" / "csrc" / "gather_rows.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "fused_rmsnorm": _PKG / "rmsnorm" / "csrc" / "fused_rmsnorm.cu",
+    # the backward kernels of K3 and K4, for training
+    "flash_attention_bwd":
+        _PKG / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
+    "fused_rmsnorm_bwd": _PKG / "rmsnorm" / "csrc" / "fused_rmsnorm_bwd.cu",
     # the port's own kernels: the simulators' per-request recursions (S1,
     # S2), batch-event loops (S3-S5), the fleet's routing scan (S6) and the
     # memory-gated tandem loop (S7)
@@ -64,6 +68,8 @@ EXTRA_FLAGS = {
     "ragged_decode_attention": ("-Xptxas=-v",),
     "fused_rmsnorm": ("-Xptxas=-v",),
     "flash_attention": ("-Xptxas=-v",),
+    "flash_attention_bwd": ("-Xptxas=-v",),
+    "fused_rmsnorm_bwd": ("-Xptxas=-v",),
     "batch_scan": ("-Xptxas=-v",),
     "impatience_scan": ("-Xptxas=-v",),
     "multibin_scan": ("-Xptxas=-v",),

@@ -1,10 +1,14 @@
 """Wrapper for the prefill flash attention kernels
 (``csrc/flash_attention.cu``: bf16 on the tensor cores, fp32 on the fp32
-cores, chosen by dtype inside the one C entry point).
+cores, chosen by dtype inside the one C entry point) and their backward
+(``csrc/flash_attention_bwd.cu``).
 
 CUDA tensors launch the kernel; CPU tensors run the plain version in
-``ref.py``.  The wrapper checks what the kernel takes and raises on the
-rest; it never falls back from one to the other."""
+``ref.py``, which autograd differentiates.  Under autograd (grad enabled
+and an input that requires grad) a CUDA call goes through
+``_FlashAttention``, whose backward launches the backward kernels.  The
+wrapper checks what the kernels take and raises on the rest; it never
+falls back from one to the other."""
 
 from __future__ import annotations
 
@@ -24,9 +28,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SHAPES = ((8, 128), (2, 128), (1, 256), (4, 128), (1, 128), (1, 64))
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9 + \
     [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 9 + \
+    [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def _launch(q, k, v, causal, window):
+def _check(q, k, v):
+    """Raise on what the kernels do not take; returns (B, S, Hq, Hkv, D)."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -48,6 +55,11 @@ def _launch(q, k, v, causal, window):
                 any(st % vec for st in t.stride()[:3]):
             raise ValueError(f"{name} needs a unit stride over D and "
                              f"16-byte aligned rows")
+    return b, s, hq, hkv, d
+
+
+def _launch(q, k, v, causal, window):
+    b, s, hq, hkv, d = _check(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fn = K.library("flash_attention").flash_attention
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
@@ -63,15 +75,65 @@ def _launch(q, k, v, causal, window):
     return out
 
 
+def _launch_bwd(q, k, v, out, dout, causal, window):
+    """dq, dk, dv (contiguous, in q's dtype) of ``out = flash_attention(q,
+    k, v)`` for the upstream grad ``dout``: the dq kernel (which also
+    writes each row's log-sum-exp and rowsum(dout * out)), then the dk/dv
+    kernel."""
+    b, s, hq, hkv, d = _check(q, k, v)
+    out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = K.library("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], b, s, hq, hkv, d,
+                int(causal), 0 if window is None else window,
+                _DTYPES[q.dtype], K.stream_ptr(q))
+    K.check_status("flash_attention_bwd", status)
+    K.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, and the backward kernels for its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _launch(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, out, dout, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """q: [B,S,Hq,D]; k/v: [B,S,Hkv,D] -> [B,S,Hq,D] in q's dtype.
 
     Causal attention with an optional sliding window (a query sees the
     ``window`` most recent positions, itself included), GQA by reading KV
     head h // G for query head h.  Any S works: the kernel masks the tail
-    itself, so there are no block arguments."""
+    itself, so there are no block arguments.  Differentiable: on CUDA
+    through the backward kernels, on the CPU through the plain version."""
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
     if K.on_cuda(q, k, v):
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return _FlashAttention.apply(q, k, v, causal, window)
         return _launch(q, k, v, causal, window)
     return attention_reference(q, k, v, causal=causal, window=window)

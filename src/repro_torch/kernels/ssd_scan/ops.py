@@ -7,7 +7,9 @@ and returns the state before each chunk and the final state.  CUDA
 tensors launch the kernel; CPU tensors run the plain version in
 ``ref.py``.  The wrapper checks what the kernel takes (fp32, contiguous,
 matching shapes, one device) and raises on the rest; it never falls back
-from one to the other."""
+from one to the other.  Under autograd a CUDA call raises
+``NotImplementedError`` (ROADMAP.md M10b: S8 has no backward kernel yet);
+on the CPU autograd differentiates the plain version."""
 
 from __future__ import annotations
 
@@ -65,5 +67,11 @@ def ssd_state_scan(chunk_decay, states, h0=None):
     P, N], hT [B, H, P, N])."""
     tensors = _check(chunk_decay, states, h0)
     if K.on_cuda(*tensors):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            # no backward kernel yet; the plain version does not run in
+            # the kernel's place
+            from repro_torch.core.policies import not_ported
+            not_ported("the backward of the SSD chunk-state scan (S8), to "
+                       "train a Mamba2 or jamba model on CUDA", "M10b")
         return _launch(chunk_decay, states, h0)
     return ssd_state_scan_reference(chunk_decay, states, h0)

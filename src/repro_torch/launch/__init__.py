@@ -1,2 +1,2 @@
 """Entry points of the port: ``serve`` (the adaptive-control serving
-launcher)."""
+launcher) and ``train`` (the fault-tolerant training launcher)."""

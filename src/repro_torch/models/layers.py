@@ -175,9 +175,21 @@ def _expand_kv(k, hq: int):
     return k.repeat_interleave(hq // hkv, dim=2)
 
 
+def _tracked(t) -> bool:
+    """True if autograd records ops on ``t``: an in-place op there could
+    overwrite what a backward needs, so the forward path goes out of
+    place (the same values)."""
+    return torch.is_grad_enabled() and t.requires_grad
+
+
 def _softmax_fp32(scores):
     # in place on the fresh difference: one score-sized buffer beside
-    # ``scores`` (a vision cross-attention prefill's scores take 6.7 GB)
+    # ``scores`` (a vision cross-attention prefill's scores take 6.7 GB);
+    # under autograd out of place, the row max held constant as the
+    # reference's stop_gradient holds it (the shift changes no value)
+    if _tracked(scores):
+        e = torch.exp(scores - scores.detach().amax(dim=-1, keepdim=True))
+        return e / e.sum(dim=-1, keepdim=True)
     m = scores.amax(dim=-1, keepdim=True)
     e = (scores - m).exp_()
     return e.div_(e.sum(dim=-1, keepdim=True))
@@ -193,7 +205,8 @@ def dense_attention(q, k, v, *, causal: bool, window: Optional[int],
     k = _expand_kv(k, hq)
     v = _expand_kv(v, hq)
     scale = 1.0 / np.sqrt(d)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float().mul_(scale)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    scores = scores * scale if _tracked(scores) else scores.mul_(scale)
     if softcap:
         scores = torch.tanh(scores / softcap) * softcap
     dev = q.device

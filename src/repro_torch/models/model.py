@@ -17,18 +17,29 @@ position and ``final_norm`` normalise that sum rounded to the activations'
 dtype (``round_sum``): the reference's scan over groups carries the
 residual stream in that dtype.  In fp32 the rounding changes nothing.
 
-Two entry points serve the engine:
+Three entry points:
+  forward(...)      full-sequence logits and the summed MoE load-balance
+                    loss (training / evaluation), no caches; each layer
+                    group is rematerialised under autograd when
+                    ``cfg.remat``, as the reference's ``jax.checkpoint``
+                    with ``nothing_saveable``
   prefill(...)      the prompt (token ids or ``embeds``, and the image
                     embeddings ``cross_kv`` of a model with cross-attention
                     positions); writes the KV / image-KV / SSM caches,
                     returns last logits
   decode_step(...)  one token against the caches (updated in place)
+The two that serve the engine run under ``torch.no_grad()`` there; every
+kernel of ``forward``'s path (K3 and K4 on CUDA) has a backward, but for
+S8 (the Mamba mixer's chunk-state scan, ROADMAP.md M10b).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import resolve_device
 from repro_torch.kernels.rmsnorm import fused_rmsnorm
@@ -135,14 +146,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def _apply_position(cfg: ModelConfig, mixer: str, ffn: str, p, x, delta, *,
                     positions, pos_cache, kv_lens, rope, cross_kv=None,
-                    first=False):
+                    first=False, with_aux=False):
     """One (mixer, ffn) layer.  ``x`` is the residual stream and ``delta``
     the previous branch's output, not yet added: the fused kernel adds it
     while it normalizes (rounding the sum first at a group's ``first``
-    position).  Returns (x, delta, pos_cache); an MoE FFN's load-balance
-    loss is not needed for serving and is dropped.  A cross-attention
-    position reads ``cross_kv`` at prefill (and writes the image K/V into
-    its cache) and the cached image K/V at decode (``cross_kv`` None)."""
+    position).  Returns (x, delta, pos_cache, aux): ``aux`` is an MoE
+    FFN's load-balance loss with ``with_aux`` (``forward``) and 0.0
+    otherwise (serving drops it).  A cross-attention position reads
+    ``cross_kv`` at prefill and in ``forward`` (and writes the image K/V
+    into its cache when it has one) and the cached image K/V at decode
+    (``cross_kv`` None)."""
     x, h = fused_rmsnorm(delta, x, p["pre_norm"], eps=cfg.norm_eps,
                          round_sum=first)
     if mixer == "attn":
@@ -162,39 +175,74 @@ def _apply_position(cfg: ModelConfig, mixer: str, ffn: str, p, x, delta, *,
     else:
         out, pos_cache = mamba_block(p["mixer"], h, cfg, state=pos_cache)
     if ffn == "none":
-        return x, out, pos_cache
+        return x, out, pos_cache, 0.0
     x, h2 = fused_rmsnorm(out, x, p["ffn_norm"], eps=cfg.norm_eps)
     if ffn == "dense":
         out = L.ffn_block(p["ffn"], h2, cfg)
         if "ffn_gate" in p:
             out = L.tanh_gate(p, "ffn_gate", out)
-        return x, out, pos_cache
-    return x, moe_block(p["ffn"], h2, cfg)[0], pos_cache
+        return x, out, pos_cache, 0.0
+    out, aux = moe_block(p["ffn"], h2, cfg, return_aux=with_aux)
+    return x, out, pos_cache, aux
+
+
+def _run_group(cfg: ModelConfig, gparams, x, delta, *, positions,
+               group_cache, kv_lens, rope, cross_kv, with_aux):
+    """The positions of one layer group; returns (x, delta, aux), aux
+    summed over the positions in fp32 from 0, as the reference's
+    ``_apply_group`` sums it."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if with_aux else 0.0
+    for i, (mixer, ffn) in enumerate(cfg.group_pattern):
+        key = f"pos{i}"
+        pos_cache = None if group_cache is None else group_cache[key]
+        x, delta, _, a = _apply_position(
+            cfg, mixer, ffn, gparams[key], x, delta, positions=positions,
+            pos_cache=pos_cache, kv_lens=kv_lens, rope=rope,
+            cross_kv=cross_kv, first=i == 0, with_aux=with_aux)
+        aux = aux + a
+    return x, delta, aux
 
 
 def _run_groups(cfg: ModelConfig, params, x, *, positions, cache, kv_lens,
-                cross_kv=None):
-    """Loop over the stacked group dim; layer g reads the views
-    ``leaf[g]`` of the stacked params and caches (cache writes land in the
-    stacked tensors).  Returns (x, delta): the residual stream and the last
-    branch output, which ``_head`` adds as it applies ``final_norm``.  The
-    first layer adds the embeddings to a zero stream, so every norm of the
-    model goes through the fused kernel."""
+                cross_kv=None, with_aux=False, remat=False):
+    """Loop over the stacked group dim; layer g reads the views of group
+    g of the stacked params and caches (cache writes land in the stacked
+    tensors).  Returns (x, delta, aux): the residual stream and
+    the last branch output, which ``_head`` adds as it applies
+    ``final_norm``, and the groups' summed MoE loss (0.0 without
+    ``with_aux``).  The first layer adds the embeddings to a zero stream,
+    so every norm of the model goes through the fused kernel.  With
+    ``remat`` each group runs under ``torch.utils.checkpoint``: autograd
+    keeps only a group's inputs and runs the group again in the
+    backward."""
     rope = (L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if cfg.has_attention and cfg.pos_embedding == "rope" else None)
     x, delta = torch.zeros_like(x), x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if with_aux else 0.0
+    # each stacked leaf split once into its groups' views: under autograd
+    # the per-group grads are stacked once into the leaf's grad, where a
+    # view per group (leaf[g]) would add a leaf-sized zero-filled grad per
+    # group (at qwen2.5-3b's full width, 36 of them a leaf)
+    groups = map_tree(lambda leaf: leaf.unbind(0), params["groups"])
     for g in range(cfg.num_groups):
-        gparams = map_tree(lambda leaf: leaf[g], params["groups"])
-        for i, (mixer, ffn) in enumerate(cfg.group_pattern):
-            key = f"pos{i}"
-            pos_cache = None
-            if cache is not None:
-                pos_cache = {name: leaf[g] for name, leaf in cache[key].items()}
-            x, delta, _ = _apply_position(
-                cfg, mixer, ffn, gparams[key], x, delta, positions=positions,
-                pos_cache=pos_cache, kv_lens=kv_lens, rope=rope,
-                cross_kv=cross_kv, first=i == 0)
-    return x, delta
+        gparams = map_tree(lambda views: views[g], groups)
+        group_cache = None
+        if cache is not None:
+            group_cache = {key: {name: leaf[g] for name, leaf in c.items()}
+                           for key, c in cache.items()}
+        body = functools.partial(
+            _run_group, cfg, gparams, positions=positions,
+            group_cache=group_cache, kv_lens=kv_lens, rope=rope,
+            cross_kv=cross_kv, with_aux=with_aux)
+        if remat:
+            x, delta, a = checkpoint(body, x, delta, use_reentrant=False,
+                                     preserve_rng_state=False)
+        else:
+            x, delta, a = body(x, delta)
+        aux = aux + a
+    return x, delta, aux
 
 
 # ----------------------------------------------------------------------------
@@ -236,6 +284,46 @@ def _head(cfg: ModelConfig, params, x, delta):
     return logits
 
 
+def _check_cross_kv(cfg: ModelConfig, x, cross_kv):
+    """Raise unless a model with cross-attention positions has image
+    embeddings of a dtype that keeps the residual stream's."""
+    if cross_kv is None and any(m == "cross_attn"
+                                for m, _ in cfg.group_pattern):
+        raise ValueError(NO_IMAGE_EMBEDDINGS.format(name=cfg.name))
+    if cross_kv is not None and \
+            torch.promote_types(cross_kv.dtype, x.dtype) != x.dtype:
+        # the cross branch would come out in the wider dtype and turn the
+        # residual stream to it; the reference's group scan refuses such
+        # a carry with a TypeError too
+        raise TypeError(
+            f"{cfg.name}: cross_kv in {cross_kv.dtype} would change the "
+            f"{x.dtype} residual stream's dtype at the cross-attention "
+            f"positions")
+
+
+def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
+            cross_kv=None, positions=None):
+    """Full-sequence logits [B, S, padded_vocab] (training / evaluation)
+    and the MoE load-balance loss summed over the layers (an fp32 scalar,
+    0 without MoE FFNs); no caches.  The input is token ids ``tokens``
+    [B, S] or embeddings ``embeds`` [B, S, d_model], at ``positions`` [B,
+    S] (default 0..S-1); a model with cross-attention positions needs
+    ``cross_kv`` [B, vision_seq, d_model].  Differentiable: under
+    autograd with ``cfg.remat`` each layer group is rematerialised."""
+    check_supported(cfg)
+    src = tokens if tokens is not None else embeds
+    b, s = src.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=src.device).expand(b, s)
+    x = _embed_inputs(cfg, params, tokens, embeds, positions)
+    _check_cross_kv(cfg, x, cross_kv)
+    x, delta, aux = _run_groups(
+        cfg, params, x, positions=positions, cache=None, kv_lens=None,
+        cross_kv=cross_kv, with_aux=True,
+        remat=cfg.remat and torch.is_grad_enabled())
+    return _head(cfg, params, x, delta), aux
+
+
 def prefill(cfg: ModelConfig, params, tokens=None, *, embeds=None,
             cross_kv=None, cache, prompt_lens=None):
     """Run the prompt, fill the caches (in place), return (last-position
@@ -249,25 +337,15 @@ def prefill(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     check_supported(cfg)
     src = tokens if tokens is not None else embeds
     b, s = src.shape[:2]
-    if cross_kv is None and any(m == "cross_attn"
-                                for m, _ in cfg.group_pattern):
-        raise ValueError(NO_IMAGE_EMBEDDINGS.format(name=cfg.name))
     positions = torch.arange(s, device=src.device).expand(b, s)
     if prompt_lens is None:
         prompt_lens = torch.full((b,), s, dtype=torch.int32,
                                  device=src.device)
     x = _embed_inputs(cfg, params, tokens, embeds, positions)
-    if cross_kv is not None and \
-            torch.promote_types(cross_kv.dtype, x.dtype) != x.dtype:
-        # the cross branch would come out in the wider dtype and turn the
-        # residual stream to it; the reference's group scan refuses such
-        # a carry with a TypeError too
-        raise TypeError(
-            f"{cfg.name}: cross_kv in {cross_kv.dtype} would change the "
-            f"{x.dtype} residual stream's dtype at the cross-attention "
-            f"positions")
-    x, delta = _run_groups(cfg, params, x, positions=positions, cache=cache,
-                           kv_lens=prompt_lens, cross_kv=cross_kv)
+    _check_cross_kv(cfg, x, cross_kv)
+    x, delta, _ = _run_groups(cfg, params, x, positions=positions,
+                              cache=cache, kv_lens=prompt_lens,
+                              cross_kv=cross_kv)
     last = (prompt_lens.long() - 1).view(b, 1, 1).expand(b, 1, x.shape[-1])
     return _head(cfg, params, torch.gather(x, 1, last),
                  torch.gather(delta, 1, last))[:, 0], cache
@@ -282,6 +360,6 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, kv_lens):
     check_supported(cfg)
     positions = kv_lens[:, None]
     x = _embed_inputs(cfg, params, tokens[:, None], positions=positions)
-    x, delta = _run_groups(cfg, params, x, positions=positions, cache=cache,
-                           kv_lens=kv_lens)
+    x, delta, _ = _run_groups(cfg, params, x, positions=positions,
+                              cache=cache, kv_lens=kv_lens)
     return _head(cfg, params, x, delta)[:, 0], cache

@@ -413,9 +413,10 @@ def test_rmsnorm_kernel_round_sum_matches_plain(cuda, rows, dtype):
 
 @pytest.mark.gpu
 def test_rmsnorm_kernel_rejects_what_it_does_not_take(cuda):
-    x = _randn((4, 2048), torch.bfloat16, cuda, 0)
-    with pytest.raises(TypeError):                        # fp32 weight
-        fused_rmsnorm(x, x, torch.zeros(2048, device=cuda))
+    x = _randn((4, 2048), torch.float32, cuda, 0)
+    with pytest.raises(TypeError):                # bf16 weight, fp32 rows
+        fused_rmsnorm(x, x, torch.zeros(2048, device=cuda,
+                                        dtype=torch.bfloat16))
     x3 = _randn((4, 2044), torch.bfloat16, cuda, 0)
     with pytest.raises(ValueError, match="16-byte"):      # D * 2 % 16 != 0
         fused_rmsnorm(x3, x3, x3[0])
@@ -2253,3 +2254,197 @@ def test_m8c_small_models_card_equal_cpu(cuda, family):
         assert d["gather_rows"] > 0
         # bhsd decode reads the cache with the plain version
         assert (d.get("ragged_decode_attention", 0) > 0) == (family != "bhsd")
+
+
+# ----------------------------------------------------------------------------
+# The backward kernels of K3 and K4 (training), against the plain versions
+# under autograd.  Each gradient's largest |kernel - plain| is held to a
+# fraction of the plain gradient's max-abs: 1e-4 in fp32 (sums over up to
+# S positions in another order), 2e-2 in bf16 (the kernel rounds each
+# gradient once to bf16 and forms rowsum(dO * O) from the forward kernel's
+# bf16 O; the plain autograd from its fp32 O)
+# ----------------------------------------------------------------------------
+
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_PAIRS = [(8, 128), (2, 128), (1, 256), (4, 128), (1, 128), (1, 64)]
+BWD_SHAPES = [(2, 80, None), (1, 300, 64), (3, 65, 16), (1, 1, None)]
+
+
+def _assert_grads_close(got, ref, dtype):
+    """Each gradient within the tolerance of its own max-abs, or of 1% of
+    the largest of the grads when its own is smaller: at S = 1 the
+    softmax over one key has no gradient, and dq and dk are the rounding
+    of P * (dP - rowsum(dO * O)), about 1e-7 of dv on either side."""
+    floor = max(float(c.float().abs().max()) for c in ref)
+    for a, c in zip(got, ref):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        scale = max(float(c.float().abs().max()), 1e-2 * floor)
+        gap = float((a.float() - c.float()).abs().max())
+        assert gap <= GRAD_TOL[dtype] * scale, (gap, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,win", BWD_SHAPES)
+@pytest.mark.parametrize("g,d", BWD_PAIRS)
+def test_flash_backward_matches_plain(cuda, g, d, b, s, win, dtype):
+    """dq, dk, dv of K3 (one backward launch) against the plain version's
+    autograd grads at every (G, D) the kernels are built for."""
+    q = _randn((b, s, 2 * g, d), dtype, cuda, 0).requires_grad_()
+    k = _randn((b, s, 2, d), dtype, cuda, 1).requires_grad_()
+    v = _randn((b, s, 2, d), dtype, cuda, 2).requires_grad_()
+    do = _randn((b, s, 2 * g, d), dtype, cuda, 3)
+    before = K.LAUNCHES["flash_attention_bwd"]
+    got = torch.autograd.grad(flash_attention(q, k, v, window=win),
+                              (q, k, v), do)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention_bwd"] == before + 1
+    ref = torch.autograd.grad(attention_reference(q, k, v, window=win),
+                              (q, k, v), do)
+    _assert_grads_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_non_causal_and_strided_views(cuda, dtype):
+    """q, k and v as views of one fused projection (the grad lands in the
+    projection), and non-causal attention with and without a window."""
+    qkv = _randn((2, 150, 20, 128), dtype, cuda, 4).requires_grad_()
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:18], qkv[:, :, 18:]
+    do = _randn((2, 150, 16, 128), dtype, cuda, 5)
+    for causal, win in ((True, None), (True, 32), (False, None), (False, 7)):
+        got = torch.autograd.grad(
+            flash_attention(q, k, v, causal=causal, window=win), qkv, do)
+        ref = torch.autograd.grad(
+            attention_reference(q, k, v, causal=causal, window=win), qkv, do)
+        _assert_grads_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_backward_is_deterministic_and_only_under_grad(cuda):
+    """No atomics: two backward passes are bit-equal; without autograd
+    (or with no input that needs a grad) the forward kernel runs alone."""
+    q = _randn((2, 333, 16, 128), torch.bfloat16, cuda, 0).requires_grad_()
+    k = _randn((2, 333, 2, 128), torch.bfloat16, cuda, 1).requires_grad_()
+    do = _randn((2, 333, 16, 128), torch.bfloat16, cuda, 2)
+    g1 = torch.autograd.grad(flash_attention(q, k, k), (q, k), do)
+    g2 = torch.autograd.grad(flash_attention(q, k, k), (q, k), do)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    with torch.no_grad():
+        out = flash_attention(q, k, k)
+    assert not out.requires_grad
+    assert not flash_attention(q.detach(), k.detach(), k.detach()).requires_grad
+
+
+@pytest.mark.gpu
+def test_flash_backward_rejects_what_it_does_not_take(cuda):
+    """Shapes outside the built (G, D) raise before any launch, forward or
+    backward; a bad upstream grad raises in the backward."""
+    from repro_torch.kernels.flash_attention import ops
+    before = dict(K.LAUNCHES)
+    q = _randn((1, 32, 6, 128), torch.float32, cuda, 0).requires_grad_()
+    k = _randn((1, 32, 2, 128), torch.float32, cuda, 1)
+    with pytest.raises(ValueError, match="built for"):    # G = 3
+        flash_attention(q, k, k)
+    q = _randn((1, 32, 16, 128), torch.float32, cuda, 0)
+    out = flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="shape"):
+        ops._launch_bwd(q, k, k, out, out[:, :16], True, None)
+    with pytest.raises(ValueError, match="built for"):
+        ops._launch_bwd(q[:, :, :6], k, k, out[:, :, :6], out[:, :, :6],
+                        True, None)
+    assert K.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("round_sum", [False, True])
+@pytest.mark.parametrize("pair", [(torch.float32, torch.float32),
+                                  (torch.bfloat16, torch.bfloat16),
+                                  (torch.bfloat16, torch.float32)],
+                         ids=["fp32", "bf16", "bf16-fp32w"])
+@pytest.mark.parametrize("d", [8, 2048, 2056, 8192])
+@pytest.mark.parametrize("rows", [1, 3, 16, 600, 4096, (2, 37)])
+def test_rmsnorm_backward_matches_plain(cuda, rows, d, pair, round_sum):
+    """dx, dresidual and dweight of K4 (one backward launch) against the
+    plain version's autograd grads, from both outputs' grads, for each
+    pair of row and weight dtypes the kernels take."""
+    xdt, wdt = pair
+    if xdt == torch.float32 and d == 8:
+        d = 4                                    # one fp32 vector
+    shape = (rows if isinstance(rows, tuple) else (rows,)) + (d,)
+    x = (_randn(shape, xdt, cuda, 0) * 3).requires_grad_()
+    r = _randn(shape, xdt, cuda, 1).requires_grad_()
+    w = (_randn((d,), wdt, cuda, 2) * 0.1).requires_grad_()
+    ds, dn = _randn(shape, xdt, cuda, 3), _randn(shape, xdt, cuda, 4)
+    before = K.LAUNCHES["fused_rmsnorm_bwd"]
+    got = torch.autograd.grad(
+        fused_rmsnorm(x, r, w, eps=1e-6, round_sum=round_sum), (x, r, w),
+        (ds, dn))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_rmsnorm_bwd"] == before + 1
+    ref = torch.autograd.grad(rmsnorm_reference(x, r, w, 1e-6, round_sum),
+                              (x, r, w), (ds, dn))
+    _assert_grads_close(got, ref, xdt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_strided_deterministic_and_one_output(cuda, dtype):
+    """Non-contiguous rows, a grad that reaches only one output, and two
+    backward passes bit-equal (dweight sums its block partials in order)."""
+    wide = _randn((64, 2 * 2048), dtype, cuda, 0)
+    x = wide[:, ::2].requires_grad_()
+    r = _randn((64, 2048), dtype, cuda, 1).requires_grad_()
+    w = (_randn((2048,), dtype, cuda, 2) * 0.1).requires_grad_()
+    dn = _randn((64, 2048), dtype, cuda, 3)
+    got = torch.autograd.grad(fused_rmsnorm(x, r, w)[1], (x, r, w), dn)
+    again = torch.autograd.grad(fused_rmsnorm(x, r, w)[1], (x, r, w), dn)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = torch.autograd.grad(rmsnorm_reference(x, r, w)[1], (x, r, w), dn)
+    _assert_grads_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_backward_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.rmsnorm import ops
+    x = _randn((4, 12288), torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="backward kernel takes"):
+        ops._launch_bwd(x, x, x[0], x, x, 1e-6, False)   # fp32 beyond 8192
+    xb = _randn((4, 2048), torch.float32, cuda, 0)
+    with pytest.raises(TypeError):                       # bf16 w, fp32 rows
+        ops._launch_bwd(xb, xb, xb[0].bfloat16(), xb, xb, 1e-6, False)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_under_grad_raises_the_m10b_error(cuda):
+    """S8 has no backward kernel: a CUDA call under autograd raises the
+    M10b error and does not run the plain version in its place; without
+    grad it launches as before; on the CPU autograd differentiates the
+    plain version."""
+    from repro_torch.kernels.ssd_scan import ssd_state_scan
+    decay = torch.rand(2, 3, 4, device=cuda)
+    states = torch.randn(2, 3, 4, 8, 16, device=cuda).requires_grad_()
+    before = dict(K.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="M10b"):
+        ssd_state_scan(decay, states)
+    assert dict(K.LAUNCHES) == before
+    with torch.no_grad():
+        ssd_state_scan(decay, states)
+    assert K.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+    hb, ht = ssd_state_scan(decay.cpu(), states.detach().cpu().requires_grad_())
+    assert ht.requires_grad
+
+
+@pytest.mark.gpu
+def test_training_a_mamba_model_on_cuda_raises_the_m10b_error(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.params import init_params
+    from repro_torch.training.train_step import TrainConfig, make_grad_fn
+    cfg = get_smoke_config("mamba2-2.7b")
+    params = init_params(param_specs(cfg), torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32, device=cuda),
+             "labels": torch.zeros((2, 8), dtype=torch.int32, device=cuda)}
+    with pytest.raises(NotImplementedError, match="M10b"):
+        make_grad_fn(cfg, TrainConfig())(params, batch)

@@ -53,7 +53,7 @@ def test_every_kernel_source_is_registered():
     launch counter that ``reset_launches`` zeroes."""
     from repro_torch import kernels as K
     sources = sorted((ROOT / "src" / "repro_torch" / "kernels").rglob("*.cu"))
-    assert sorted(K.SOURCES.values()) == sources and len(sources) == 12
+    assert sorted(K.SOURCES.values()) == sources and len(sources) == 14
     K.reset_launches()
     assert {K.LAUNCHES[name] for name in K.SOURCES} == {0}
 
