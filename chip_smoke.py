@@ -23,12 +23,18 @@ Phases (any failure raises and the script exits non-zero):
      SSD's chunk-state scan, bit for bit to its plain version at
      mamba2-2.7b's shapes (B = 16, C = 1 with and without h0; B = 4, C =
      8) and jamba's full mixer (B = 4, C = 8), timed against its bytes
-     bound; hold K3's backward (every (G, D) instance, both dtypes, with
-     and without a window, on views of one projection too) and K4's (one
-     row to 4,096, an fp32 weight beside bf16 rows too, ``round_sum`` off
-     and on) to the plain versions' autograd grads, and time both at
-     phase 9t(c)'s shape beside the plain backward, the library's
-     backward (SDPA; ``add`` + ``rms_norm``) and the bound;
+     bound; time K3 at qwen's serving shape without and with the
+     log-sum-exp output that training's forward writes (outputs bit-equal);
+     hold K3's backward (every (G, D) instance, both dtypes, with and
+     without a window, S off a multiple of 64, on views of one projection
+     too; the forward's lse held to the plain one) and K4's (one row to
+     4,096, an fp32 weight beside bf16 rows too, ``round_sum`` off and on)
+     to the plain versions' autograd grads and to the plain backwards
+     written out as the kernels compute them (``attention_bwd_reference``,
+     ``rmsnorm_bwd_reference``), two backward passes bit-equal, and time
+     both at phase 9t(c)'s shape (K4's with a bf16 and an fp32 weight), the
+     whole call and each of its kernels, beside the plain backward, the
+     library's backward (SDPA; ``add`` + ``rms_norm``) and the bound;
   3. check a small fp32 model end to end: the engine on the card (all four
      kernels, decode chunks as CUDA graphs) emits the same greedy tokens as
      the engine on the CPU (plain paths); sampled at a fixed seed, the two
@@ -116,7 +122,8 @@ Phases (any failure raises and the script exits non-zero):
      on the card), 4 x 512 tokens a step, 4 steps with fp32 params, then
      4 with bf16 params, fp32 moments both: ms a step, peak (under 75
      GiB), losses (finite), and each training kernel's launches and
-     device ms a step beside the device ms outside them;
+     device ms a step (and by kernel name) beside the device ms outside
+     them;
   5. run the adaptive-control serving launcher
      (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width;
   7. run the paper's simulators (``repro_torch.core.fastsim``) on the card:
@@ -244,22 +251,26 @@ def log(*a):
     print(*a, flush=True)
 
 
-def profiled(fn, tries=3):
+def profiled(fn, tries=6):
     """Run ``fn`` under torch.profiler (CPU and CUDA activities) and return
     (profile, fn's result).  A window in which CUPTI delivered no device
-    event at all runs again, ``tries`` times at most: such a window was
-    seen once on the card, in a timing that the same code passes in
-    other runs."""
+    event at all runs again, after a pause of a second, ``tries`` times at
+    most: such windows come in runs on the card (three in a row have been
+    seen, in a timing of plain PyTorch ops that other runs pass), so the pause
+    gives CUPTI time to deliver before the next window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
+    for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
         if any(e.device_type == DeviceType.CUDA for e in prof.events()):
             return prof, out
+        log(f"profiler: window {attempt + 1} of {tries} saw no device event; "
+            f"again after a pause")
+        time.sleep(1.0)
     raise AssertionError(f"the profiler saw no device work in {tries} windows")
 
 
@@ -286,6 +297,23 @@ def time_ms(fn, iters=20, warmup=3):
     return call, dev_us / 1e3 / iters
 
 
+def kernel_split(fn, iters=20):
+    """Device ms a call of each kernel ``fn`` launches, by name
+    (torch.profiler), after one warm call."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    prof, _ = profiled(lambda: [fn() for _ in range(iters)])
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel)", e.name)
+            name = m.group(1) if m else e.name[:50]
+            out[name] = out.get(name, 0.0) + e.device_time / 1e3 / iters
+    return out
+
+
 def fmt(t):
     """A (call, device) pair from ``time_ms`` as text."""
     return f"{t[1]:.4f} ms device ({t[0]:.4f} ms per call)"
@@ -295,6 +323,62 @@ def rotating(fn, inputs):
     """``fn`` over ``inputs`` in turn, so each launch reads past the L2."""
     turn = iter(range(10 ** 9))
     return lambda: fn(*inputs[next(turn) % len(inputs)])
+
+
+SPIN_CYCLES = 10 ** 8      # one spinning thread: about 50 ms at 1,980 MHz
+
+
+def busy_ms(sides, iters=30, rounds=2):
+    """Device ms a call of each of ``sides`` (name -> fn), by CUDA events
+    around ``iters`` calls queued behind a spin of the card
+    (``torch.cuda._sleep``): the host has queued every call before the
+    first one starts, so its launch time is hidden and the card runs the
+    calls back to back at its loaded clock.  The sides take turns, A B B A,
+    ``rounds`` times in this process.  A reading whose calls were not all
+    queued when the spin ended is taken again behind a spin twice as long.
+    Returns (name -> the readings, the SM clocks in MHz the spins read)."""
+    import torch
+    order = list(sides) + list(sides)[::-1]
+    out = {n: [] for n in sides}
+    clocks = []
+    for fn in sides.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for name in order:
+            cycles = SPIN_CYCLES
+            while True:
+                s0, s1, e = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+                s0.record()
+                torch.cuda._sleep(cycles)
+                s1.record()
+                for _ in range(iters):
+                    sides[name]()
+                e.record()
+                queued = not s1.query()
+                torch.cuda.synchronize()
+                if queued:
+                    break
+                cycles *= 2
+            out[name].append(s1.elapsed_time(e) / iters)
+            clocks.append(cycles / s0.elapsed_time(s1) / 1e3)
+    return out, clocks
+
+
+def card_clocks():
+    """The card's SM and memory clocks and P-state as nvidia-smi reads them
+    now (after a timing, the clocks it ended at)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,"
+                          "pstate", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout else "not read"
+
+
+def fmt_busy(readings):
+    """Readings of ``busy_ms`` as text: the mean and each reading."""
+    return (f"{np.mean(readings):.4f} ms ("
+            + ", ".join(f"{t:.4f}" for t in readings) + ")")
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -319,6 +403,10 @@ def ptxas_report(build_log):
             entry += f" G={gd.group(1)} D={gd.group(2)}" if gd else ""
             vpt = re.search(r"fused_rmsnorm_kernelI\w+?Li(\d+)E", mangled)
             entry += f" VPT={vpt.group(1)}" if vpt else ""
+            rows = re.search(r"rmsnorm_bwd_rows_kernelI\w+?Li(\d+)E", mangled)
+            if rows:    # bf16 rows beside an fp32 weight mangle as "...16fLi"
+                entry += (" fp32 weight" if "bfloat16fLi" in mangled else
+                          "") + f" VPT={rows.group(1)}"
             rt = re.search(r"backlog_\w+?_kernelILi(\d+)ELb([01])E", mangled)
             entry += (f" RT={rt.group(1)}{' masked' if rt.group(2) == '1' else ''}"
                       if rt else "")
@@ -615,6 +703,48 @@ def _flash_timing(dev, b, s, hq, hkv, d, label):
             "bound_ms": bnd, "bound_by": by}
 
 
+def _flash_lse_timing(dev, b=16, s=256, copies=4):
+    """K3 at qwen2.5-3b's serving shape (bf16, causal) without the
+    log-sum-exp output (serving) and with it (training's forward): the
+    outputs bit-equal; each side's device ms by ``busy_ms``, turn about,
+    over ``copies`` input sets in turn (37.7 MB each, past the L2).  A tree
+    whose K3 has no lse output times the serving side alone, so that
+    running this with ``PYTHONPATH`` at each of two trees' ``src`` in turn
+    compares their serving K3 on one card."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    hq, hkv, d = ATTN_HEADS["qwen2.5-3b"]
+    has_lse = hasattr(ops, "lse_buffer")
+    sets = []
+    for _ in range(copies):
+        q = torch.randn(b, s, hq, d, device=dev, dtype=torch.bfloat16)
+        k, v = (torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        sets.append((q, k, v, ops.lse_buffer(b, s, hkv, hq // hkv, dev)
+                     if has_lse else None))
+    sides = {"without": rotating(lambda q, k, v, buf: ops._launch(
+        q, k, v, True, None), sets)}
+    if has_lse:
+        q, k, v, buf = sets[0]
+        assert torch.equal(ops._launch(q, k, v, True, None),
+                           ops._launch(q, k, v, True, None, buf)), \
+            "K3's output differs with the lse output"
+        sides["with"] = rotating(lambda q, k, v, buf: ops._launch(
+            q, k, v, True, None, buf), sets)
+    runs, clocks = busy_ms(sides, rounds=3)
+    out = {k_: float(np.mean(v_)) for k_, v_ in runs.items()}
+    log(f"K3 serving shape B={b} S={s} bf16, {copies} input sets in turn, "
+        f"busy card (SM clock {min(clocks):.0f}-{max(clocks):.0f} MHz; after: "
+        f"{card_clocks()}), turn about: without the lse output "
+        f"{fmt_busy(runs['without'])}"
+        + (f", with it {fmt_busy(runs['with'])}, "
+           f"{100 * (out['with'] / out['without'] - 1):+.1f}%; outputs "
+           f"bit-equal" if has_lse else " (this tree has no lse output)"))
+    return {"without_lse_ms": out["without"],
+            "with_lse_ms": out.get("with"), "runs": runs,
+            "sm_mhz": [min(clocks), max(clocks)]}
+
+
 def check_flash(dev):
     """K3 at each (G, D) instance against its plain version (as K1), timed
     at qwen2.5-3b's B = 16, S = 256 and B = 1, S = 8192 and at each other
@@ -639,6 +769,7 @@ def check_flash(dev):
             AUDIO_ARCH, VISION_ARCH):
         shapes[arch] = _flash_timing(dev, 16, 256, *ATTN_HEADS[arch], arch)
     qw = shapes["qwen2.5-3b"]
+    serving_lse = _flash_lse_timing(dev)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
@@ -646,7 +777,7 @@ def check_flash(dev):
             "max_abs_err": max(max_err.values()), "ms": qw["ms"],
             "plain_ms": qw["plain_ms"], "bound_ms": qw["bound_ms"],
             "bound_by": qw["bound_by"], "library_ms": qw["library_ms"],
-            "shapes": shapes}
+            "shapes": shapes, "serving_lse": serving_lse}
 
 
 def check_rmsnorm(dev):
@@ -744,21 +875,25 @@ def _grad_gap(got, ref):
 
 
 def _flash_bwd_checks(dev, rng, g, d):
-    """K3's backward at (G, D) against the plain version's autograd grads,
-    in both dtypes, causal with and without a window, on contiguous q, k, v
-    and on views of one fused projection.  Returns the largest gap (a
-    fraction of each gradient's max-abs) by dtype."""
+    """K3's backward at (G, D) in both dtypes, causal with and without a
+    window, S off a multiple of 64, on contiguous q, k, v and on views of
+    one fused projection: against the plain version's autograd grads and
+    against ``attention_bwd_reference`` (the kernels' formulas in fp32 on
+    the forward kernel's out and log-sum-exp, which is held to
+    ``attention_lse_reference``), two backward passes bit-equal.  Returns
+    the largest gap (a fraction of each gradient's max-abs) by dtype."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.kernels.flash_attention import (
-        attention_reference, flash_attention)
+        attention_bwd_reference, attention_lse_reference, attention_reference,
+        flash_attention, ops)
     hkv = 2
     hq = g * hkv
     cases = [(2, 80, None), (2, 192, 64), (1, 300, None), (3, 65, 16)]
     gaps = {}
     for dtype in ("float32", "bfloat16"):
         td = getattr(torch, dtype)
-        worst = 0.0
+        worst = worst_formula = worst_lse = 0.0
         for i, (b, s, win) in enumerate(cases):
             fused = i == len(cases) - 1      # q, k, v views of one tensor
             if fused:
@@ -777,7 +912,11 @@ def _flash_bwd_checks(dev, rng, g, d):
             before = K.LAUNCHES["flash_attention_bwd"]
             got = torch.autograd.grad(flash_attention(q, k, v, window=win),
                                       leaves, do)
-            assert K.LAUNCHES["flash_attention_bwd"] == before + 1
+            again = torch.autograd.grad(flash_attention(q, k, v, window=win),
+                                        leaves, do)
+            assert K.LAUNCHES["flash_attention_bwd"] == before + 2
+            assert all(torch.equal(a, c) for a, c in zip(got, again)), \
+                ("K3b passes differ", g, d, dtype, b, s, win)
             ref = torch.autograd.grad(
                 attention_reference(q, k, v, window=win), leaves, do)
             for a, c in zip(got, ref):
@@ -785,23 +924,43 @@ def _flash_bwd_checks(dev, rng, g, d):
                 gap = _grad_gap(a, c)
                 assert gap <= GRAD_TOL[dtype], (g, d, dtype, b, s, win, gap)
                 worst = max(worst, gap)
-        gaps[dtype] = worst
+            # the explicit formulas on the kernels' own out and lse
+            with torch.no_grad():
+                q0, k0, v0 = (t.detach() for t in (q, k, v))
+                buf = ops.lse_buffer(b, s, hkv, g, dev)
+                out = ops._launch(q0, k0, v0, True, win, buf)
+                lse = ops.lse_as_bhs(buf, s)
+                worst_lse = max(worst_lse, float((lse - attention_lse_reference(
+                    q0, k0, v0, window=win)[1]).abs().max()))
+                assert worst_lse <= 1e-4, (g, d, dtype, b, s, win, worst_lse)
+                mine = ops._launch_bwd(q0, k0, v0, out, do, buf, True, win)
+                formula = attention_bwd_reference(q0, k0, v0, out, do, lse,
+                                                  window=win)
+                for a, c in zip(mine, formula):
+                    gap = _grad_gap(a, c)
+                    assert gap <= GRAD_TOL[dtype], (g, d, dtype, b, s, win, gap)
+                    worst_formula = max(worst_formula, gap)
+        gaps[dtype] = max(worst, worst_formula)
         log(f"K3 backward (G, D) = ({g}, {d}) {dtype}: dq, dk, dv within "
-            f"{worst:.3e} of the plain grads' max-abs over (B, S, window) "
-            f"in {cases} (the last on q, k, v views of one projection)")
+            f"{worst:.3e} of the plain grads' max-abs and {worst_formula:.3e} "
+            f"of attention_bwd_reference's, two passes bit-equal, the "
+            f"forward's lse within {worst_lse:.2e} of the plain one, over "
+            f"(B, S, window) in {cases} (the last on q, k, v views of one "
+            f"projection)")
     return gaps
 
 
 def check_flash_bwd(dev):
     """K3's backward kernels at every (G, D) of ``_SHAPES`` in both dtypes
-    against the plain version under autograd; timed at the training shape
-    (qwen2.5-3b, B = 4, S = 512, bf16, causal) beside the plain version's
-    backward, SDPA's backward and the bound (2.5x the forward's causal
-    operations, or the bytes of q, k, v, o, dout, dq, dk, dv)."""
+    against the plain backwards; timed at the training shape (qwen2.5-3b,
+    B = 4, S = 512, bf16, causal) turn about with SDPA's backward on a busy
+    card over four input sets (``busy_ms``), then profiled alone kernel by
+    kernel, beside the plain version's backward and the bound (2.5x the
+    forward's causal operations, or the bytes of q, k, v, o, dout, dq, dk,
+    dv)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (
-        attention_reference, flash_attention, ops)
+    from repro_torch.kernels.flash_attention import attention_reference, ops
     rng = np.random.default_rng(11)
     worst = {}
     for g, d in ops._SHAPES:
@@ -809,55 +968,80 @@ def check_flash_bwd(dev):
             worst[dtype] = max(worst.get(dtype, 0.0), gap)
     hq, hkv, d = ATTN_HEADS["qwen2.5-3b"]
     b, s = TRAIN_B, TRAIN_S
-    q = torch.randn(b, s, hq, d, device=dev, dtype=torch.bfloat16)
-    k, v = (torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16)
-            for _ in range(2))
-    do = torch.randn_like(q)
-    out = flash_attention(q, k, v)
-    ms = time_ms(lambda: ops._launch_bwd(q, k, v, out, do, True, None))
+    sets, lib_sets = [], []
+    for _ in range(4):       # 37.7 MB a call, four sets past the L2
+        q = torch.randn(b, s, hq, d, device=dev, dtype=torch.bfloat16)
+        k, v = (torch.randn(b, s, hkv, d, device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
+        do = torch.randn_like(q)
+        lse = ops.lse_buffer(b, s, hkv, hq // hkv, dev)
+        sets.append((q, k, v, ops._launch(q, k, v, True, None, lse), do, lse))
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (qg, kg, vg)), is_causal=True,
+            enable_gqa=True)
+        lib_sets.append((lib_out, (qg, kg, vg), do.transpose(1, 2)))
+    kern = rotating(lambda q, k, v, out, do, lse: ops._launch_bwd(
+        q, k, v, out, do, lse, True, None), sets)
+    lib = rotating(lambda out, leaves, do: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), lib_sets)
+    runs, clocks = busy_ms({"K3b": kern, "sdpa backward": lib})
+    ms, lib_ms = (float(np.mean(runs[n])) for n in ("K3b", "sdpa backward"))
+    prof_ms = time_ms(kern)
+    split = kernel_split(kern)
+    nsplit = ops._dkv_splits(b, s, hkv, d, ops._sm_count(q.device))
+    q, k, v, _, do, _ = sets[0]
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     plain_out = attention_reference(qg, kg, vg)
     plain_ms = time_ms(lambda: torch.autograd.grad(
         plain_out, (qg, kg, vg), do, retain_graph=True), iters=5)
-    qt, kt, vt = (t.transpose(1, 2) for t in (qg, kg, vg))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-    lib_ms = time_ms(lambda: torch.autograd.grad(
-        lib_out, (qg, kg, vg), do.transpose(1, 2), retain_graph=True))
     nbytes = 2 * (4 * q.numel() + 4 * k.numel())
     flops = 2.5 * 4 * b * hq * d * (s * (s + 1) // 2)
     bnd = bound_ms(nbytes, flops, "bfloat16")
     by = "operations" if flops / PEAK_FLOPS["bfloat16"] > \
         nbytes / HBM_BYTES_PER_S else "bytes"
     log(f"K3 backward timing qwen2.5-3b ({hq}/{hkv} heads of {d}) B={b} "
-        f"S={s} bf16 causal: kernel {fmt(ms)}, plain backward "
-        f"{fmt(plain_ms)}, sdpa backward {fmt(lib_ms)}, bound {bnd:.4f} ms "
-        f"({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); "
-        f"{flops / ms[1] / 1e9:.1f} TFLOP/s, {100 * bnd / ms[1]:.1f}% of "
-        f"the bound")
+        f"S={s} bf16 causal, 4 input sets in turn, busy card (SM clock "
+        f"{min(clocks):.0f}-{max(clocks):.0f} MHz; after: {card_clocks()}), "
+        f"turn about: kernel "
+        f"{fmt_busy(runs['K3b'])}, sdpa backward "
+        f"{fmt_busy(runs['sdpa backward'])}: the kernel at "
+        f"{ms / lib_ms:.3f}x sdpa's; profiled alone {fmt(prof_ms)} (by "
+        "kernel " + ", ".join(f"{n} {t:.4f}" for n, t in split.items())
+        + f"; {nsplit} dk/dv blocks a key tile); plain backward "
+        f"{fmt(plain_ms)}; bound {bnd:.4f} ms ({by}; {flops / 1e9:.2f} "
+        f"GFLOP, {nbytes / 1e6:.1f} MB); {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bnd / ms:.1f}% of the bound")
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:86",
             "max_abs_err": max(worst.values()),
             "max_err_is": "fraction of each gradient's max-abs",
-            "ms": ms[1], "call_ms": ms[0], "plain_ms": plain_ms[1],
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms[1],
+            "ms": ms, "runs": runs, "sm_mhz": [min(clocks), max(clocks)],
+            "profiled_ms": prof_ms[1], "call_ms": prof_ms[0],
+            "kernels_ms": split, "dkv_splits": nsplit,
+            "plain_ms": plain_ms[1], "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms,
             "shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
                       "dtype": "bfloat16"}}
 
 
 def check_rmsnorm_bwd(dev):
     """K4's backward against the plain version under autograd (the grads of
-    x, the residual and the weight from both outputs) at the row counts of
-    training (one row to 4,096) in both dtypes, with an fp32 weight beside
-    bf16 rows too, round_sum off and on; timed at phase 9t(c)'s 2,048 rows
-    beside the plain backward, ``add`` + ``rms_norm``'s backward and the
-    bytes bound."""
+    x, the residual and the weight from both outputs) and against
+    ``rmsnorm_bwd_reference`` at the row counts of training (one row to
+    4,096) in both dtypes, with an fp32 weight beside bf16 rows too,
+    round_sum off and on, two passes bit-equal; timed at phase 9t(c)'s
+    2,048 rows with a bf16 and an fp32 weight turn about with ``add`` +
+    ``rms_norm``'s backward on a busy card over four input sets
+    (``busy_ms``), then profiled alone kernel by kernel, beside the plain
+    backward and the bytes bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as K
-    from repro_torch.kernels.rmsnorm import fused_rmsnorm, rmsnorm_reference
+    from repro_torch.kernels.rmsnorm import (
+        fused_rmsnorm, rmsnorm_bwd_reference, rmsnorm_reference)
     from repro_torch.kernels.rmsnorm import ops
     d, eps = 2048, 1e-6
     rng = np.random.default_rng(12)
@@ -866,6 +1050,7 @@ def check_rmsnorm_bwd(dev):
                      (torch.bfloat16, torch.bfloat16),
                      (torch.bfloat16, torch.float32)):
         name = str(xdt).removeprefix("torch.")
+        formula = 0.0
         for t in (1, 16, 600, 4096):
             x, r = (torch.from_numpy(rng.standard_normal(
                 (t, d), np.float32)).to(dev, xdt).requires_grad_()
@@ -879,7 +1064,12 @@ def check_rmsnorm_bwd(dev):
                 got = torch.autograd.grad(fused_rmsnorm(
                     x, r, w, eps=eps, round_sum=round_sum), (x, r, w),
                     (ds, dn))
-                assert K.LAUNCHES["fused_rmsnorm_bwd"] == before + 1
+                again = torch.autograd.grad(fused_rmsnorm(
+                    x, r, w, eps=eps, round_sum=round_sum), (x, r, w),
+                    (ds, dn))
+                assert K.LAUNCHES["fused_rmsnorm_bwd"] == before + 2
+                assert all(torch.equal(a, c) for a, c in zip(got, again)), \
+                    ("K4b passes differ", xdt, wdt, t, round_sum)
                 ref = torch.autograd.grad(rmsnorm_reference(
                     x, r, w, eps, round_sum), (x, r, w), (ds, dn))
                 for a, c in zip(got, ref):
@@ -887,40 +1077,74 @@ def check_rmsnorm_bwd(dev):
                     gap = _grad_gap(a, c)
                     assert gap <= GRAD_TOL[name], (xdt, wdt, t, gap)
                     worst[name] = max(worst.get(name, 0.0), gap)
+                with torch.no_grad():
+                    mine = rmsnorm_bwd_reference(x, r, w, ds, dn, eps,
+                                                 round_sum)
+                for a, c in zip((got[0], got[2]), mine):
+                    gap = _grad_gap(a, c)
+                    assert gap <= GRAD_TOL[name], (xdt, wdt, t, gap)
+                    formula = max(formula, gap)
         log(f"K4 backward rows {xdt}, weight {wdt}: dx, dresidual, dweight "
-            f"within {worst[name]:.3e} of the plain grads' max-abs over T "
-            f"in (1, 16, 600, 4096), D={d}, round_sum off and on")
+            f"within {worst[name]:.3e} of the plain grads' max-abs and "
+            f"{formula:.3e} of rmsnorm_bwd_reference's, two passes "
+            f"bit-equal, over T in (1, 16, 600, 4096), D={d}, round_sum off "
+            f"and on")
+        worst[name] = max(worst[name], formula)
     t = TRAIN_B * TRAIN_S
     sets = [tuple(torch.randn(t, d, device=dev, dtype=torch.bfloat16)
                   for _ in range(4)) for _ in range(4)]
     w = torch.randn(d, device=dev, dtype=torch.bfloat16) * 0.1
-    ms = time_ms(rotating(lambda x, r, ds, dn: ops._launch_bwd(
-        x, r, w, ds, dn, eps, False), sets))
+    ws = {"bf16 weight": w, "fp32 weight": w.float()}
+    sides = {wname: rotating(lambda x, r, ds, dn, w=w_: ops._launch_bwd(
+        x, r, w, ds, dn, eps, False), sets) for wname, w_ in ws.items()}
+    lib_sets = []
+    for x, r, ds, dn in sets:
+        x, r = (a.clone().requires_grad_() for a in (x, r))
+        w1 = (1.0 + w.float()).to(torch.bfloat16).requires_grad_()
+        s_lib = torch.add(x, r)
+        lib_sets.append(((s_lib, F.rms_norm(s_lib, (d,), weight=w1,
+                                            eps=eps)), (x, r, w1), (ds, dn)))
+    sides["add + rms_norm backward"] = rotating(
+        lambda out, leaves, grads: torch.autograd.grad(
+            out, leaves, grads, retain_graph=True), lib_sets)
+    runs, clocks = busy_ms(sides)
+    mean = {n: float(np.mean(v)) for n, v in runs.items()}
+    timing = {n: (time_ms(sides[n]), kernel_split(sides[n])) for n in ws}
+    ms, lib_ms = mean["bf16 weight"], mean["add + rms_norm backward"]
     x, r = (sets[0][i].clone().requires_grad_() for i in range(2))
     wg = w.clone().requires_grad_()
     ds, dn = sets[0][2], sets[0][3]
     plain = rmsnorm_reference(x, r, wg, eps)
     plain_ms = time_ms(lambda: torch.autograd.grad(
         plain, (x, r, wg), (ds, dn), retain_graph=True), iters=10)
-    w1 = (1.0 + w.float()).to(torch.bfloat16).requires_grad_()
-    s_lib = torch.add(x, r)
-    lib = (s_lib, F.rms_norm(s_lib, (d,), weight=w1, eps=eps))
-    lib_ms = time_ms(lambda: torch.autograd.grad(
-        lib, (x, r, w1), (ds, dn), retain_graph=True), iters=10)
     nbytes = 2 * (5 * t * d + 2 * d)
     bnd = bound_ms(nbytes, 0, "bfloat16")
-    log(f"K4 backward timing T={t} D={d} bf16: kernel {fmt(ms)}, plain "
-        f"backward {fmt(plain_ms)}, add + rms_norm backward {fmt(lib_ms)}, "
-        f"bound {bnd:.5f} ms (bytes; {nbytes / 1e6:.3f} MB; the kernel at "
-        f"{100 * bnd / ms[1]:.1f}% of it)")
+    log(f"K4 backward timing T={t} D={d} bf16 rows, 4 input sets in turn, "
+        f"busy card (SM clock {min(clocks):.0f}-{max(clocks):.0f} MHz; after: "
+        f"{card_clocks()}), turn about: " + ", ".join(f"{n} {fmt_busy(v)}" for n, v in runs.items())
+        + f"; the kernel (bf16 weight) at {ms / lib_ms:.3f}x the library's "
+        f"and {100 * bnd / ms:.1f}% of the bound")
+    for wname, (wms, wsplit) in timing.items():
+        log(f"K4 backward timing T={t} D={d} bf16 rows, {wname}, profiled "
+            f"alone: kernel {fmt(wms)} (by kernel "
+            + ", ".join(f"{n} {v:.4f}" for n, v in wsplit.items()) + ")")
+    log(f"K4 backward timing T={t} D={d} bf16: plain backward "
+        f"{fmt(plain_ms)}, bound {bnd:.5f} ms (bytes; {nbytes / 1e6:.3f} MB)")
     return {"name": "fused_rmsnorm_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/rmsnorm/csrc/"
                       "fused_rmsnorm_bwd.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:26",
             "max_abs_err": max(worst.values()),
             "max_err_is": "fraction of each gradient's max-abs",
-            "ms": ms[1], "call_ms": ms[0], "plain_ms": plain_ms[1],
-            "bound_ms": bnd, "bound_by": "bytes", "library_ms": lib_ms[1],
+            "ms": ms, "runs": runs, "sm_mhz": [min(clocks), max(clocks)],
+            "profiled_ms": timing["bf16 weight"][0][1],
+            "call_ms": timing["bf16 weight"][0][0],
+            "kernels_ms": timing["bf16 weight"][1],
+            "fp32_weight": {"ms": mean["fp32 weight"],
+                            "profiled_ms": timing["fp32 weight"][0][1],
+                            "kernels_ms": timing["fp32 weight"][1]},
+            "plain_ms": plain_ms[1],
+            "bound_ms": bnd, "bound_by": "bytes", "library_ms": lib_ms,
             "shape": {"T": t, "D": d, "dtype": "bfloat16"}}
 
 
@@ -2277,15 +2501,19 @@ def _step_profile(step_once):
     out["total"] = sum(ms for _, ms in kinds.values())
     out["outside"] = out["total"] - sum(out[k] for k in TRAIN_KERNELS)
     out["by_kind"] = {k: [n, round(ms, 3)] for k, (n, ms) in kinds.items()}
-    names = {}
+    names, ours = {}, {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not any(
-                n in e.name for n in ("flash_", "rmsnorm")):
-            acc = names.setdefault(e.name[:70], [0, 0.0])
-            acc[0] += 1
-            acc[1] += e.device_time / 1e3
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"((?:flash|rmsnorm|fused_rmsnorm)\w*_kernel)", e.name)
+        acc = (ours.setdefault(m.group(1), [0, 0.0]) if m else
+               names.setdefault(e.name[:70], [0, 0.0]))
+        acc[0] += 1
+        acc[1] += e.device_time / 1e3
     out["top_outside"] = sorted(([n, c, round(ms, 3)] for n, (c, ms) in
                                  names.items()), key=lambda r: -r[2])[:5]
+    out["training_kernels"] = {n: [c, round(ms, 3)] for n, (c, ms) in
+                               ours.items()}
     return out
 
 
@@ -2295,8 +2523,9 @@ def train_full_width(steps=4):
     ``steps`` steps with fp32 params and moments (the reference launcher's
     params), then ``steps`` with bf16 params and fp32 moments (what the
     reference's dry-run specs pick for it).  Prints ms a step (the first
-    apart), the peak, the losses, each training kernel's launches and
-    device ms a step and the device ms outside them.  Returns (launches,
+    apart) and the host's ms to queue a step (the step holds no sync),
+    the peak, the losses, each training kernel's launches and device ms a
+    step and the device ms outside them.  Returns (launches,
     rows)."""
     import gc
     import torch
@@ -2329,12 +2558,13 @@ def train_full_width(steps=4):
         nparams = sum(t.numel() for t in tree_leaves(params))
         step = make_train_step(cfg, tcfg)
         K.reset_launches()
-        times, losses = [], []
+        times, host, losses = [], [], []
         per_step = None
         for i in range(steps):
             before = dict(K.LAUNCHES)
             t0 = time.perf_counter()
             params, opt, m = step(params, opt, batches[i])
+            host.append(1e3 * (time.perf_counter() - t0))
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
@@ -2351,19 +2581,24 @@ def train_full_width(steps=4):
         row = {"params_b": nparams / 1e9, "init_s": init_s,
                "first_step_ms": times[0],
                "ms_per_step": float(np.mean(times[1:])),
-               "step_ms": times, "losses": losses, "peak_gib": peak,
+               "step_ms": times, "host_ms": host, "losses": losses,
+               "peak_gib": peak,
                "launches_per_step": per_step, "device_ms": prof}
         rows[name] = row
         log(f"phase 9t(c) qwen2.5-3b full width, {name} ({nparams / 1e9:.3f} "
             f"B), fp32 moments, batch {TRAIN_B} x {TRAIN_S}, remat: first "
             f"step {times[0]:.1f} ms, then {row['ms_per_step']:.1f} ms a step "
-            f"({', '.join(f'{t:.1f}' for t in times[1:])}); peak {peak:.2f} "
+            f"({', '.join(f'{t:.1f}' for t in times[1:])}), of which the "
+            f"host took {', '.join(f'{t:.1f}' for t in host[1:])} to queue "
+            f"the step; peak {peak:.2f} "
             f"GiB; losses {[round(x, 4) for x in losses]}; launches a step "
             f"{per_step}; device ms a step (profiled step): "
             + ", ".join(f"{k} {prof[k]:.3f}" for k in (
                 *TRAIN_KERNELS, "outside", "total"))
-            + f"; by kind [launches, ms] {prof['by_kind']}; the largest "
-            f"kernels outside [name, launches, ms] {prof['top_outside']}")
+            + f"; by kind [launches, ms] {prof['by_kind']}; the training "
+            f"kernels by name [launches, ms] {prof['training_kernels']}; the "
+            f"largest kernels outside [name, launches, ms] "
+            f"{prof['top_outside']}")
         assert all(np.isfinite(losses)), losses
         assert np.isfinite(float(box["m"]["loss"]))
         assert peak < TRAIN_PEAK_GIB, peak

@@ -4,7 +4,8 @@ counters, and the one place that decides where a tensor runs.
 Each kernel is a CUDA C++ source under ``<kernel>/csrc`` with a plain C
 interface.  ``library(name)`` compiles it with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` at the root of the checkout (file name keyed by a hash
-of the source and its flags, so an edited source rebuilds) and loads it
+of the source, of every header it includes with quotes, and of its flags,
+so an edited source or header rebuilds) and loads it
 with ``ctypes``; the compiler's output is kept beside it (``.log``).
 Nothing is built or loaded at import: the CPU tests import every module on
 a machine with no ``nvcc``.
@@ -24,6 +25,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -126,9 +128,29 @@ def _flags(name: str):
     return (*NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()))
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _source_bytes(path: Path, seen=None) -> bytes:
+    """A source's bytes, then those of each header it includes with quotes
+    (found beside the file that includes it), recursively, each once."""
+    seen = set() if seen is None else seen
+    path = path.resolve()
+    if path in seen:
+        return b""
+    seen.add(path)
+    data = path.read_bytes()
+    parts = [data]
+    for inc in _INCLUDE.findall(data):
+        header = path.parent / inc.decode()
+        if header.is_file():
+            parts.append(_source_bytes(header, seen))
+    return b"".join(parts)
+
+
 def _target(name: str) -> Path:
-    src = SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
+    h = hashlib.sha256(_source_bytes(SOURCES[name]) +
+                       " ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

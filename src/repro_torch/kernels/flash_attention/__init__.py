@@ -1,4 +1,6 @@
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_reference, attention_lse_reference, attention_reference)
 
-__all__ = ["flash_attention", "attention_reference"]
+__all__ = ["flash_attention", "attention_reference", "attention_lse_reference",
+           "attention_bwd_reference"]

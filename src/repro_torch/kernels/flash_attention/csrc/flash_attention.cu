@@ -64,6 +64,14 @@
 //     diagonal of the block's last position, so masked tiles are never
 //     loaded; any S (the ragged tail is masked, no block multiple);
 //     blocks are issued last position first, so the longest start first.
+//   - Training passes an lse buffer: each row's log-sum-exp, from the m and
+//     l the kernel holds at the end (log2 domain here, written in the
+//     natural base; the SIMT kernel works in the natural base), for the
+//     backward (flash_attention_bwd.cu), which then needs no pass of its
+//     own to form P.  O is computed the same with or without it; serving
+//     passes a null pointer and writes nothing more.
+//   - The TMA, mbarrier and wgmma helpers are in flash_common.cuh, shared
+//     with the backward.
 //   - D = 128: 160 threads, 82,976 bytes of dynamic shared memory: two
 //     blocks per SM, so one block's copies and softmax overlap the other's
 //     products.  It was chosen over 16 positions x two warpgroups (a
@@ -74,18 +82,11 @@
 //     42,016 bytes.  chip_smoke prints every instance (PERF.md keeps the
 //     (1, 64) ones).
 
-#include <cuda.h>   // CUtensorMap and its enums; the function comes from the runtime
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 #include <type_traits>
 
 namespace {
-
-struct Strides {
-  long long b, s, h;   // elements; the stride over D is 1
-};
 
 // ----------------------------------------------------------------------------
 // fp32: the SIMT kernel (fp32 cores)
@@ -121,9 +122,9 @@ __device__ __forceinline__ void store4(float* p, const float (&o)[4]) {
 template <typename T, int G, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, Strides qs,
-                       Strides ks, Strides vs, int S, int Hkv, int causal, int window,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, Strides qs, Strides ks, Strides vs, int S,
+                       int Hkv, int causal, int window, float scale) {
   constexpr int P = kRows / G;            // query positions per block
   constexpr int NCH = D / (4 * kTpr);     // 4-element stripes per thread
   constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte load
@@ -237,6 +238,9 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!live) return;
+  // the row's log-sum-exp (natural base) for the backward, only if asked
+  if (lse != nullptr && c == 0)
+    lse[lse_row(b, hk, Hkv, S, G) + (long long)q0 * G + row] = m + logf(l);
   const float inv = 1.0f / fmaxf(l, 1e-30f);
   T* op = out + (((long long)b * S + pos) * (Hkv * G) + head) * D + 4 * c;
 #pragma unroll
@@ -249,14 +253,15 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int G, int D>
-int launch_simt(const void* q, const void* k, const void* v, void* out, Strides qs, Strides ks,
-           Strides vs, int B, int S, int Hkv, int causal, int window, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* out, float* lse, Strides qs,
+                Strides ks, Strides vs, int B, int S, int Hkv, int causal, int window,
+                cudaStream_t stream) {
   static_assert(std::is_same<T, float>::value, "bf16 runs on the wgmma kernel");
   constexpr int P = kRows / G;
   dim3 grid((S + P - 1) / P, Hkv, B);
   flash_attention_simt_kernel<T, G, D><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), qs, ks, vs, S, Hkv, causal, window,
+      static_cast<T*>(out), lse, qs, ks, vs, S, Hkv, causal, window,
       (float)(1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
@@ -267,12 +272,9 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, Strides 
 
 namespace tc {
 
-constexpr int BK = 64;                 // keys per K/V tile
-constexpr int HALF = 64;               // bf16 in one 128-byte swizzled row
-constexpr int KV_BOX_BYTES = BK * HALF * 2;          // 8 KB: one TMA box
-constexpr int ROWS = 64;               // query rows per block: one warpgroup's M
+constexpr int KV_BOX_BYTES = BOX_BYTES;              // 8 KB: one TMA box of 64 keys
 constexpr int STAGES = 2;              // K/V ring depth
-constexpr int Q_HALF_BYTES = ROWS * HALF * 2;        // 8 KB
+constexpr int Q_HALF_BYTES = BOX_BYTES;              // 8 KB: 64 query rows x 64 of D
 
 // the block of the (G, D) instance: P positions x G heads = 64 rows; one
 // consumer warpgroup per 128 columns of O (one over the single half at D =
@@ -293,144 +295,8 @@ struct Cfg {
   static_assert(SMEM_BYTES <= 232448, "shared memory");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// returns once the phase of parity `parity` has completed; a transfer
-// that never completes traps (a launch error) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-// one TMA box of a 4-d tensor map (D, head, position, batch) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int d, int h, int s, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h), "r"(s), "r"(b)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.  lbo / sbo in bytes:
-// sbo is the stride between groups of 8 rows (1024 here); lbo is used only
-// by MN-major operands wider than one 64-element atom.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of registers that an
-// in-flight wgmma owns across the fence / wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define WG_D32                                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WG_OUT32(d)                                                                        \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-      "+f"(d[31])
-
-// D[64x64] (+)= A[64x16] . B[16x64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_OUT32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64x64] += A[64x16] . B[16x64], A in registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// two fp32 values (x: low column, y: high column) as a bf16 pair hi and the
-// bf16 pair of what hi leaves out
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // ---- one K/V tile, per warpgroup ----
 
-// S = Q . K^T over D (issued, not waited): D / 16 k-steps of 16, D / 64
-// swizzled 64-wide halves of Q and K
-template <int D>
-__device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t sq, uint32_t kv) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * Q_HALF_BYTES + (kk % 4) * 32;
-    const uint32_t koff = (kk / 4) * KV_BOX_BYTES + (kk % 4) * 32;
-    wgmma_ss(s, desc_sw128(sq + off, 16, 1024), desc_sw128(kv + koff, 16, 1024), kk > 0);
-  }
-}
 
 // O += P . V (issued, not waited) over this warpgroup's HW * 64 columns:
 // 4 key steps of 16 keys (2048 bytes of V rows each) x its HW 64-wide
@@ -536,8 +402,8 @@ __global__ void __launch_bounds__(Cfg<G, D>::THREADS, Cfg<G, D>::MIN_BLOCKS)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
                              const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
-                             Strides qs, int S, int Hkv, int causal, int window,
-                             float scale_log2) {
+                             float* __restrict__ lse, Strides qs, int S, int Hkv, int causal,
+                             int window, float scale_log2) {
   using C = Cfg<G, D>;
   constexpr int P = C::P, NH = C::NH, HW = C::HW, CONSUMERS = C::CONSUMERS;
   constexpr int STAGE_BYTES = C::STAGE_BYTES;
@@ -658,6 +524,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
 
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
+  // the rows' log-sum-exp for the backward, only if asked: m and l are in
+  // the log2 domain (m the max of scale * log2(e) * s, l the sum of exp2 of
+  // the differences), written in the natural base, ln 2 * (m + log2(l));
+  // rows past S (never read back) get 0.  Warpgroup 0 writes; at D = 256
+  // the other holds the same m and l.
+  if (lse != nullptr && wg == 0 && lane % 4 == 0) {
+    float* lr = lse + lse_row(b, hk, Hkv, S, G) + (long long)q0 * G;
+    lr[r0] = pos0 < S ? 0.6931471805599453f * (m0 + log2f(l0)) : 0.f;
+    lr[r0 + 8] = pos1 < S ? 0.6931471805599453f * (m1 + log2f(l1)) : 0.f;
+  }
   const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
   const int Hq = Hkv * G;
 #pragma unroll
@@ -675,75 +551,25 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap kmap,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult qr;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &qr) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &qr) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    if (qr != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// K or V [B, S, Hkv, D] as a 4-d map (D, head, position, batch) of boxes
-// (64, 1, BK, 1) in the 128-byte swizzle; rows past S read as zeros
-bool make_map(CUtensorMap* map, const void* base, Strides st, int B, int S, int Hkv, int D) {
-  EncodeTiled fn = encode_fn();
-  if (!fn) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2, (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {HALF, 1, BK, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace tc
 
-// error codes beside cudaGetLastError's: a tensor map that could not be made
-constexpr int kErrTensorMap = -2;
-
 template <int G, int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, Strides qs, Strides ks,
-                 Strides vs, int B, int S, int Hkv, int causal, int window, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, Strides qs,
+                 Strides ks, Strides vs, int B, int S, int Hkv, int causal, int window,
+                 cudaStream_t stream) {
   using C = tc::Cfg<G, D>;
   CUtensorMap kmap, vmap;
-  if (!tc::make_map(&kmap, k, ks, B, S, Hkv, D) || !tc::make_map(&vmap, v, vs, B, S, Hkv, D))
+  if (!tc::make_map(&kmap, k, ks, B, S, Hkv, D, 1, tc::BK) ||
+      !tc::make_map(&vmap, v, vs, B, S, Hkv, D, 1, tc::BK))
     return kErrTensorMap;
-  // above 48 KB of dynamic shared memory a kernel must opt in, once per
-  // device and instance
   static bool opted_in[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return -1;
-  if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(tc::flash_attention_wgmma_kernel<G, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    opted_in[dev] = true;
-  }
+  const int err = tc::opt_in_smem((const void*)tc::flash_attention_wgmma_kernel<G, D>,
+                                  C::SMEM_BYTES, opted_in);
+  if (err != 0) return err;
   dim3 grid((S + C::P - 1) / C::P, Hkv, B);
   tc::flash_attention_wgmma_kernel<G, D><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
-      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), qs, S,
-      Hkv, causal, window, (float)(1.4426950408889634 / sqrt((double)D)));
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(out), lse, qs,
+      S, Hkv, causal, window, (float)(1.4426950408889634 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
@@ -751,7 +577,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, Strides
 
 // dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (wgmma kernel).  Strides
 // in elements, (batch, position, head) for each of q, k, v.  window <= 0:
-// no sliding window.  Returns cudaGetLastError() after the launch, -1 for a
+// no sliding window.  lse: null (serving: nothing more is written), or fp32
+// [B, Hkv, S_pad, G] (lse_row) for each row's log-sum-exp in the natural
+// base, which the backward reads.  Returns cudaGetLastError() after the launch, -1 for a
 // shape the kernels were not instantiated for, -2 if a TMA tensor map could
 // not be made.  Instantiated only for the (G, D) pairs the repo's configs
 // give the kernel: (8, 128) for qwen2.5-3b (16 / 2 heads), yi-9b (32 / 4)
@@ -763,17 +591,18 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                long long qsb, long long qss, long long qsh, long long ksb,
                                long long kss, long long ksh, long long vsb, long long vss,
                                long long vsh, int B, int S, int Hq, int Hkv, int D,
-                               int causal, int window, int dtype, void* stream) {
+                               int causal, int window, int dtype, void* lse, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || B > 65535 || Hkv > 65535) return -1;
   if (dtype != 0 && dtype != 1) return -1;
   const int G = Hq / Hkv;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
 #define FLASH_LAUNCH(GG, DD)                                                                 \
   if (G == GG && D == DD)                                                                    \
-    return dtype == 0 ? launch_simt<float, GG, DD>(q, k, v, out, qs, ks, vs, B, S, Hkv,      \
+    return dtype == 0 ? launch_simt<float, GG, DD>(q, k, v, out, ls, qs, ks, vs, B, S, Hkv,  \
                                                    causal, window, st)                       \
-                      : launch_wgmma<GG, DD>(q, k, v, out, qs, ks, vs, B, S, Hkv, causal,    \
+                      : launch_wgmma<GG, DD>(q, k, v, out, ls, qs, ks, vs, B, S, Hkv, causal, \
                                              window, st);
   FLASH_LAUNCH(8, 128)
   FLASH_LAUNCH(2, 128)

@@ -6,7 +6,8 @@ cores, chosen by dtype inside the one C entry point) and their backward
 CUDA tensors launch the kernel; CPU tensors run the plain version in
 ``ref.py``, which autograd differentiates.  Under autograd (grad enabled
 and an input that requires grad) a CUDA call goes through
-``_FlashAttention``, whose backward launches the backward kernels.  The
+``_FlashAttention``: its forward also writes each row's log-sum-exp
+(``lse_buffer``), which its backward hands to the backward kernels.  The
 wrapper checks what the kernels take and raises on the rest; it never
 falls back from one to the other."""
 
@@ -27,9 +28,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # musicgen-large: 32 / 32, D = 64)
 _SHAPES = ((8, 128), (2, 128), (1, 256), (4, 128), (1, 128), (1, 64))
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9 + \
-    [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 9 + \
-    [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# the bf16 dk/dv kernel splits a 64-key tile's query tiles over this many
+# blocks (a cluster) at most
+_MAX_SPLITS = 4
 
 
 def _check(q, k, v):
@@ -58,15 +62,59 @@ def _check(q, k, v):
     return b, s, hq, hkv, d
 
 
-def _launch(q, k, v, causal, window):
+def lse_buffer(b, s, hkv, g, device):
+    """An fp32 buffer for the rows' log-sum-exp (and, in the backward, for
+    rowsum(dout * out)) as the kernels lay it out: [B, Hkv, S_pad, G] with
+    S_pad = S rounded up to 64, so that a tile's 64 rows (64 / G positions
+    x the G query heads of one KV head) are consecutive."""
+    return torch.empty((b, hkv, -(-s // 64) * 64, g), dtype=torch.float32,
+                       device=device)
+
+
+def _check_lse(lse, b, s, hkv, g):
+    if lse.dtype != torch.float32 or not lse.is_contiguous() or \
+            lse.shape != (b, hkv, -(-s // 64) * 64, g):
+        raise ValueError(f"lse must be a contiguous fp32 lse_buffer of "
+                         f"({b}, {hkv}, S_pad, {g}), got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+
+
+def lse_as_bhs(buf, s):
+    """The log-sum-exp of ``lse_buffer``'s layout as [B, Hq, S]."""
+    b, hkv, _, g = buf.shape
+    return buf[:, :, :s].permute(0, 1, 3, 2).reshape(b, hkv * g, s)
+
+
+def _dkv_splits(b, s, hkv, d, sms):
+    """The blocks (1, 2 or 4, one cluster) that the bf16 dk/dv kernel
+    splits each 64-key tile's query tiles over: the fewest that give two
+    blocks an SM."""
+    blocks = -(-s // 64) * hkv * b * (2 if d == 256 else 1)
+    n = 1
+    while n < _MAX_SPLITS and blocks * n < 2 * sms:
+        n *= 2
+    return n
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch(q, k, v, causal, window, lse=None):
+    """out; with ``lse`` (a ``lse_buffer``) the kernel also writes each
+    row's log-sum-exp there, for the backward.  Without it (serving) the
+    kernel writes nothing more; ``out`` is bit-equal either way."""
     b, s, hq, hkv, d = _check(q, k, v)
+    if lse is not None:
+        _check_lse(lse, b, s, hkv, hq // hkv)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fn = K.library("flash_attention").flash_attention
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 b, s, hq, hkv, d, int(causal), 0 if window is None else window,
-                _DTYPES[q.dtype], K.stream_ptr(q))
+                _DTYPES[q.dtype], None if lse is None else lse.data_ptr(),
+                K.stream_ptr(q))
     if status == -2:
         raise RuntimeError(f"flash_attention: no TMA tensor map for k/v with "
                            f"strides {k.stride()}/{v.stride()}")
@@ -75,49 +123,60 @@ def _launch(q, k, v, causal, window):
     return out
 
 
-def _launch_bwd(q, k, v, out, dout, causal, window):
+def _launch_bwd(q, k, v, out, dout, lse, causal, window):
     """dq, dk, dv (contiguous, in q's dtype) of ``out = flash_attention(q,
-    k, v)`` for the upstream grad ``dout``: the dq kernel (which also
-    writes each row's log-sum-exp and rowsum(dout * out)), then the dk/dv
-    kernel."""
+    k, v)`` for the upstream grad ``dout``, from the forward's log-sum-exp
+    ``lse`` (the ``lse_buffer`` that ``_launch`` filled): the dq kernel
+    (which also writes rowsum(dout * out)), then the dk/dv kernel."""
     b, s, hq, hkv, d = _check(q, k, v)
     out, dout = out.contiguous(), dout.to(q.dtype).contiguous()
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout "
                          f"{tuple(dout.shape)} must have q's shape "
                          f"{tuple(q.shape)}")
+    _check_lse(lse, b, s, hkv, hq // hkv)
+    if dout.data_ptr() % 16:       # a view that TMA cannot read
+        dout = dout.clone()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
+    nsplit = _dkv_splits(b, s, hkv, d, _sm_count(q.device))
     fn = K.library("flash_attention_bwd").flash_attention_bwd
     fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), *q.stride()[:3],
+                dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), delta.data_ptr(), *q.stride()[:3],
                 *k.stride()[:3], *v.stride()[:3], b, s, hq, hkv, d,
                 int(causal), 0 if window is None else window,
-                _DTYPES[q.dtype], K.stream_ptr(q))
+                _DTYPES[q.dtype], nsplit, K.stream_ptr(q))
+    if status == -2:
+        raise RuntimeError(f"flash_attention_bwd: no TMA tensor map for "
+                           f"q/k/v with strides {q.stride()}/{k.stride()}/"
+                           f"{v.stride()}")
     K.check_status("flash_attention_bwd", status)
     K.LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, and the backward kernels for its gradient."""
+    """The forward kernel (writing each row's log-sum-exp), and the
+    backward kernels for its gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _launch(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        b, s, hq, hkv, _ = _check(q, k, v)
+        lse = lse_buffer(b, s, hkv, hq // hkv, q.device)
+        out = _launch(q, k, v, causal, window, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = _launch_bwd(q, k, v, out, dout, ctx.causal, ctx.window)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, out, dout, lse, ctx.causal,
+                                 ctx.window)
         return dq, dk, dv, None, None
 
 

@@ -17,21 +17,38 @@
 // pairs); math in fp32.  Scratch: part [NB, D] fp32.
 //
 // What bounds it on this card: bytes, (5 T D) * sizeof(T) plus w and dw,
-// over 3.35 TB/s: x, r, ds and dn read once, dx written once.
+// over 3.35 TB/s: x, r, ds and dn read once, dx written once (42.0 MB,
+// 0.0125 ms at T = D = 2,048 in bf16).
 //
 // Design.  Two kernels of this one source, no atomics, so dw is
 // deterministic:
-//   1. rmsnorm_bwd_rows_kernel: NB blocks (at most 528, four an SM) walk
-//      the rows, block b taking rows b, b + NB, ...; as in the forward, a
-//      row's 16-byte vectors are spread over the block's threads, VPT a
-//      thread, so each thread keeps the same columns on every row and
-//      holds its w and its dw partial sums in registers.  A row re-forms
-//      the fp32 sum from x and r (what the forward normalised), takes
-//      sum(s^2) and sum(g * s) in one block reduction (a warp butterfly,
-//      one shared-memory exchange), writes dx, and adds dn * s * inv to
-//      the partial sums; the block writes them as row b of part.
-//   2. rmsnorm_bwd_dw_kernel: one thread a column sums the NB partial rows
-//      in order and writes dw in w's type.
+//   1. rmsnorm_bwd_rows_kernel (the first design's): NB blocks (at most
+//      528, four an SM) walk the rows, block b taking rows b, b + NB, ...;
+//      as in the forward, a row's 16-byte vectors are spread over the
+//      block's threads, VPT a thread, so each thread keeps the same columns
+//      on every row and holds its w and its dw partial sums in registers.
+//      A row re-forms the fp32 sum from x and r (what the forward
+//      normalised), takes sum(s^2) and sum(g * s) in one block reduction
+//      (a warp butterfly, one shared-memory exchange), writes dx, and adds
+//      dn * s * inv to the partial sums; the block writes them as row b of
+//      part.
+//   2. rmsnorm_bwd_dw_kernel: ceil(D / 16) blocks (128 at D = 2,048) of
+//      256 threads, 16 columns a block: 64 groups of 4 threads (a float4
+//      each) sum every 64th partial row in order, then a fixed tree over
+//      the groups; dw written in w's type.
+// On the H100 the first design's column sums, one serial walk of the 528
+// partials a thread on 16 blocks of 128 threads, took about as long as
+// the rows kernel that stays; spread as above they take about a seventh
+// of it (PERF.md section 6, from chip_smoke.py).  Persistent rows kernels of
+// one to four blocks an SM that bring the next rows in while reducing the
+// current one (a ring of TMA bulk copies on mbarriers, or of cp.async,
+// 2-4 slots) were slower than the rows kernel kept here: per block the
+// rows are a chain of a load, a block reduction and a store, and four
+// blocks an SM with their loads in registers keep more of them in flight
+// than a ring did.  ptxas spills at
+// VPT = 4 (rows over 8,192 bf16 or 4,096 fp32 elements; 512 threads cap a
+// thread at 128 registers), as in the first design; the training path's
+// rows are 2,048 wide.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -175,16 +192,45 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-// grid (ceil(D / 128)); block 128: column c sums part[0..nb)[c] in order
+// grid (ceil(D / 16)); block 256: 16 columns, 64 groups of 4 threads (a
+// float4 each); group g sums partial rows g, g + 64, ... in order, then a
+// fixed tree over the groups
 template <typename W>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(256)
     rmsnorm_bwd_dw_kernel(const float* __restrict__ part, W* __restrict__ dw, int nb, int D) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= D) return;
-  float acc = 0.f;
-#pragma unroll 8
-  for (int b = 0; b < nb; ++b) acc += part[static_cast<size_t>(b) * D + col];
-  dw[col] = from_f32(acc, W());
+  __shared__ float4 acc[64][4];
+  const int c4 = threadIdx.x % 4, grp = threadIdx.x / 4;
+  const int col = blockIdx.x * 16 + 4 * c4;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (col < D) {
+    for (int p = grp; p < nb; p += 64) {
+      const float4 v = *reinterpret_cast<const float4*>(part + static_cast<size_t>(p) * D + col);
+      a.x += v.x;
+      a.y += v.y;
+      a.z += v.z;
+      a.w += v.w;
+    }
+  }
+  acc[grp][c4] = a;
+  __syncthreads();
+#pragma unroll
+  for (int h = 32; h > 0; h >>= 1) {
+    if (grp < h) {
+      const float4 o = acc[grp + h][c4];
+      acc[grp][c4].x += o.x;
+      acc[grp][c4].y += o.y;
+      acc[grp][c4].z += o.z;
+      acc[grp][c4].w += o.w;
+    }
+    __syncthreads();
+  }
+  if (grp == 0 && col < D) {
+    const float4 s = acc[0][c4];
+    dw[col] = from_f32(s.x, W());
+    dw[col + 1] = from_f32(s.y, W());
+    dw[col + 2] = from_f32(s.z, W());
+    dw[col + 3] = from_f32(s.w, W());
+  }
 }
 
 template <typename T, typename W, int VPT>
@@ -199,8 +245,7 @@ int launch_vpt(const void* x, const void* r, const void* w, const void* ds, cons
       eps, round_sum);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  rmsnorm_bwd_dw_kernel<W><<<(D + 127) / 128, 128, 0, stream>>>(part, static_cast<W*>(dw), nb,
-                                                                  D);
+  rmsnorm_bwd_dw_kernel<W><<<(D + 15) / 16, 256, 0, stream>>>(part, static_cast<W*>(dw), nb, D);
   return (int)cudaGetLastError();
 }
 

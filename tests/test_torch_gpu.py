@@ -2347,13 +2347,155 @@ def test_flash_backward_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="built for"):    # G = 3
         flash_attention(q, k, k)
     q = _randn((1, 32, 16, 128), torch.float32, cuda, 0)
-    out = flash_attention(q, k, k)
+    lse = ops.lse_buffer(1, 32, 2, 8, cuda)
+    out = ops._launch(q, k, k, True, None, lse)
     with pytest.raises(ValueError, match="shape"):
-        ops._launch_bwd(q, k, k, out, out[:, :16], True, None)
+        ops._launch_bwd(q, k, k, out, out[:, :16], lse, True, None)
     with pytest.raises(ValueError, match="built for"):
         ops._launch_bwd(q[:, :, :6], k, k, out[:, :, :6], out[:, :, :6],
-                        True, None)
+                        lse, True, None)
+    with pytest.raises(ValueError, match="lse"):            # not the buffer
+        ops._launch_bwd(q, k, k, out, out, lse[:, :, :32], True, None)
     assert K.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"]
+
+
+# the bf16 backward splits a 64-key tile's query tiles over 1, 2 or 4
+# blocks of a cluster (``ops._dkv_splits``); these shapes give each count
+# on a 132-SM card: (B, S, window)
+SPLIT_SHAPES = [(1, 1000, None), (2, 640, 100), (1, 129, None)]
+
+
+def _flash_lse(q, k, v, causal=True, window=None):
+    """The forward kernel with and without its log-sum-exp output: (out,
+    out without lse, lse as [B, Hq, S])."""
+    from repro_torch.kernels.flash_attention import ops
+    b, s, hq, _ = q.shape
+    hkv = k.shape[2]
+    buf = ops.lse_buffer(b, s, hkv, hq // hkv, q.device)
+    out = ops._launch(q, k, v, causal, window, buf)
+    return out, ops._launch(q, k, v, causal, window), ops.lse_as_bhs(buf, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,win,causal", [(2, 80, None, True),
+                                            (1, 300, 64, True),
+                                            (3, 65, None, False),
+                                            (16, 256, None, True)])
+@pytest.mark.parametrize("g,d", BWD_PAIRS)
+def test_flash_forward_lse_bit_equal_and_matches_plain(cuda, g, d, b, s, win,
+                                                       causal, dtype):
+    """The forward writes each row's log-sum-exp only when asked, and its
+    output is bit-equal with and without it; the lse within 1e-4 of the
+    plain version's (natural base, fp32 over the scaled, masked scores)."""
+    from repro_torch.kernels.flash_attention import attention_lse_reference
+    q = _randn((b, s, 2 * g, d), dtype, cuda, 0)
+    k = _randn((b, s, 2, d), dtype, cuda, 1)
+    v = _randn((b, s, 2, d), dtype, cuda, 2)
+    out, plain_out, lse = _flash_lse(q, k, v, causal, win)
+    assert torch.equal(out, plain_out)
+    ref_out, ref_lse = attention_lse_reference(q, k, v, causal=causal,
+                                               window=win)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out.float(), ref_out.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,win", BWD_SHAPES[:3] + SPLIT_SHAPES)
+@pytest.mark.parametrize("g,d", BWD_PAIRS)
+def test_flash_backward_matches_bwd_reference(cuda, g, d, b, s, win, dtype):
+    """dq, dk, dv of the backward kernels against ``attention_bwd_reference``
+    on the same out, dout and log-sum-exp (the forward kernel's)."""
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_reference, ops)
+    q = _randn((b, s, 2 * g, d), dtype, cuda, 5)
+    k = _randn((b, s, 2, d), dtype, cuda, 6)
+    v = _randn((b, s, 2, d), dtype, cuda, 7)
+    do = _randn((b, s, 2 * g, d), dtype, cuda, 8)
+    buf = ops.lse_buffer(b, s, 2, g, cuda)
+    out = ops._launch(q, k, v, True, win, buf)
+    got = ops._launch_bwd(q, k, v, out, do, buf, True, win)
+    ref = attention_bwd_reference(q, k, v, out, do, ops.lse_as_bhs(buf, s),
+                                  window=win)
+    _assert_grads_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,d", BWD_PAIRS)
+def test_flash_backward_every_split_count_and_deterministic(cuda, monkeypatch,
+                                                            g, d):
+    """The bf16 dk/dv kernel at 1, 2 and 4 blocks a key tile: each within
+    the band of the plain grads, two passes at each bit-equal (the cluster
+    sums its partials in rank order), and dq the same at every count."""
+    from repro_torch.kernels.flash_attention import ops
+    q = _randn((2, 333, 2 * g, d), torch.bfloat16, cuda, 0).requires_grad_()
+    k = _randn((2, 333, 2, d), torch.bfloat16, cuda, 1).requires_grad_()
+    v = _randn((2, 333, 2, d), torch.bfloat16, cuda, 2).requires_grad_()
+    do = _randn((2, 333, 2 * g, d), torch.bfloat16, cuda, 3)
+    ref = torch.autograd.grad(attention_reference(q, k, v, window=100),
+                              (q, k, v), do)
+    dqs = []
+    for n in (1, 2, 4):
+        monkeypatch.setattr(ops, "_dkv_splits", lambda *a, n=n: n)
+        g1 = torch.autograd.grad(flash_attention(q, k, v, window=100),
+                                 (q, k, v), do)
+        g2 = torch.autograd.grad(flash_attention(q, k, v, window=100),
+                                 (q, k, v), do)
+        assert all(torch.equal(a, b) for a, b in zip(g1, g2)), n
+        _assert_grads_close(g1, ref, torch.bfloat16)
+        dqs.append(g1[0])
+    assert all(torch.equal(dqs[0], x) for x in dqs[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,d", BWD_PAIRS)
+def test_flash_backward_strided_views_every_pair(cuda, g, d, dtype):
+    """q, k and v as views of one fused projection at every (G, D): the
+    tensor maps read them through their strides; the grad lands in the
+    projection."""
+    hq = 2 * g
+    qkv = _randn((2, 97, hq + 4, d), dtype, cuda, 4).requires_grad_()
+    q, k, v = qkv.split((hq, 2, 2), dim=2)
+    do = _randn((2, 97, hq, d), dtype, cuda, 5)
+    for win in (None, 17):
+        got = torch.autograd.grad(flash_attention(q, k, v, window=win), qkv, do)
+        ref = torch.autograd.grad(attention_reference(q, k, v, window=win),
+                                  qkv, do)
+        _assert_grads_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("round_sum", [False, True])
+@pytest.mark.parametrize("pair", [(torch.float32, torch.float32),
+                                  (torch.bfloat16, torch.bfloat16),
+                                  (torch.bfloat16, torch.float32)],
+                         ids=["fp32", "bf16", "bf16-fp32w"])
+@pytest.mark.parametrize("rows,d", [(2048, 2048), (4096, 2048), (5, 12288),
+                                    (300, 8192), (1, 8)])
+def test_rmsnorm_backward_matches_bwd_reference_and_is_deterministic(
+        cuda, rows, d, pair, round_sum):
+    """dx and dweight of the backward kernels (the rows kernel, one
+    partial row of dweight a block, then the column sums of every partial
+    row spread over ceil(D / 16) blocks) against ``rmsnorm_bwd_reference``,
+    and two passes bit-equal."""
+    from repro_torch.kernels.rmsnorm import ops, rmsnorm_bwd_reference
+    xdt, wdt = pair
+    if xdt == torch.float32 and d == 12288:
+        d = 8192                                 # the widest fp32 row
+    if xdt == torch.float32 and d == 8:
+        d = 4
+    x = _randn((rows, d), xdt, cuda, 0) * 3
+    r = _randn((rows, d), xdt, cuda, 1)
+    w = _randn((d,), wdt, cuda, 2) * 0.1
+    ds, dn = _randn((rows, d), xdt, cuda, 3), _randn((rows, d), xdt, cuda, 4)
+    got = ops._launch_bwd(x, r, w, ds, dn, 1e-6, round_sum)
+    again = ops._launch_bwd(x, r, w, ds, dn, 1e-6, round_sum)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = rmsnorm_bwd_reference(x, r, w, ds, dn, 1e-6, round_sum)
+    assert got[0].dtype == xdt and got[1].dtype == wdt
+    _assert_grads_close(got, ref, xdt)
 
 
 @pytest.mark.gpu
