@@ -164,6 +164,15 @@ Phases (any failure raises and the script exits non-zero):
      every S1 and S4 lane to the NumPy oracle, in a pool of host
      processes; time the S4 noise launch and print each S5 and S1 launch's
      device time in the path (CUDA events) and their totals;
+  8f. run the mesh sweeps (``repro_torch.core.shardsweep``) on
+     ``cells_mesh()`` and on the card listed twice (two shards, so the
+     split and the concatenation run on the card): 8b(a)'s scaling curve
+     as ``fleet_sweep`` (one S6 launch a shard, one S1 launch a row-length
+     bucket and shard, its launches and wall beside ``fleet.sweep``'s),
+     8b(d)'s SRPT plane as ``sweep_noise`` and a 40,000-request (λ,
+     policy) sweep, each bit for bit equal to the single-device run; then
+     ``compressed_mean_rows`` on a one-rank NCCL group, within the
+     reference test's bound of the mean;
   8c. run re-entrant sessions on the card (``repro_torch.core.sessions``,
      the feedback fixed point with a kernel launch a pass): the reference
      record ``pr9_sessions`` (``bench_sessions.py``: router x prefix
@@ -251,9 +260,30 @@ def log(*a):
     print(*a, flush=True)
 
 
+# CUPTI has dropped the kernel records of a window's first moments: every
+# profiled decode chunk of phase 4 lost its first kernels (the first K4
+# launch among them, graph replays and eager loops alike, in every window
+# of two runs), as mamba2's chunks lost one of 520 K4 records.  So a window
+# opens with MARKERS spin kernels of MARKER_CYCLES each, synchronized, and
+# the profile returned leaves their records out.
+MARKERS, MARKER_CYCLES = 8, 200_000     # spins of about 0.1 ms each
+
+
+class _Window:
+    """A torch.profiler profile without the opening marker kernels'
+    records (``events`` is what the callers read)."""
+
+    def __init__(self, prof):
+        self._prof = prof
+
+    def events(self):
+        return [e for e in self._prof.events() if "spin_kernel" not in e.name]
+
+
 def profiled(fn, tries=6):
     """Run ``fn`` under torch.profiler (CPU and CUDA activities) and return
-    (profile, fn's result).  A window in which CUPTI delivered no device
+    (profile, fn's result), the profile without the markers the window
+    opens with (see MARKERS).  A window in which CUPTI delivered no device
     event at all runs again, after a pause of a second, ``tries`` times at
     most: such windows come in runs on the card (three in a row have been
     seen, in a timing of plain PyTorch ops that other runs pass), so the pause
@@ -262,12 +292,17 @@ def profiled(fn, tries=6):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(tries):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(MARKERS):
+                torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
             out = fn()
             torch.cuda.synchronize()
-        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
-            return prof, out
+        window = _Window(prof)
+        if any(e.device_type == DeviceType.CUDA for e in window.events()):
+            return window, out
         log(f"profiler: window {attempt + 1} of {tries} saw no device event; "
             f"again after a pause")
         time.sleep(1.0)
@@ -3480,6 +3515,11 @@ def run_fleet_sims(dev):
     got = {}
     scal = sweep([1, 2, 4, 8], [0.8], "jsq", DynamicPolicy(b_max=8), uni,
                  lat5, launch_out=got, **fleet_kw)["mean_wait"][:, 0]
+    torch.cuda.synchronize()
+    # fleet.sweep's wall and launches, for phase 8f's mesh twin
+    scal_run = {"wall_s": time.perf_counter() - t0,
+                "launches": {k: K.LAUNCHES[k]
+                             for k in ("batch_scan", "backlog_scan")}}
     s6.update({f"scaling R={R}": lo for (R, _), lo in got.items()})
     # (b) jsq + FCFS against the QNA approximation and the pooled floor
     got = {}
@@ -3658,7 +3698,10 @@ def run_fleet_sims(dev):
         f"and the scan lets join ({ora_s:.1f} s from their start)")
     noise_s5["in_path"] = s5_rec.report("fleet simulators")
     s1_path = s1_rec.report("fleet simulators")
-    return launches, backlog, noise_s5, noise_s3, noise_s4, s1_path
+    mesh_refs = {"scaling": scal, "scaling_run": scal_run,
+                 "srpt_b16": grids["srpt_b16"], "noise_grid": (noise_lams, sigmas),
+                 "noise_wall_s": t_noise}
+    return launches, backlog, noise_s5, noise_s3, noise_s4, s1_path, mesh_refs
 
 
 def _noise_launches_on_card(s5, s3, s4):
@@ -3704,6 +3747,152 @@ def _noise_launches_on_card(s5, s3, s4):
         f"design ran ten one-lane launches at 136-139 ns a request, PERF.md)")
     return noise_s5, noise_s3, {"lanes": lanes, "n": n, "batches": nb,
                                 "ms": s4_ms}
+
+
+# ----------------------------------------------------------------------------
+# Phase 8f: the mesh sweeps (the lanes of a sweep split over devices)
+# ----------------------------------------------------------------------------
+
+# step (4)'s sweep: the (λ, policy) lanes at Fig 5's constants, the uniform
+# lengths of phase 8b(a); FCFS runs at 0.32-0.97 of its single-request load
+MESH_LAMS, MESH_N = [0.03, 0.06, 0.09], 40_000
+# step (5): the gradient vector a rank reduces (2^24 fp32 elements, 64 MiB)
+MEAN_SIZE = 1 << 24
+
+
+def nccl_mean(rank, world, store, size=MEAN_SIZE, seed=0):
+    """``compressed_mean_rows`` on an NCCL group of ``world`` ranks from a
+    FileStore at ``store``, rank r on card r with row r of one seeded draw
+    as its gradient.  The group is destroyed after the call.  Returns the
+    largest gap to the fp32 mean, the reference test's bound on it
+    (max |g| / 127 + 0.02) and the call's ms (host clock, synchronized,
+    after one call to warm)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import compressed_mean_rows
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    g = torch.randn((world, size), generator=torch.Generator().manual_seed(seed))
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        local = g[rank].to(dev)
+        compressed_mean_rows(local)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean = compressed_mean_rows(local)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    gap = (mean.cpu() - g.mean(dim=0)).abs().max().item()
+    return gap, g.abs().max().item() / 127.0 + 0.02, ms
+
+
+def run_mesh_sweeps(dev, refs):
+    """Phase 8f: ``core.shardsweep`` on ``cells_mesh()`` (every visible card)
+    and on ``[dev, dev]`` (two shards on one card, so the split and the
+    concatenation run), each held bit for bit to what phase 8b computed on
+    one device: (1) the fleet scaling curve of 8b(a) as ``fleet_sweep``, its
+    launches beside ``fleet.sweep``'s, (2) the same on the second mesh, (3)
+    8b(d)'s SRPT noise plane as ``sweep_noise``, (4) a (λ, policy) sweep of
+    40,000 requests against ``fastsim.sweep``; then (5)
+    ``compressed_mean_rows`` on a one-rank NCCL group.  Returns the
+    launches of steps (1)-(4), counted from 0."""
+    import tempfile
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core import fastsim, fleet, shardsweep
+    from repro_torch.core.distributions import LogNormalTokens, UniformTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import (
+        DynamicPolicy, ElasticPolicy, FCFSPolicy, SRPTPolicy)
+    from repro_torch.core.predictors import LogNormalNoisePredictor
+    from repro_torch.distributed import cells_mesh
+    uni, ln = UniformTokens(1000), LogNormalTokens(7.0, 0.7)
+    lat5 = BatchLatencyModel(0.05, 0.5, 0.0005, 0.02)
+    ht = BatchLatencyModel(0.05, 0.5, 2e-4, 0.002)
+    meshes = {"cells_mesh()": cells_mesh(),
+              f"[{dev}, {dev}]": cells_mesh([dev, dev])}
+
+    def policies():
+        return {"dynamic": DynamicPolicy(), "elastic_b8": ElasticPolicy(b_max=8),
+                "fcfs": FCFSPolicy()}
+
+    def scaling(mesh):
+        return shardsweep.fleet_sweep(
+            [1, 2, 4, 8], [0.8], "jsq", DynamicPolicy(b_max=8), uni, lat5,
+            num_requests=FLEET_N, seed=FLEET_SEED, mesh=mesh)["mean_wait"][:, 0]
+
+    one = fastsim.sweep(policies(), MESH_LAMS, uni, lat5, num_requests=MESH_N,
+                        seed=0, device=dev)
+    # the path, counted
+    K.reset_launches()
+    torch.cuda.synchronize()
+    for i, (name, mesh) in enumerate(meshes.items()):
+        before = {k: K.LAUNCHES[k] for k in ("batch_scan", "backlog_scan")}
+        t0 = time.perf_counter()
+        got = scaling(mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s1, s6 = (K.LAUNCHES[k] - before[k]
+                  for k in ("batch_scan", "backlog_scan"))
+        assert np.array_equal(got, refs["scaling"]), (name, got,
+                                                      refs["scaling"])
+        assert s6 == mesh.size and s1 <= 5 * mesh.size, (name, s1, s6)
+        run = refs["scaling_run"]
+        log(f"8f({i + 1}) fleet_sweep R in [1, 2, 4, 8], jsq + dynamic b8, "
+            f"lambda 0.8, {FLEET_N} requests, on {name} ({mesh.size} "
+            f"shard{'s' if mesh.size > 1 else ''}): mean waits equal phase "
+            f"8b(a)'s fleet.sweep bit for bit; {s6} S6 and {s1} S1 launches "
+            f"in {wall:.3f} s wall, where fleet.sweep made "
+            f"{run['launches']['backlog_scan']} S6 and "
+            f"{run['launches']['batch_scan']} S1 launches in "
+            f"{run['wall_s']:.3f} s wall")
+    lams, sigmas = refs["noise_grid"]
+    for name, mesh in meshes.items():
+        t0 = time.perf_counter()
+        plane = shardsweep.sweep_noise(
+            lambda s: SRPTPolicy(b_max=16, predictor=LogNormalNoisePredictor(s)),
+            lams, sigmas, ln, ht, num_requests=NOISE_N, seed=NOISE_SEED,
+            mesh=mesh)["mean_wait"]
+        wall = time.perf_counter() - t0
+        assert np.array_equal(plane, refs["srpt_b16"]), name
+        log(f"8f(3) sweep_noise, SRPT b16 over {len(lams)} x {len(sigmas)} "
+            f"(lambda, sigma) lanes x {NOISE_N} requests on {name}: equal "
+            f"phase 8b(d)'s plane bit for bit ({wall:.3f} s wall, "
+            f"{refs['noise_wall_s']:.3f} s in 8b)")
+    for name, mesh in meshes.items():
+        got = shardsweep.sweep(policies(), MESH_LAMS, uni, lat5,
+                               num_requests=MESH_N, seed=0, mesh=mesh)
+        assert set(got) == set(one) and all(
+            np.array_equal(got[k], one[k]) for k in one), name
+    log(f"8f(4) sweep of dynamic, elastic b8 and FCFS at lambda {MESH_LAMS}, "
+        f"{MESH_N} requests: equal fastsim.sweep bit for bit on "
+        f"{' and '.join(meshes)}")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    # both fleet sweeps again, warm, outside the counted path
+    walls = {}
+    for name, fn in (("fleet.sweep", lambda: fleet.sweep(
+            [1, 2, 4, 8], [0.8], "jsq", DynamicPolicy(b_max=8), uni, lat5,
+            num_requests=FLEET_N, seed=FLEET_SEED, device=dev)),
+            ("fleet_sweep", lambda: scaling(meshes["cells_mesh()"]))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    log(f"8f warm walls of 8b(a)'s scaling curve: fleet.sweep "
+        f"{walls['fleet.sweep']:.3f} s, fleet_sweep on cells_mesh() "
+        f"{walls['fleet_sweep']:.3f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        gap, bound, ms = nccl_mean(0, 1, str(Path(tmp) / "store"))
+    assert gap < bound, (gap, bound)
+    log(f"8f(5) compressed_mean_rows on a one-rank NCCL group, {MEAN_SIZE} "
+        f"fp32 elements: largest gap to the fp32 mean {gap:.3g} < the "
+        f"reference test's bound {bound:.3g}; {ms:.3f} ms a call (host "
+        f"clock, synchronized)")
+    return launches
 
 
 # ----------------------------------------------------------------------------
@@ -4444,8 +4633,11 @@ def main() -> int:
     kernels += sim_kernels
     t0 = time.perf_counter()
     (paths["fleet simulators"], s6, noise_s5, noise_s3, noise_s4,
-     s1_path) = run_fleet_sims(dev)
+     s1_path, mesh_refs) = run_fleet_sims(dev)
     log(f"phase 8b (fleet simulators) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["mesh sweeps"] = run_mesh_sweeps(dev, mesh_refs)
+    log(f"phase 8f (the mesh sweeps) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paths["session simulators"] = run_session_sims(dev)
     log(f"phase 8c (session simulators) took "

@@ -23,3 +23,5 @@
 #   fleet          routing across parallel batched replicas (router registry,
 #                  M/G/R transfer, QNA split approximation)
 #   control        adaptive control plane wiring analytics into the engine
+#   shardsweep     the grid sweeps with their lanes split over a "cells"
+#                  mesh of devices

@@ -66,8 +66,11 @@ non-contiguous batches have no compiled twin there either).
 
 Closed-loop control (``run_controlled``) runs
 :func:`repro_torch.core.control.simulate_controlled` on these kernels: one
-``simulate_policy_fast`` a replica a window.  Not ported yet:
-``lane_scan=`` and ``srpt_loop=`` (M9).
+``simulate_policy_fast`` a replica a window.
+
+``sweep(lane_scan=)`` and ``sweep_noise(srpt_loop=)`` take a drop-in for
+their one S1 or S5 launch: :mod:`repro_torch.core.shardsweep` passes its
+executors, which split the lanes over a mesh of devices.
 """
 
 from __future__ import annotations
@@ -81,7 +84,7 @@ from repro_torch.core.distributions import TokenDistribution
 from repro_torch.core.latency_model import BatchLatencyModel, LatencyModel
 from repro_torch.core.policies import (
     BatchPolicy, DynamicPolicy, ElasticPolicy, FCFSPolicy, FixedPolicy,
-    not_ported, policy_from_spec, single_from_batch)
+    policy_from_spec, single_from_batch)
 from repro_torch.core.simulate import (
     _warm, _with_fault_trace, simulate_fixed_batching, simulate_policy)
 from repro_torch.kernels import resolve_device
@@ -284,14 +287,16 @@ def _batch_lane_stats(starts, closed, arrivals):
     }
 
 
-def _scan_lanes(arr, tok, lanes, lat, device, launch_out=None):
+def _scan_lanes(arr, tok, lanes, lat, device, launch_out=None, scan=None):
     """Kernel S1 over stacked lanes: arr, tok [n, lanes] numpy, lanes
-    minor; ``lanes`` a list of (elastic, b_max).  Returns (starts, closed)
-    as [n, lanes] numpy."""
+    minor; ``lanes`` a list of (elastic, b_max).  ``scan`` replaces the
+    ``batch_scan`` launch (same arguments).  Returns (starts, closed) as
+    [n, lanes] numpy."""
     elastic = torch.tensor([bool(e) for e, _ in lanes], device=device)
     b_max = _f64([NO_CAP if bm is None else float(bm) for _, bm in lanes],
                  device)
-    starts, closed = _launch(launch_out, "batch_scan", batch_scan,
+    starts, closed = _launch(launch_out, "batch_scan",
+                             batch_scan if scan is None else scan,
                              _f64(arr, device), _f64(tok, device), elastic,
                              b_max, *_law(lat))
     return starts.cpu().numpy(), closed.cpu().numpy()
@@ -603,10 +608,10 @@ def sweep(policies: dict, lam_grid, dist, lat,
     launch's ``launch_out`` (see :func:`simulate_policy_fast`; its tensors
     as passed and returned) and its ``lanes``, and under ``cells`` with
     each per-cell kernel launch, {(name, lam index): ``launch_out``}, for a
-    caller that checks the kernels.  ``lane_scan`` (the reference's
-    multi-device lane executor) is not ported yet (ROADMAP.md M9)."""
-    if lane_scan is not None:
-        not_ported("sweep(lane_scan=): lanes over a device mesh", "M9")
+    caller that checks the kernels.  ``lane_scan`` replaces the S1 launch
+    (the same arguments and per-lane results as ``batch_scan``):
+    :func:`repro_torch.core.shardsweep.lane_executor` splits the lanes over
+    a mesh of devices."""
     device = resolve_device(device)
     lam_grid = list(lam_grid)
     insts = _instances(policies)
@@ -632,7 +637,7 @@ def sweep(policies: dict, lam_grid, dist, lat,
         scan_out["cells"] = cells
     if lanes:
         starts, closed = _scan_lanes(arr, tok, [(e, b) for *_, e, b in lanes],
-                                     lat, device)
+                                     lat, device, scan=lane_scan)
         for col, (name, li, _, _) in enumerate(lanes):
             stats = _batch_lane_stats(starts[:, col], closed[:, col],
                                       arr[:, col])
@@ -691,13 +696,13 @@ def sweep_noise(policy_factory: Callable[[float], BatchPolicy], lam_grid,
     launch's inputs and outputs (see :func:`_launch`) and with ``cells``,
     the (λ index, σ index) of each lane.  Otherwise each cell dispatches
     through :func:`simulate_policy_fast` on its own.
-    ``srpt_loop`` (the reference's multi-device lane executor) is not
-    ported yet (ROADMAP.md M9).
+    ``srpt_loop`` replaces the S5 launch (the same arguments and per-lane
+    results as ``srpt_scan``):
+    :func:`repro_torch.core.shardsweep.srpt_executor` splits the SRPT lanes
+    over a mesh of devices; multi-bin and WAIT keep their one launch.
 
     Returns ``{"mean_wait": [len(lam_grid), len(sigma_grid)], "lams",
     "sigmas"}``."""
-    if srpt_loop is not None:
-        not_ported("sweep_noise(srpt_loop=): lanes over a device mesh", "M9")
     device = resolve_device(device)
     lam_grid = [float(l) for l in lam_grid]
     sigma_grid = [float(s) for s in sigma_grid]
@@ -737,8 +742,10 @@ def sweep_noise(policy_factory: Callable[[float], BatchPolicy], lam_grid,
                                         multibin_scan, *args, keys,
                                         pols[0].num_bins, b_max, *_law(lat))
             else:
-                starts, first = _launch(launch_out, "srpt_scan", srpt_scan,
-                                        *args, keys, b_max, *_law(lat))
+                starts, first = _launch(
+                    launch_out, "srpt_scan",
+                    srpt_scan if srpt_loop is None else srpt_loop, *args,
+                    keys, b_max, *_law(lat))
         if launch_out is not None:
             launch_out["cells"] = cells
         starts, first = starts.cpu().numpy(), first.cpu().numpy()

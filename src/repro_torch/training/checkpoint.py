@@ -14,8 +14,9 @@ the reference wrote restores here, and the other way round.
 
 ``restore`` places each leaf on the device (and in the dtype) of the
 matching leaf of the target tree.  Restoring onto another mesh (the
-reference's resharding restore) waits for the port's multi-device work
-(ROADMAP.md M10b).
+reference's resharding restore) waits for the port's sharded placements
+(ROADMAP.md M10b): the rule tables that will place the leaves are in
+``repro_torch.distributed.sharding``, the placements are not.
 """
 
 from __future__ import annotations

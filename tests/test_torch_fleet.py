@@ -51,9 +51,11 @@ from repro_torch.core import fleet as t_fleet  # noqa: E402
 from repro_torch.core import latency_model as t_lat  # noqa: E402
 from repro_torch.core import policies as t_pol  # noqa: E402
 from repro_torch.core import predictors as t_pred  # noqa: E402
+from repro_torch.core import shardsweep as t_ss  # noqa: E402
 from repro_torch.core import simulate as t_sim  # noqa: E402
 from repro_torch.core import traffic as t_traf  # noqa: E402
 from repro_torch.data import pipeline as t_pipe  # noqa: E402
+from repro_torch.distributed import cells_mesh  # noqa: E402
 from repro_torch.kernels.backlog_scan import (  # noqa: E402
     MAX_REPLICAS, backlog_scan, backlog_scan_reference)
 from repro_torch.serving import router as t_router  # noqa: E402
@@ -261,9 +263,13 @@ def test_sweep_noise_equals_reference(x64, pname):
     assert launch["args"][0].shape == (n, len(lams) * len(sigmas))
     assert launch["cells"] == [(li, si) for li in range(2)
                                for si in range(3)]
-    with pytest.raises(NotImplementedError, match="M9"):
-        t_fast.sweep_noise(factory(t_pol, t_pred), lams, sigmas, td, tl,
-                           srpt_loop=object(), device="cpu")
+    # the mesh executor in place of the S5 launch (multi-bin and WAIT keep
+    # their one launch): the same plane, bit for bit
+    mesh = t_ss.srpt_executor(cells_mesh(["cpu"] * 2))
+    on_mesh = t_fast.sweep_noise(factory(t_pol, t_pred), lams, sigmas, td,
+                                 tl, num_requests=n, seed=15, device="cpu",
+                                 srpt_loop=mesh)
+    assert np.array_equal(on_mesh["mean_wait"], t["mean_wait"])
 
 
 # ----------------------------------------------------------------------------

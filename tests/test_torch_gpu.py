@@ -1396,6 +1396,47 @@ def test_sweep_noise_on_the_card_equals_cpu(cuda, policy):
     assert got["cells"] == [(li, si) for li in range(2) for si in range(3)]
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2, 3])
+def test_mesh_sweeps_on_the_card_equal_cpu(cuda, shards):
+    """``core.shardsweep`` with the card listed ``shards`` times (the lanes
+    split, launched a shard at a time and concatenated on the card) equals
+    the single-device sweeps run with ``device="cpu"``; ``fleet_sweep``
+    launches S6 once a shard for the whole grid."""
+    from repro_torch.core import fastsim, fleet, shardsweep
+    from repro_torch.core.distributions import LogNormalTokens
+    from repro_torch.core.latency_model import BatchLatencyModel
+    from repro_torch.core.policies import (
+        DynamicPolicy, ElasticPolicy, FCFSPolicy, SRPTPolicy)
+    from repro_torch.core.predictors import LogNormalNoisePredictor
+    from repro_torch.distributed import cells_mesh
+    mesh = cells_mesh([cuda] * shards)
+    ln = LogNormalTokens(7.0, 0.7)
+    lat = BatchLatencyModel(*EVENT_LAT)
+    args = ([1, 2, 3, 4], [0.8, 1.6], "jsq", DynamicPolicy(b_max=8), ln, lat)
+    before = K.LAUNCHES["backlog_scan"]
+    gpu = shardsweep.fleet_sweep(*args, num_requests=4000, seed=3, mesh=mesh)
+    assert K.LAUNCHES["backlog_scan"] == before + shards
+    cpu = fleet.sweep(*args, num_requests=4000, seed=3, device="cpu")
+    assert np.array_equal(gpu["mean_wait"], cpu["mean_wait"])
+    pols = {"dynamic": DynamicPolicy(), "elastic": ElasticPolicy(b_max=8),
+            "fcfs": FCFSPolicy()}
+    gpu = shardsweep.sweep(pols, [0.3, 0.9, 1.6], ln, lat, num_requests=4000,
+                           seed=1, mesh=mesh)
+    cpu = fastsim.sweep(pols, [0.3, 0.9, 1.6], ln, lat, num_requests=4000,
+                        seed=1, device="cpu")
+    for k in pols:
+        assert np.array_equal(gpu[k], cpu[k]), k
+    noise = (lambda s: SRPTPolicy(b_max=16,
+                                  predictor=LogNormalNoisePredictor(s)),
+             [0.6, 1.0], [0.0, 0.5, 1.5], ln, lat)
+    gpu = shardsweep.sweep_noise(*noise, num_requests=3000, seed=15,
+                                 mesh=mesh)
+    cpu = fastsim.sweep_noise(*noise, num_requests=3000, seed=15,
+                              device="cpu")
+    assert np.array_equal(gpu["mean_wait"], cpu["mean_wait"])
+
+
 # ----------------------------------------------------------------------------
 # Re-entrant sessions (one kernel launch a fixed-point pass) and the
 # resilient engine fleet

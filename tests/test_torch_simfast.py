@@ -519,19 +519,46 @@ def test_fast_path_m7_layers_raise(x64):
         assert tr["memory"][k] == jr["memory"][k], k
 
 
-def test_mesh_lane_executors_raise_the_m9_message():
-    """The reference's multi-device lane executors (``sweep(lane_scan=)``,
-    ``sweep_noise(srpt_loop=)``) are not ported: each keyword raises
-    ``NotImplementedError`` naming ROADMAP.md's M9, before any work."""
-    _, tl = lats()
-    td = t_dist.UniformTokens()
-    pols = {"dynamic": t_pol.REGISTRY["dynamic"]()}
-    with pytest.raises(NotImplementedError,
-                       match=r"sweep\(lane_scan=\).*ROADMAP.md M9"):
-        t_fast.sweep(pols, [0.5], td, tl, num_requests=8,
-                     lane_scan=object(), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"sweep_noise\(srpt_loop=\).*ROADMAP.md M9"):
-        t_fast.sweep_noise(lambda s: t_pol.REGISTRY["srpt"](), [0.5], [0.0],
-                           td, tl, num_requests=8, srpt_loop=object(),
-                           device="cpu")
+def test_mesh_lane_executors_equal_the_reference(x64):
+    """``sweep(lane_scan=)`` and ``sweep_noise(srpt_loop=)`` take the mesh
+    executors of ``repro_torch.core.shardsweep`` in place of their one S1
+    and S5 launch: on a 2-entry CPU mesh they equal the single launch bit
+    for bit, and the reference's with its own executors within
+    ``SCAN_ATOL``."""
+    from repro.core import predictors as j_pred
+    from repro.core import shardsweep as j_ss
+    from repro_torch.core import predictors as t_pred
+    from repro_torch.core import shardsweep as t_ss
+    from repro_torch.distributed import cells_mesh
+    jd, td = pair("LogNormalTokens")
+    jl, tl = lats()
+    mesh = cells_mesh(["cpu"] * 2)
+    lams = [0.1, 0.5, 1.5]
+    jp = {"dynamic": j_pol.DynamicPolicy(b_max=8),
+          "elastic": j_pol.ElasticPolicy()}
+    tp = {"dynamic": t_pol.DynamicPolicy(b_max=8),
+          "elastic": t_pol.ElasticPolicy()}
+    one = t_fast.sweep(tp, lams, td, tl, num_requests=1500, seed=4,
+                       device="cpu")
+    got = t_fast.sweep(tp, lams, td, tl, num_requests=1500, seed=4,
+                       device="cpu", lane_scan=t_ss.lane_executor(mesh))
+    ref = j_fast.sweep(jp, lams, jd, jl, num_requests=1500, seed=4,
+                       lane_scan=j_ss.lane_executor())
+    for k in tp:
+        assert np.array_equal(got[k], one[k]), k
+        np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=SCAN_ATOL)
+
+    def factory(pol, pred):
+        return lambda s: pol.SRPTPolicy(
+            b_max=8, predictor=pred.LogNormalNoisePredictor(s))
+    kw = dict(num_requests=1200, seed=6)
+    one = t_fast.sweep_noise(factory(t_pol, t_pred), [0.3, 0.9], [0.0, 1.0],
+                             td, tl, device="cpu", **kw)
+    got = t_fast.sweep_noise(factory(t_pol, t_pred), [0.3, 0.9], [0.0, 1.0],
+                             td, tl, device="cpu",
+                             srpt_loop=t_ss.srpt_executor(mesh), **kw)
+    ref = j_fast.sweep_noise(factory(j_pol, j_pred), [0.3, 0.9], [0.0, 1.0],
+                             jd, jl, srpt_loop=j_ss.srpt_executor(), **kw)
+    assert np.array_equal(got["mean_wait"], one["mean_wait"])
+    np.testing.assert_allclose(got["mean_wait"], ref["mean_wait"], rtol=0,
+                               atol=SCAN_ATOL)
