@@ -4,12 +4,12 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. build the fourteen hand-written kernel sources (K3's and K4's
+  1. build the fifteen hand-written kernel sources (K3's, K4's and S8's
      backward among them) from ``src/repro_torch/kernels/*/csrc`` with
      nvcc into ``build/kernels/``, one nvcc per source, all started
      together, and print the registers, shared memory and spills ptxas
-     reports for the two attention kernels, K4, both backward sources,
-     the seven simulator kernels and S8;
+     reports for the two attention kernels, K4, the three backward
+     sources, the seven simulator kernels and S8;
   2. hold each serving kernel against its plain PyTorch version on the card, at the
      shapes qwen2.5-3b serving gives it (K1 and K3 also at the (G, D)
      instances of internlm2-1.8b, gemma-7b, mixtral-8x7b,
@@ -23,6 +23,11 @@ Phases (any failure raises and the script exits non-zero):
      SSD's chunk-state scan, bit for bit to its plain version at
      mamba2-2.7b's shapes (B = 16, C = 1 with and without h0; B = 4, C =
      8) and jamba's full mixer (B = 4, C = 8), timed against its bytes
+     bound; hold S8b, S8's backward, at mamba2-2.7b's training shape (B =
+     2, C = 8) and jamba's mixer (B = 4, C = 8), without and with h0 and
+     g_hT, to its plain version (the state gradients bit for bit, the
+     chunk-decay gradient within the fp32 summation bound over P*N
+     terms), timed by ``busy_ms`` beside the plain version and its bytes
      bound; time K3 at qwen's serving shape without and with the
      log-sum-exp output that training's forward writes (outputs bit-equal);
      hold K3's backward (every (G, D) instance, both dtypes, with and
@@ -75,31 +80,31 @@ Phases (any failure raises and the script exits non-zero):
      single engine, the engine's own KV peak within the budget;
   4d. serve the first 12 requests of phase 4's stream on each of
      internlm2-1.8b ((G, D) = (2, 128)), yi-9b ((8, 128)) and gemma-7b
-     ((1, 256), GeGLU, scaled embeddings) at full width, random bf16
+     ((1, 256), GeGLU, scaled embeddings) at full width and 6 layers
+     each (``FAMILY_LAYERS``, as in 4e, 4s and musicgen's 4v), random bf16
      weights made on the card, phase 4's engine settings,
      ``run_engine_schedule`` with elastic b16 (K1-K4 on decode graphs):
      batches, waits, decode ms a step by bucket, prefill ms, host syncs,
      launches and peak memory per model, each engine freed before the
      next;
   4e. after phase 4's engine is freed, serve the same 12 requests on
-     mixtral-8x7b at 16 of its 32 layers (full layer width; the whole
-     model does not fit the card) and moonshot-v1-16b-a3b whole, random
-     bf16 weights made on the card, phase 4's engine settings with
+     mixtral-8x7b and moonshot-v1-16b-a3b at 6 layers (full layer
+     width), random bf16 weights made on the card, phase 4's engine settings with
      max_seq 1024, elastic b16 (K1-K4; the MoE FFN is plain PyTorch, as
      the reference's is plain jnp): the same figures as 4d, each engine's
      peak device memory under 75 GiB;
-  4s. after phase 4e, serve the same 12 requests on mamba2-2.7b whole (64
-     Mamba2 layers, d_model 2,560, 80 SSM heads of 64 x 128, 2.70 B params,
-     random bf16 weights made on the card), phase 4's engine settings,
+  4s. after phase 4e, serve the same 12 requests on mamba2-2.7b at 6 of
+     its 64 Mamba2 layers (d_model 2,560, 80 SSM heads of 64 x 128), random
+     bf16 weights made on the card), phase 4's engine settings,
      elastic b16 (S8 in every prefill, K2 and K4; the Mamba decode update
      is plain PyTorch in the decode graphs, as the reference's is plain
      jnp): the figures of 4d, the bucket-16 decode step beside its floor
      (the bf16 weights' read and the SSM state's read and write), one
      decode chunk of 8 steps at bucket 16 profiled by kind of kernel, and
      one long prefill of 4 prompts of 2,048 tokens (S8 at C = 8), timed;
-  4v. after phase 4s, serve the same 12 requests on musicgen-large whole
-     (48 layers, 32/32 heads of 64, sinusoidal positions, 2.42 B params),
-     as 4e (K1-K4, K1 and K3 at (1, 64)), its bucket-16 step beside the
+  4v. after phase 4s, serve the same 12 requests on musicgen-large at 6
+     of its 48 layers (32/32 heads of 64, sinusoidal positions), as 4e
+     (K1-K4, K1 and K3 at (1, 64)), its bucket-16 step beside the
      floor of its weights' read; then llama-3.2-vision-90b at 4 of its 20
      groups (16 self- and 4 cross-attention layers, full layer width,
      19.21 B params, random bf16 weights made on the card with every gate
@@ -124,6 +129,18 @@ Phases (any failure raises and the script exits non-zero):
      GiB), losses (finite), and each training kernel's launches and
      device ms a step (and by kernel name) beside the device ms outside
      them;
+  9t(m). then train the state-space models (S8 and S8b with K4 and K4b;
+     K3 and K3b in jamba's attention position): (a) mamba2-2.7b's smoke
+     config and phase 3's small jamba, three fp32 AdamW steps and the
+     step-0 gradients on the card and on the CPU from the same params and
+     batches (8 x 64 tokens, two chunks of 32), remat off and on, held to
+     9t(a)'s tolerances; (b) the training launcher on mamba2's smoke
+     config, 8 steps, a checkpoint every 4, a failure injected at step 5:
+     restored at step 4 and data index 4, the last loss below the first;
+     (c) mamba2-2.7b whole (64 layers at full width, remat, random fp32
+     weights made on the card, fp32 moments), 2 x 2,048 tokens a step (S8
+     and S8b at C = 8), 4 steps: the figures of 9t(c), S8 and S8b by
+     name;
   5. run the adaptive-control serving launcher
      (``repro_torch.launch.serve.serve``) on qwen2.5-3b at full width;
   7. run the paper's simulators (``repro_torch.core.fastsim``) on the card:
@@ -138,8 +155,9 @@ Phases (any failure raises and the script exits non-zero):
      not, elastic: S1 lanes; multi-bin with equal-mass and optimised
      edges: S3; WAIT k=16: S4; SRPT b=16: S5); hold every lane of the
      counted launches, at full length, bit for bit to their plain
-     versions (the Fig 5 S1 launch, the S2 launch and every S3-S5 cell on
-     the card, the other S1 launches on host processes) and to the NumPy
+     versions (on the card, timed, the heavy tail's S1 launch, the S2
+     launch and the λ = 1 cell of each of S3-S5 whose times their entries
+     report; the other S1 launches and cells on host processes) and to the NumPy
      oracle (every S1 lane on the launch's inputs, four Fig 5 lanes and
      every S2-S5 cell on the oracle's own sampling), assert the
      benchmark's relations
@@ -155,8 +173,9 @@ Phases (any failure raises and the script exits non-zero):
      lanes, ``simulate_fleet_faulty(fast=True)``), the backlog routers on
      ``backlog_scan`` (S6); assert the benchmarks' relations, print each
      figure beside ``benchmarks/BENCH_simulators.json``, hold every S6
-     launch at full length to its plain version on the card and to the
-     NumPy recursion, and time S6 (the wrapper and the kernel alone)
+     launch at full length to its plain version (the timed launch's on
+     the card, the others' on host processes) and to the NumPy
+     recursion, and time S6 (the wrapper and the kernel alone)
      against its bytes bound; hold every lane of the counted S5 launches
      (the noise plane and the 40 fleet replicas' sub-streams), of the S3
      and S4 noise launches and of the 27 S1 launches (the fleet replicas'
@@ -258,6 +277,14 @@ MODEL_KERNELS = SERVING_KERNELS + ("ssd_scan",)
 
 def log(*a):
     print(*a, flush=True)
+
+
+def timed(label, fn, *args):
+    """``fn(*args)``, its wall seconds logged as "``label`` took"."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"{label} took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # CUPTI has dropped the kernel records of a window's first moments: every
@@ -457,6 +484,14 @@ def ptxas_report(build_log):
 # Phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------------
 
+def card_generator(dev, rng):
+    """A generator on the card seeded from the NumPy ``rng``: the checks'
+    inputs are drawn there (drawn on the host, K1's and K3's took 110 s of
+    the script on the H100's host)."""
+    import torch
+    return torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 62)))
+
+
 def _ragged_checks(dev, rng, hq, hkv, d, label):
     """K1 against its plain version at (Hq, Hkv, D) in bf16 and fp32: B in
     (1, 4, 16) x S in (1024, 2048, 1000) with ragged lengths, stale rows
@@ -466,6 +501,7 @@ def _ragged_checks(dev, rng, hq, hkv, d, label):
     from repro_torch.kernels.ragged_decode_attention import (
         decode_attention_reference, ragged_decode_attention, split_count)
     from repro_torch.kernels.ragged_decode_attention.ops import _launch
+    gen = card_generator(dev, rng)
     max_err = {}
     for dtype in ("bfloat16", "float32"):
         td = getattr(torch, dtype)
@@ -474,10 +510,9 @@ def _ragged_checks(dev, rng, hq, hkv, d, label):
             for s in (1024, 2048, 1000):
                 lens = np.linspace(1, s, b).astype(np.int32) if b > 1 \
                     else np.array([s], np.int32)
-                q = torch.from_numpy(rng.standard_normal((b, hq, d), np.float32))
-                kc, vc = (torch.from_numpy(rng.standard_normal(
-                    (b, s, hkv, d), np.float32)) for _ in range(2))
-                q, kc, vc = (t.to(dev, td) for t in (q, kc, vc))
+                q, kc, vc = (torch.randn(shape, generator=gen, device=dev)
+                             .to(td) for shape in ((b, hq, d), (b, s, hkv, d),
+                                                   (b, s, hkv, d)))
                 ln = torch.from_numpy(lens).to(dev)
                 out = ragged_decode_attention(q, kc, vc, ln)
                 ref = decode_attention_reference(q, kc, vc, ln)
@@ -690,13 +725,14 @@ def _flash_checks(dev, rng, hq, hkv, d, label):
     cases = [(b, s, None) for s in (16, 80, 192, 256, 1000) for b in (1, 16)]
     cases += [(1, 4096, None), (1, 1000, 256), (16, 192, 64)]
     cases += [(16, 64, None), (1, 65, None), (16, 129, None), (2, 300, 100)]
+    gen = card_generator(dev, rng)
     max_err = {}
     for dtype in ("bfloat16", "float32"):
         td = getattr(torch, dtype)
         err = 0.0
         for b, s, win in cases:
-            q, k, v = (torch.from_numpy(rng.standard_normal(
-                (b, s, h, d), np.float32)).to(dev, td) for h in (hq, hkv, hkv))
+            q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                       .to(td) for h in (hq, hkv, hkv))
             out = flash_attention(q, k, v, window=win)
             ref = attention_reference(q, k, v, window=win)
             torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
@@ -1254,6 +1290,105 @@ def check_ssd_scan(dev):
     return entry
 
 
+# kernel S8b's shapes (B, C, H, P, N): mamba2-2.7b's at phase 9t(m)(c)'s
+# training batch (2 x 2,048 tokens: 8 chunks of 256) and jamba's full mixer
+# at 4 x 2,048
+SSD_BWD_SHAPES = {"mamba2 train B=2 C=8": (2, 8, 80, 64, 128),
+                  "jamba B=4 C=8": (4, 8, 256, 64, 128)}
+
+
+def g_decay_bound(g_states, h_before):
+    """The error bound of two fp32 sums of the same n = P*N rounded
+    products G * h_before, in any orders: 2 gamma_(n-1) sum |G * h|, with
+    gamma_k = k u / (1 - k u) and u = 2^-24 (float64, [B, C, H])."""
+    n = g_states.shape[-1] * g_states.shape[-2]
+    gamma = (n - 1) * 2.0 ** -24 / (1 - (n - 1) * 2.0 ** -24)
+    return 2 * gamma * (g_states * h_before).double().abs().sum((-2, -1))
+
+
+def check_ssd_scan_bwd(dev):
+    """S8b against its plain version at ``SSD_BWD_SHAPES``, without and
+    with h0 and g_hT: g_states and g_h0 bit for bit, g_decay within the
+    fp32 summation bound over P*N terms (``g_decay_bound``); then timed
+    per shape as training calls it (no h0, no g_hT) by ``busy_ms`` (four
+    input sets in turn, past the L2), turn about with the plain version
+    (a Python loop over C), beside the bytes bound: h_before and g_h_before
+    read, g_states written, chunk_decay read and g_decay written, fp32.
+    No PyTorch call computes this loop.  The JSON entry carries mamba2's
+    training shape, every shape under ``shapes``."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (
+        ssd_state_scan_bwd_reference, ssd_state_scan_reference)
+    from repro_torch.kernels.ssd_scan import ops
+    entry, shapes, worst = None, {}, 0.0
+    for label, (b, c, h, p, n) in SSD_BWD_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(c + h)
+
+        def randn(*shape):
+            return torch.randn(*shape, device=dev, generator=gen)
+        sets = []
+        for _ in range(4):
+            decay = torch.exp(-4 * torch.rand(b, c, h, device=dev,
+                                               generator=gen))
+            hb, _ = ssd_state_scan_reference(decay, randn(b, c, h, p, n))
+            sets.append((decay, hb, randn(b, c, h, p, n)))
+        decay, hb, g_hb = sets[0]
+        h0, g_ht = randn(b, h, p, n), randn(b, h, p, n)
+        gap = rel = 0.0
+        for with_h0, ght in ((False, None), (True, g_ht)):
+            # with h0 the forward's h_before starts from it
+            hb0 = ssd_state_scan_reference(decay, randn(b, c, h, p, n),
+                                           h0)[0] if with_h0 else hb
+            got = ops._launch_bwd(decay, hb0, g_hb, ght, with_h0)
+            ref = ssd_state_scan_bwd_reference(decay, hb0, g_hb, ght, with_h0)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], ref[1]), f"S8b g_states at {label}"
+            assert (got[2] is None and ref[2] is None) or torch.equal(
+                got[2], ref[2]), f"S8b g_h0 at {label}"
+            diff = (got[0].double() - ref[0].double()).abs()
+            bound = g_decay_bound(ref[1], hb0)
+            assert bool((diff <= bound).all()), \
+                f"S8b g_decay past its bound at {label}: {float(diff.max())}"
+            gap = max(gap, float(diff.max()))
+            rel = max(rel, float((diff / bound).max()))
+            del got, ref, hb0
+        worst = max(worst, gap)
+
+        def kern(d, x, g):
+            return ops._launch_bwd(d, x, g, None, False)
+
+        def plain(d, x, g):
+            return ssd_state_scan_bwd_reference(d, x, g, None, False)
+        busy, clocks = busy_ms({"kernel": rotating(kern, sets),
+                                "plain": rotating(plain, sets)}, iters=20)
+        ms, plain_ms = (float(np.mean(busy[k])) for k in ("kernel", "plain"))
+        nbytes = 4 * (3 * b * c * h * p * n + 2 * b * c * h)
+        bnd = bound_ms(nbytes, 4 * b * c * h * p * n, "float32")
+        log(f"S8b ssd_scan_bwd {label} (H={h}, P={p}, N={n}): g_states and "
+            f"g_h0 bit-equal to the plain version, g_decay within "
+            f"{gap:.3e} of it (at most {rel:.2e} of its fp32 summation "
+            f"bound), without and with h0 and g_hT; busy kernel "
+            f"{fmt_busy(busy['kernel'])}, plain {fmt_busy(busy['plain'])}, "
+            f"bound {bnd:.4f} ms (bytes; {nbytes / 1e6:.1f} MB; the kernel "
+            f"at {100 * bnd / ms:.1f}% of it), SM clocks "
+            f"{min(clocks):.0f}-{max(clocks):.0f} MHz")
+        shapes[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                         "g_decay_gap": gap, "busy": busy}
+        if entry is None:   # the training shape goes into the JSON line
+            entry = {"name": "ssd_scan_bwd", "route": "cuda",
+                     "source": "src/repro_torch/kernels/ssd_scan/csrc/"
+                               "ssd_scan_bwd.cu",
+                     "replaces": "the gradient of src/repro/models/"
+                                 "mamba.py:146's lax.scan (jax.grad)",
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                     "bound_by": "bytes", "library_ms": None,
+                     "timing": "busy_ms", "shapes": shapes}
+        del sets, decay, hb, g_hb, h0, g_ht
+    entry["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return entry
+
+
 # ----------------------------------------------------------------------------
 # Phase 3: small fp32 model, card against CPU
 # ----------------------------------------------------------------------------
@@ -1370,6 +1505,16 @@ def check_small_moe(dev):
     return drops
 
 
+def small_jamba_cfg(**kw):
+    """jamba's 8-position pattern at (G, D) = (4, 128), one group, fp32:
+    phase 3's hybrid model, and phase 9t(m)(a)'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import scaled_down
+    return scaled_down(get_config("jamba-1.5-large-398b"), d_model=128,
+                       num_heads=8, num_kv_heads=2, head_dim=128, d_ff=256,
+                       moe_d_ff=128, num_experts=4, ssm_n_groups=2, **kw)
+
+
 def check_small_jamba(dev):
     """Phase 3's hybrid model: jamba's 8-position pattern (attention + MoE,
     then seven Mamba layers, four of them with a dense FFN and three with
@@ -1377,14 +1522,9 @@ def check_small_jamba(dev):
     and S8, decode chunks as graphs) emits the CPU's greedy tokens through
     elastic compaction of the K/V, conv and SSM leaves."""
     from repro_torch import kernels as K
-    from repro_torch.configs import get_config
-    from repro_torch.models.config import scaled_down
     from repro_torch.models.params import map_tree
     from repro_torch.serving import Engine, EngineConfig
-    cfg = scaled_down(get_config("jamba-1.5-large-398b"), d_model=128,
-                      num_heads=8, num_kv_heads=2, head_dim=128, d_ff=256,
-                      moe_d_ff=128, num_experts=4, ssm_n_groups=2,
-                      decode_cache_update="scatter")
+    cfg = small_jamba_cfg(decode_cache_update="scatter")
     ecfg = EngineConfig(max_batch=8, max_seq=128, prompt_bucket=16,
                         decode_chunk=8)
     gpu = Engine(cfg, ecfg, seed=3, device=dev)
@@ -1650,6 +1790,7 @@ def _kernel_kinds(prof):
                 "ragged_decode_attention" if "ragged_decode" in name else
                 "fused_rmsnorm" if "fused_rmsnorm" in name else
                 "flash_attention" if "flash_attention" in name else
+                "ssd_scan_bwd" if "ssd_state_scan_bwd" in name else
                 "ssd_scan" if "ssd_state_scan" in name else
                 "gemm" if any(w in name for w in ("gemm", "gemv", "cutlass",
                                                   "sm90_xmma", "nvjet")) else
@@ -2043,10 +2184,12 @@ def serve_memory(engine, reqs):
 
 DENSE_ARCHS = ("internlm2-1.8b", "yi-9b", "gemma-7b")
 FAMILY_REQUESTS = 12      # the first requests of phase 4's stream
-# mixtral-8x7b's 46.70 B params (87.0 GiB in bf16) do not fit the card:
-# phase 4e serves 16 of its 32 layers at full layer width (23.48 B, 43.7
-# GiB); moonshot-v1-16b-a3b (28.89 B, 53.8 GiB) runs whole
-MOE_LAYERS = {"mixtral-8x7b": 16, "moonshot-v1-16b-a3b": 48}
+# the depth at which phases 4d, 4e, 4s and 4v serve each family (the vision
+# model apart): its first 6 layers at full layer width.  Whole (mixtral at
+# 16 of its 32 layers, whose 87.0 GiB in bf16 do not fit the card), these
+# phases took 260 s of the script's 924 s on the H100, and 114 s at 12
+# layers; mamba2-2.7b trains whole in phase 9t(m)(c)
+FAMILY_LAYERS = 6
 # phase 4e's engine: phase 4's, with caches of 1,024 positions (moonshot's
 # KV cache is 384 KiB a token: its five bucket caches take 11.6 GiB at
 # 1,024, 23.3 at 2,048); phase 4's prompts are at most 256 tokens and its
@@ -2055,10 +2198,18 @@ MOE_MAX_SEQ = 1024
 MOE_PEAK_GIB = 75.0
 
 
+def family_cfg(arch):
+    """``arch``'s config at ``FAMILY_LAYERS`` layers, full layer width,
+    scatter cache updates (phase 4's engine's)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=FAMILY_LAYERS,
+                               decode_cache_update="scatter")
+
+
 def serve_family(phase, cfgs, ecfg, reqs, peak_limit_gib=None,
                  need=("ragged_decode_attention", "flash_attention",
                        "fused_rmsnorm"), extra=None):
-    """Phases 4d, 4e and 4s: each config of ``cfgs`` ({arch:
+    """Phases 4d, 4e, 4s and 4v: each config of ``cfgs`` ({arch:
     ModelConfig}) at full width, random bf16 weights from a seed (made on
     the card), serving the first ``FAMILY_REQUESTS`` of phase 4's stream
     through ``run_engine_schedule`` with elastic b16 (the kernels ``need``
@@ -2072,6 +2223,7 @@ def serve_family(phase, cfgs, ecfg, reqs, peak_limit_gib=None,
     summed over the configs and the per-config rows."""
     import gc
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.core.policies import get_policy
     from repro_torch.models.params import tree_leaves
     from repro_torch.serving import Engine
@@ -2120,7 +2272,8 @@ def serve_family(phase, cfgs, ecfg, reqs, peak_limit_gib=None,
                  f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv "
                  f"{cfg.ssm_conv_kernel}, chunk {cfg.ssm_chunk}, no FFN")
         log(f"phase {phase} {arch}: {nparams / 1e9:.3f} B params "
-            f"({cfg.num_layers} layers, d_model {cfg.d_model}, {mixer}), "
+            f"({cfg.num_layers} of {get_config(arch).num_layers} layers, "
+            f"d_model {cfg.d_model}, {mixer}), "
             f"init {init_s:.1f} s; batch "
             f"sizes {res.batch_sizes}, mean wait {res.waits.mean():.3f} s, "
             f"wall {wall:.2f} s; prefill ms {[round(m, 1) for m in pre]}; "
@@ -2147,33 +2300,26 @@ def serve_family(phase, cfgs, ecfg, reqs, peak_limit_gib=None,
 
 
 def serve_dense(ecfg, reqs):
-    """Phase 4d: internlm2-1.8b, yi-9b and gemma-7b whole, phase 4's
-    engine settings, qwen's engine resident."""
-    from repro_torch.configs import get_config
-    return serve_family("4d", {
-        arch: dataclasses.replace(get_config(arch),
-                                  decode_cache_update="scatter")
-        for arch in DENSE_ARCHS}, ecfg, reqs)
+    """Phase 4d: internlm2-1.8b, yi-9b and gemma-7b at ``FAMILY_LAYERS``
+    layers, phase 4's engine settings, qwen's engine resident."""
+    return serve_family("4d", {arch: family_cfg(arch) for arch in DENSE_ARCHS},
+                        ecfg, reqs)
 
 
 def serve_moe(ecfg, reqs):
-    """Phase 4e: mixtral-8x7b at 16 of its 32 layers (full layer width)
-    and moonshot-v1-16b-a3b whole, phase 4's engine settings with
-    ``max_seq`` = ``MOE_MAX_SEQ``, after qwen's engine is freed; each
-    engine's peak under ``MOE_PEAK_GIB``."""
-    from repro_torch.configs import get_config
-    cfgs = {arch: dataclasses.replace(get_config(arch), num_layers=n,
-                                      decode_cache_update="scatter")
-            for arch, n in MOE_LAYERS.items()}
-    log(f"phase 4e: mixtral-8x7b reduced to {MOE_LAYERS['mixtral-8x7b']} of "
-        f"{get_config('mixtral-8x7b').num_layers} layers (full layer width); "
-        f"moonshot-v1-16b-a3b whole; max_seq {ecfg.max_seq}")
-    return serve_family("4e", cfgs, ecfg, reqs, peak_limit_gib=MOE_PEAK_GIB)
+    """Phase 4e: mixtral-8x7b and moonshot-v1-16b-a3b at ``FAMILY_LAYERS``
+    layers, phase 4's engine settings with ``max_seq`` = ``MOE_MAX_SEQ``,
+    after qwen's engine is freed; each engine's peak under
+    ``MOE_PEAK_GIB``."""
+    log(f"phase 4e: {', '.join(MOE_ARCHS)} at {FAMILY_LAYERS} layers (full "
+        f"layer width); max_seq {ecfg.max_seq}")
+    return serve_family("4e", {arch: family_cfg(arch) for arch in MOE_ARCHS},
+                        ecfg, reqs, peak_limit_gib=MOE_PEAK_GIB)
 
 
-# phase 4s: mamba2-2.7b whole (2.70 B params, 5.4 GB in bf16), phase 4's
-# engine settings (its caches do not grow with max_seq); one long prefill
-# of 4 prompts of 2,048 tokens runs S8 over 8 chunks of 256
+# phase 4s: mamba2-2.7b at FAMILY_LAYERS layers, phase 4's engine settings
+# (its caches do not grow with max_seq); one long prefill of 4 prompts of
+# 2,048 tokens runs S8 over 8 chunks of 256
 SSM_ARCH = "mamba2-2.7b"
 LONG_PREFILL = (4, 2048)
 SSM_PEAK_GIB = 40.0
@@ -2224,22 +2370,20 @@ def _ssm_extra(engine, reqs, row):
 
 
 def serve_ssm(ecfg, reqs):
-    """Phase 4s: mamba2-2.7b whole at full width, after phase 4e's engines
-    are freed: phase 4's engine settings and 12 requests, elastic b16 (K2,
-    K4 on decode graphs, S8 in every prefill), then ``_ssm_extra``."""
-    from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(SSM_ARCH),
-                              decode_cache_update="scatter")
-    return serve_family("4s", {SSM_ARCH: cfg}, ecfg, reqs,
+    """Phase 4s: mamba2-2.7b at ``FAMILY_LAYERS`` layers, full width,
+    after phase 4e's engines are freed: phase 4's engine settings and 12
+    requests, elastic b16 (K2, K4 on decode graphs, S8 in every prefill),
+    then ``_ssm_extra``."""
+    return serve_family("4s", {SSM_ARCH: family_cfg(SSM_ARCH)}, ecfg, reqs,
                         peak_limit_gib=SSM_PEAK_GIB,
                         need=("ssd_scan", "fused_rmsnorm"), extra=_ssm_extra)
 
 
-# phase 4v: musicgen-large whole (2.42 B params, 4.85 GB in bf16) through the
-# engine, then llama-3.2-vision-90b at 4 of its 20 groups (20 layers, 16
-# self- and 4 cross-attention, full layer width: 19.21 B params, 38.4 GB
-# in bf16; the whole model's 163 GiB do not fit the card), both on phase
-# 4e's engine (caches of 1,024 positions)
+# phase 4v: musicgen-large at FAMILY_LAYERS layers through the engine, then
+# llama-3.2-vision-90b at 4 of its 20 groups (20 layers, 16 self- and 4
+# cross-attention, full layer width: 19.21 B params, 38.4 GB in bf16; the
+# whole model's 163 GiB do not fit the card), both on phase 4e's engine
+# (caches of 1,024 positions)
 VISION_GROUPS = 4
 M8C_PEAK_GIB = 75.0
 # the vision model's decode targets: the first 8 slots run 1 + 5 chunks of
@@ -2354,15 +2498,13 @@ def serve_vision(ecfg, reqs):
 
 
 def serve_m8c(ecfg, reqs):
-    """Phase 4v: musicgen-large whole through ``serve_family`` (elastic b16,
+    """Phase 4v: musicgen-large at ``FAMILY_LAYERS`` layers through
+    ``serve_family`` (elastic b16,
     phase 4's first 12 requests: K1, K2, K3 at (1, 64), K4), then
     ``serve_vision``.  Returns the launches summed and the per-model
     rows."""
-    from repro_torch.configs import get_config
-    totals, rows = serve_family(
-        "4v", {AUDIO_ARCH: dataclasses.replace(
-            get_config(AUDIO_ARCH), decode_cache_update="scatter")},
-        ecfg, reqs, peak_limit_gib=M8C_PEAK_GIB)
+    totals, rows = serve_family("4v", {AUDIO_ARCH: family_cfg(AUDIO_ARCH)},
+                                ecfg, reqs, peak_limit_gib=M8C_PEAK_GIB)
     audio = rows[AUDIO_ARCH]
     weights = 2 * audio["params"]
     audio["floor_ms"] = 1e3 * weights / HBM_BYTES_PER_S
@@ -2399,6 +2541,12 @@ TRAIN_TOL = {"loss": 2e-5, "grad_norm": 1e-3, "grad": 2e-3,
              "params": 2 * TRAIN_LR * TRAIN_SMALL_STEPS}
 TRAIN_PEAK_GIB = 75.0
 TRAIN_CKPT = ROOT / "build" / "chip_smoke_train_ckpt"
+# phase 9t(m): the state-space training path runs S8 and S8b beside K4 and
+# K4b (jamba's attention position adds K3 and K3b); (c) trains mamba2-2.7b
+# whole at 2 x 2,048 tokens, 8 chunks of 256 a row
+SSM_TRAIN_KERNELS = ("ssd_scan", "ssd_scan_bwd", "fused_rmsnorm",
+                     "fused_rmsnorm_bwd")
+SSM_TRAIN_B, SSM_TRAIN_S = 2, 2048
 
 
 def _small_train_cfg(**kw):
@@ -2442,11 +2590,11 @@ def _step0_grads(cfg, params, batch, device):
     return [t.cpu() for t in tree_leaves(g)]
 
 
-def train_card_vs_cpu():
-    """Phase 9t(a): the small model's step-0 gradients and three train
-    steps on the card (K3 and K4 forward and backward) and on the CPU
-    (plain versions) from the same fp32 params and batches, remat off and
-    on.  Returns the launches of the card's runs."""
+def _card_vs_cpu(phase, make_cfg, kernels):
+    """The step-0 gradients and TRAIN_SMALL_STEPS train steps of
+    ``make_cfg(remat=...)`` on the card and on the CPU (plain versions)
+    from the same fp32 params and batches, remat off and on, held to
+    TRAIN_TOL.  Returns the launches of the card's runs."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.data.pipeline import SyntheticLMDataset
@@ -2454,7 +2602,7 @@ def train_card_vs_cpu():
     from repro_torch.models.params import init_params, tree_leaves
     launches = {}
     for remat in (False, True):
-        cfg = _small_train_cfg(remat=remat)
+        cfg = make_cfg(remat=remat)
         params = init_params(param_specs(cfg),
                              torch.Generator().manual_seed(9), device="cpu")
         ds = SyntheticLMDataset(cfg, 64, 8, seed=0)
@@ -2465,8 +2613,8 @@ def train_card_vs_cpu():
         torch.cuda.synchronize()
         for k, v in K.LAUNCHES.items():
             launches[k] = launches.get(k, 0) + v
-        missing = [k for k in TRAIN_KERNELS if K.LAUNCHES[k] == 0]
-        assert not missing, f"9t(a): {missing} never launched"
+        missing = [k for k in kernels if K.LAUNCHES[k] == 0]
+        assert not missing, f"{phase}: {missing} never launched"
         g_cpu = _step0_grads(cfg, params, batches[0], "cpu")
         grad_gap = max(float((a - b).abs().max() / b.abs().max())
                        for a, b in zip(g_card, g_cpu))
@@ -2475,14 +2623,14 @@ def train_card_vs_cpu():
         norm_gap = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
         param_gap = max(float((a - b).abs().max()) for a, b in
                         zip(tree_leaves(card[2]), tree_leaves(cpu[2])))
-        log(f"phase 9t(a) remat {'on' if remat else 'off'}: step-0 grads "
-            f"card vs CPU within {grad_gap:.2e} of a leaf's max-abs; "
+        log(f"{phase} {cfg.name} remat {'on' if remat else 'off'}: step-0 "
+            f"grads card vs CPU within {grad_gap:.2e} of a leaf's max-abs; "
             f"{TRAIN_SMALL_STEPS} fp32 steps card vs CPU: losses "
             f"{[round(x, 6) for x in card[0]]} (CPU "
             f"{[round(x, 6) for x in cpu[0]]}; gap {loss_gap:.2e} relative), "
             f"grad norms gap {norm_gap:.2e} relative, params within "
             f"{param_gap:.2e}; launches "
-            f"{ {k: K.LAUNCHES[k] for k in TRAIN_KERNELS} }")
+            f"{ {k: K.LAUNCHES[k] for k in kernels} }")
         assert grad_gap <= TRAIN_TOL["grad"], grad_gap
         assert loss_gap <= TRAIN_TOL["loss"], loss_gap
         assert norm_gap <= TRAIN_TOL["grad_norm"], norm_gap
@@ -2490,11 +2638,36 @@ def train_card_vs_cpu():
     return launches
 
 
-def train_launcher():
-    """Phase 9t(b): ``repro_torch.launch.train`` on the card, the small
-    model, 12 steps, a checkpoint every 4 under build/, a failure injected
-    at step 6: it must restore step 4 at data index 4 and end with a lower
-    loss than it started with.  Returns the launches."""
+def train_card_vs_cpu():
+    """Phase 9t(a): the small model's step-0 gradients and three train
+    steps on the card (K3 and K4 forward and backward) and on the CPU
+    (plain versions) from the same fp32 params and batches, remat off and
+    on.  Returns the launches of the card's runs."""
+    return _card_vs_cpu("phase 9t(a)", _small_train_cfg, TRAIN_KERNELS)
+
+
+def train_ssm_card_vs_cpu():
+    """Phase 9t(m)(a): as 9t(a), for mamba2-2.7b's smoke config (one
+    layer, 4 SSM heads of 32 x 16; S8, S8b, K4, K4b) and phase 3's small
+    jamba (K3, K3b too), 8 x 64 tokens: two chunks of 32.  Returns the
+    launches of the card's runs, summed."""
+    from repro_torch.configs import get_smoke_config
+
+    def mamba2(**kw):
+        return dataclasses.replace(get_smoke_config("mamba2-2.7b"), **kw)
+    launches = {}
+    for make, kernels in ((mamba2, SSM_TRAIN_KERNELS),
+                          (small_jamba_cfg, SSM_TRAIN_KERNELS + TRAIN_KERNELS)):
+        for k, v in _card_vs_cpu("phase 9t(m)(a)", make, kernels).items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def _launcher_run(phase, argv, steps, fail_at, kernels):
+    """``repro_torch.launch.train`` on the card with ``argv``, ``steps``
+    steps, a checkpoint every 4 under build/, a failure injected at step
+    ``fail_at``: it must restore step 4 at data index 4 and end with a
+    lower loss than it started with.  Returns the launches."""
     import shutil
     import torch
     from repro_torch import kernels as K
@@ -2502,45 +2675,60 @@ def train_launcher():
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     K.reset_launches()
     t0 = time.perf_counter()
-    out = launcher.main([
-        "--arch", "qwen2.5-3b", "--smoke", "--set", "num_layers=2",
-        "--set", "d_model=128", "--set", "num_heads=16",
-        "--set", "head_dim=128", "--set", "d_ff=256", "--steps", "12",
-        "--global-batch", "8", "--seq-len", "64", "--ckpt-every", "4",
-        "--simulate-failure-at", "6", "--ckpt-dir", str(TRAIN_CKPT),
-        "--lr", "1e-2"])
+    out = launcher.main(argv + [
+        "--steps", str(steps), "--ckpt-every", "4", "--simulate-failure-at",
+        str(fail_at), "--ckpt-dir", str(TRAIN_CKPT)])
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     losses = out["losses"]
-    log(f"phase 9t(b) launcher: {out['attempts']} attempts, restored "
-        f"{out['restored']} (step, data index), losses "
+    log(f"{phase} launcher ({' '.join(argv[:2])}): {out['attempts']} "
+        f"attempts, restored {out['restored']} (step, data index), losses "
         f"{[round(losses[i], 4) for i in sorted(losses)]}, launches "
-        f"{ {k: launches[k] for k in TRAIN_KERNELS} }, "
+        f"{ {k: launches[k] for k in kernels} }, "
         f"{time.perf_counter() - t0:.1f} s")
     assert out["attempts"] == 2 and out["restored"] == [(4, 4)], out
-    assert sorted(losses) == list(range(12))
-    assert losses[11] < losses[0], losses
-    assert all(launches[k] > 0 for k in TRAIN_KERNELS), launches
+    assert sorted(losses) == list(range(steps))
+    assert losses[steps - 1] < losses[0], losses
+    assert all(launches[k] > 0 for k in kernels), launches
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     return launches
 
 
-def _step_profile(step_once):
-    """Device ms of one train step by kernel: each training kernel's ms,
-    the rest, the rest by kind (``_kernel_kinds``) and its five largest
+def train_launcher():
+    """Phase 9t(b): the launcher on phase 9t(a)'s model, 12 steps, a
+    failure at step 6."""
+    return _launcher_run("phase 9t(b)", [
+        "--arch", "qwen2.5-3b", "--smoke", "--set", "num_layers=2",
+        "--set", "d_model=128", "--set", "num_heads=16",
+        "--set", "head_dim=128", "--set", "d_ff=256", "--global-batch", "8",
+        "--seq-len", "64", "--lr", "1e-2"], 12, 6, TRAIN_KERNELS)
+
+
+def train_ssm_launcher():
+    """Phase 9t(m)(b): the launcher on mamba2-2.7b's smoke config, 8
+    steps, a failure at step 5."""
+    return _launcher_run("phase 9t(m)(b)", [
+        "--arch", "mamba2-2.7b", "--smoke", "--global-batch", "8",
+        "--seq-len", "64", "--lr", "1e-2"], 8, 5, SSM_TRAIN_KERNELS)
+
+
+def _step_profile(step_once, kernels=TRAIN_KERNELS):
+    """Device ms of one train step by kernel: each of ``kernels``' ms, the
+    rest, the rest by kind (``_kernel_kinds``) and its five largest
     kernels by name; from torch.profiler."""
     from torch.autograd import DeviceType
     prof, _ = profiled(step_once)
     kinds = _kernel_kinds(prof)
-    out = {k: kinds.get(k, [0, 0.0])[1] for k in TRAIN_KERNELS}
+    out = {k: kinds.get(k, [0, 0.0])[1] for k in kernels}
     out["total"] = sum(ms for _, ms in kinds.values())
-    out["outside"] = out["total"] - sum(out[k] for k in TRAIN_KERNELS)
+    out["outside"] = out["total"] - sum(out[k] for k in kernels)
     out["by_kind"] = {k: [n, round(ms, 3)] for k, (n, ms) in kinds.items()}
     names, ours = {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        m = re.search(r"((?:flash|rmsnorm|fused_rmsnorm)\w*_kernel)", e.name)
+        m = re.search(r"((?:flash|rmsnorm|fused_rmsnorm|ssd_state_scan)\w*"
+                      r"_kernel)", e.name)
         acc = (ours.setdefault(m.group(1), [0, 0.0]) if m else
                names.setdefault(e.name[:70], [0, 0.0]))
         acc[0] += 1
@@ -2552,25 +2740,92 @@ def _step_profile(step_once):
     return out
 
 
+def _full_width_run(phase, cfg, name, pdt, batches, kernels, steps):
+    """``steps`` AdamW steps of ``cfg`` on the card from random weights
+    made there in ``pdt`` (fp32 moments), on ``batches[:steps]``, then one
+    profiled step on ``batches[steps]``.  Prints ms a step (the first
+    apart) and the host's ms to queue a step (the step holds no sync), the
+    peak, the losses, each of ``kernels``' launches and device ms a step
+    and the device ms outside them.  Returns (row, launches)."""
+    import gc
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=1e-4, warmup_steps=0,
+                                         moment_dtype="float32"))
+    t0 = time.perf_counter()
+    params = init_params(param_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(0), pdt, device="cuda")
+    opt = adamw_init(params, tcfg.adamw)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparams = sum(t.numel() for t in tree_leaves(params))
+    step = make_train_step(cfg, tcfg)
+    K.reset_launches()
+    times, host, losses = [], [], []
+    per_step = None
+    for i in range(steps):
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i])
+        host.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        per_step = {k: K.LAUNCHES[k] - before.get(k, 0) for k in kernels}
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    box = {}
+
+    def one():
+        box["m"] = step(params, opt, batches[steps])[2]
+    prof = _step_profile(one, kernels)
+    row = {"params_b": nparams / 1e9, "init_s": init_s,
+           "first_step_ms": times[0],
+           "ms_per_step": float(np.mean(times[1:])),
+           "step_ms": times, "host_ms": host, "losses": losses,
+           "peak_gib": peak,
+           "launches_per_step": per_step, "device_ms": prof}
+    b, s = batches[0]["labels"].shape
+    log(f"{phase} {cfg.name} full width, {name} ({nparams / 1e9:.3f} B), "
+        f"fp32 moments, batch {b} x {s}, remat: first "
+        f"step {times[0]:.1f} ms, then {row['ms_per_step']:.1f} ms a step "
+        f"({', '.join(f'{t:.1f}' for t in times[1:])}), of which the "
+        f"host took {', '.join(f'{t:.1f}' for t in host[1:])} to queue "
+        f"the step; peak {peak:.2f} "
+        f"GiB; losses {[round(x, 4) for x in losses]}; launches a step "
+        f"{per_step}; device ms a step (profiled step): "
+        + ", ".join(f"{k} {prof[k]:.3f}" for k in (
+            *kernels, "outside", "total"))
+        + f"; by kind [launches, ms] {prof['by_kind']}; the port's "
+        f"kernels by name [launches, ms] {prof['training_kernels']}; the "
+        f"largest kernels outside [name, launches, ms] "
+        f"{prof['top_outside']}")
+    assert all(np.isfinite(losses)), losses
+    assert np.isfinite(float(box["m"]["loss"]))
+    assert peak < TRAIN_PEAK_GIB, peak
+    assert all(per_step[k] > 0 for k in kernels), per_step
+    del params, opt, step, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, launches
+
+
 def train_full_width(steps=4):
     """Phase 9t(c): qwen2.5-3b at full width (36 layers, remat on, bf16
     activations, random weights made on the card), global batch 4 x 512:
     ``steps`` steps with fp32 params and moments (the reference launcher's
     params), then ``steps`` with bf16 params and fp32 moments (what the
-    reference's dry-run specs pick for it).  Prints ms a step (the first
-    apart) and the host's ms to queue a step (the step holds no sync),
-    the peak, the losses, each training kernel's launches and device ms a
-    step and the device ms outside them.  Returns (launches,
-    rows)."""
-    import gc
+    reference's dry-run specs pick for it).  Returns (launches, rows)."""
     import torch
-    from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLMDataset
-    from repro_torch.models.model import param_specs
-    from repro_torch.models.params import init_params, tree_leaves
-    from repro_torch.training.optimizer import AdamWConfig, adamw_init
-    from repro_torch.training.train_step import TrainConfig, make_train_step
     cfg = get_config("qwen2.5-3b")
     assert cfg.remat and cfg.num_layers == 36 and cfg.tie_embeddings
     ds = SyntheticLMDataset(cfg, TRAIN_S, TRAIN_B, seed=0)
@@ -2579,80 +2834,49 @@ def train_full_width(steps=4):
     launches, rows = {}, {}
     for name, pdt in (("fp32 params", torch.float32),
                       ("bf16 params", torch.bfloat16)):
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        tcfg = TrainConfig(adamw=AdamWConfig(lr=1e-4, warmup_steps=0,
-                                             moment_dtype="float32"))
-        t0 = time.perf_counter()
-        params = init_params(param_specs(cfg), torch.Generator(
-            device="cuda").manual_seed(0), pdt, device="cuda")
-        opt = adamw_init(params, tcfg.adamw)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        nparams = sum(t.numel() for t in tree_leaves(params))
-        step = make_train_step(cfg, tcfg)
-        K.reset_launches()
-        times, host, losses = [], [], []
-        per_step = None
-        for i in range(steps):
-            before = dict(K.LAUNCHES)
-            t0 = time.perf_counter()
-            params, opt, m = step(params, opt, batches[i])
-            host.append(1e3 * (time.perf_counter() - t0))
-            losses.append(float(m["loss"]))
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-            per_step = {k: K.LAUNCHES[k] - before.get(k, 0)
-                        for k in TRAIN_KERNELS}
-        for k, v in K.LAUNCHES.items():
+        rows[name], run = _full_width_run("phase 9t(c)", cfg, name, pdt,
+                                          batches, TRAIN_KERNELS, steps)
+        for k, v in run.items():
             launches[k] = launches.get(k, 0) + v
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        box = {}
-
-        def one():
-            box["m"] = step(params, opt, batches[steps])[2]
-        prof = _step_profile(one)
-        row = {"params_b": nparams / 1e9, "init_s": init_s,
-               "first_step_ms": times[0],
-               "ms_per_step": float(np.mean(times[1:])),
-               "step_ms": times, "host_ms": host, "losses": losses,
-               "peak_gib": peak,
-               "launches_per_step": per_step, "device_ms": prof}
-        rows[name] = row
-        log(f"phase 9t(c) qwen2.5-3b full width, {name} ({nparams / 1e9:.3f} "
-            f"B), fp32 moments, batch {TRAIN_B} x {TRAIN_S}, remat: first "
-            f"step {times[0]:.1f} ms, then {row['ms_per_step']:.1f} ms a step "
-            f"({', '.join(f'{t:.1f}' for t in times[1:])}), of which the "
-            f"host took {', '.join(f'{t:.1f}' for t in host[1:])} to queue "
-            f"the step; peak {peak:.2f} "
-            f"GiB; losses {[round(x, 4) for x in losses]}; launches a step "
-            f"{per_step}; device ms a step (profiled step): "
-            + ", ".join(f"{k} {prof[k]:.3f}" for k in (
-                *TRAIN_KERNELS, "outside", "total"))
-            + f"; by kind [launches, ms] {prof['by_kind']}; the training "
-            f"kernels by name [launches, ms] {prof['training_kernels']}; the "
-            f"largest kernels outside [name, launches, ms] "
-            f"{prof['top_outside']}")
-        assert all(np.isfinite(losses)), losses
-        assert np.isfinite(float(box["m"]["loss"]))
-        assert peak < TRAIN_PEAK_GIB, peak
-        assert all(per_step[k] > 0 for k in TRAIN_KERNELS), per_step
-        del params, opt, step, box
-    gc.collect()
-    torch.cuda.empty_cache()
     return launches, rows
 
 
+def train_mamba2_full_width(steps=4):
+    """Phase 9t(m)(c): mamba2-2.7b whole (64 Mamba2 layers at full width,
+    remat on, bf16 activations, random weights made on the card), fp32
+    params and moments, global batch 2 x 2,048 (S8 and S8b at C = 8),
+    ``steps`` steps and a profiled one, as 9t(c).  Returns (launches,
+    row)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    cfg = get_config("mamba2-2.7b")
+    assert cfg.remat and cfg.num_layers == 64 and cfg.ssm_chunk == 256
+    ds = SyntheticLMDataset(cfg, SSM_TRAIN_S, SSM_TRAIN_B, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                ds.batch(i).items()} for i in range(steps + 1)]
+    row, launches = _full_width_run("phase 9t(m)(c)", cfg, "fp32 params",
+                                    torch.float32, batches,
+                                    SSM_TRAIN_KERNELS, steps)
+    return launches, row
+
+
 def run_training():
-    """Phase 9t: (a), (b) and (c), each a counted path."""
+    """Phase 9t: (a), (b) and (c), then 9t(m)'s (a), (b) and (c), each a
+    counted path.  Returns (paths, 9t(c)'s rows, 9t(m)(c)'s row)."""
     t0 = time.perf_counter()
     paths = {"train small (card vs CPU)": train_card_vs_cpu(),
              "train launcher": train_launcher()}
     launches, rows = train_full_width()
     paths["train full width"] = launches
     log(f"phase 9t (training) took {time.perf_counter() - t0:.1f} s")
-    return paths, rows
+    t0 = time.perf_counter()
+    paths["train ssm small (card vs CPU)"] = train_ssm_card_vs_cpu()
+    paths["train ssm launcher"] = train_ssm_launcher()
+    paths["train mamba2 full width"], ssm_row = train_mamba2_full_width()
+    log(f"phase 9t(m) (training the state-space models) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return paths, rows, ssm_row
 
 
 # ----------------------------------------------------------------------------
@@ -2955,24 +3179,33 @@ def s3_times(args):
                                         starts, first)))
 
 
-def check_event_cells(g, dev):
+def check_event_cells(g, pool):
     """Every S3-S5 cell of the grid's counted launches, at full length:
-    its starts and batch heads against the plain version on the card on
-    the same inputs, and its waits and mean batch against the NumPy oracle
-    (host CPU); then each kernel timed by CUDA events on the same inputs.
+    its starts and batch heads against the plain version on the same
+    inputs (on the card, timed, for each kernel's last cell, the λ = 1 cell
+    whose times its entry reports; on ``pool``'s host processes for the
+    others), and its waits and mean batch against the NumPy oracle (host
+    CPU); then each kernel timed by CUDA events on the same inputs.
     Returns the kernels' JSON entries (the λ = 1 cell's times)."""
     import importlib
     import torch
     from repro_torch.core.simulate import no_warmup, simulate_policy
+    cells = sorted(g["scan"]["cells"].items())
+    on_card = {cell["kernel"]: key for key, cell in cells}
+    host = [(cell["kernel"], cell) for key, cell in cells
+            if on_card[cell["kernel"]] != key]
+    plain_done = plain_on_host(host, pool)
     by_kernel = {}
-    for (name, li), cell in sorted(g["scan"]["cells"].items()):
+    for (name, li), cell in cells:
         kern, args = cell["kernel"], cell["args"]
         mod = importlib.import_module(f"repro_torch.kernels.{kern}")
         fn, ref = getattr(mod, kern), getattr(mod, f"{kern}_reference")
         starts, first = cell["out"]
-        (ref_s, ref_f), plain_ms = wall_ms(lambda: ref(*args))
-        assert torch.equal(starts, ref_s) and torch.equal(first, ref_f), \
-            f"{kern} differs from its plain version at {name}, λ index {li}"
+        plain_ms = None
+        if on_card[kern] == (name, li):
+            (ref_s, ref_f), plain_ms = wall_ms(lambda: ref(*args))
+            assert torch.equal(starts, ref_s) and torch.equal(first, ref_f), \
+                f"{kern} differs from its plain version at {name}, λ index {li}"
         lam, pol = g["lams"][li], g["policies"][name]
         c0 = time.process_time()
         with no_warmup():
@@ -3000,14 +3233,20 @@ def check_event_cells(g, dev):
         log(f"{kern} {name} λ={lam}: {nb} batches (mean {n / nb:.3f}); "
             f"{ms:.3f} ms by CUDA events ({1e6 * ms / n:.1f} ns a request)"
             f"{alone}, bound {bnd:.5f} ms (bytes, {nbytes * n / 1e6:.2f} MB; "
-            f"{100 * bnd / ms:.3f}% of it); plain {plain_ms:.1f} ms; starts "
-            f"and batch heads equal the plain version's, waits and mean "
-            f"batch equal the oracle's (oracle {cpu_s:.2f} s of host CPU)")
+            f"{100 * bnd / ms:.3f}% of it); "
+            f"{'plain on host processes' if plain_ms is None else f'plain {plain_ms:.1f} ms'}"
+            f"; starts and batch heads equal the plain version's, waits and "
+            f"mean batch equal the oracle's (oracle {cpu_s:.2f} s of host "
+            f"CPU)")
         by_kernel.setdefault(kern, []).append(
             {"cell": f"{name} λ={lam}", "batches": nb, "ms": ms,
              "ns_per_request": 1e6 * ms / n, "plain_ms": plain_ms,
              "bound_ms": bnd, **({"kernel_ms": kernel_ms} if kernel_ms
                                  else {})})
+    jobs, host_s = plain_done()
+    log(f"S3-S5: the {jobs} other cells' starts and batch heads equal the "
+        f"plain version's on host processes ({host_s:.1f} s from their "
+        f"start)")
     out = []
     for kern, rows in by_kernel.items():
         last = rows[-1]               # the λ = 1 cell of the last policy
@@ -3146,42 +3385,44 @@ def run_simulators(dev, cal):
                 f"{ora['mean_batch']:.4f} equal; the oracle took {cpu_s:.2f} "
                 f"s of host CPU time")
     # every lane of the four counted S1 launches at full length: against
-    # the plain version (Fig 5's on the card, timed; the others on host
-    # processes) and against the NumPy oracle (host processes), the host's
-    # jobs running while the card checks and times the kernels
+    # the plain version (the heavy tail's on the card, timed; the others on
+    # host processes) and against the NumPy oracle (host processes), the
+    # host's jobs running while the card checks and times the kernels
     grids = (fig5, fig6, fit, heavy)
     s1_los = [s1_launch(g, dev) for g in grids]
     with host_pool() as pool:
-        plain_done = plain_on_host([("batch_scan", lo) for lo in s1_los[1:]],
+        plain_done = plain_on_host([("batch_scan", lo) for lo in s1_los[:-1]],
                                    pool)
         oracle_done = oracle_on_host(
             [("batch_scan", lo, False) for lo in s1_los], pool)
         s1, s2, event_entries = _simulator_kernels_on_card(
-            dev, grids, s1_los, fig4, heavy, s5_path)
+            dev, grids, s1_los, fig4, heavy, s5_path, pool)
         jobs, host_s = plain_done()
         lanes_held, tied, ora_s = oracle_done()
     assert tied == 0, f"{tied} S1 lanes of phase 7 part from the oracle"
-    log(f"S1: the {jobs} plain-version jobs of the Fig 6b, fitted-law and "
-        f"heavy-tail launches equal the kernel's starts and closed; all "
+    log(f"S1: the {jobs} plain-version jobs of the Fig 5, Fig 6b and "
+        f"fitted-law launches equal the kernel's starts and closed; all "
         f"{lanes_held} lanes of the four launches equal the NumPy oracle's "
         f"waits and mean batch at full length (host processes, {host_s:.1f} "
         f"and {ora_s:.1f} s from their start)")
     return launches, [s1, s2] + event_entries
 
 
-def _simulator_kernels_on_card(dev, grids, s1_los, fig4, heavy, s5_path):
+def _simulator_kernels_on_card(dev, grids, s1_los, fig4, heavy, s5_path,
+                               pool):
     """Phase 7's checks and timings on the card: S1 on the four counted
-    launches (Fig 5's plain version on the card), the Fig 4 cells against
-    the oracle, S2's counted launch against its plain version, and every
-    S3-S5 cell.  Returns the JSON entries of S1, S2 and S3-S5."""
+    launches (the heavy tail's plain version on the card, whose times S1's
+    entry reports), the Fig 4 cells against the oracle, S2's counted launch
+    against its plain version, and every S3-S5 cell (``check_event_cells``,
+    on ``pool`` in part).  Returns the JSON entries of S1, S2 and S3-S5."""
     import torch
     from repro_torch.core.simulate import _warm, simulate_policy
     from repro_torch.kernels.impatience_scan import (
         impatience_scan, impatience_scan_reference, ops)
-    rows = [check_batch_scan(g, lo, plain_on_card=g is grids[0])
+    rows = [check_batch_scan(g, lo, plain_on_card=g is heavy)
             for g, lo in zip(grids, s1_los)]
 
-    lanes, n, ms, plain_ms, bnd = rows[0]
+    lanes, n, ms, plain_ms, bnd = rows[grids.index(heavy)]
     s1 = {"name": "batch_scan", "route": "cuda",
           "source": "src/repro_torch/kernels/batch_scan/csrc/batch_scan.cu",
           "replaces": "src/repro/core/fastsim.py:300 (_batching_core, a "
@@ -3240,7 +3481,7 @@ def _simulator_kernels_on_card(dev, grids, s1_los, fig4, heavy, s5_path):
           "shape": [FIG4_N, lanes], "max_abs_err": 0.0, "ms": ms,
           "kernel_ms": ms_kernel, "ms_one_lane": ms1, "plain_ms": plain_ms,
           "bound_ms": bnd, "bound_by": "bytes", "library_ms": None}
-    event_entries = check_event_cells(heavy, dev)
+    event_entries = check_event_cells(heavy, pool)
     next(e for e in event_entries if e["name"] == "srpt_scan")["in_path"] = \
         {"simulators": s5_path}
     return s1, s2, event_entries
@@ -3265,12 +3506,32 @@ def reference_record():
     return rec["pr4_predictors"], rec["pr5_fleet"], rec["pr6_faults"]
 
 
-def check_backlog_launches(launches, dev):
+def _plain_backlog(arr, work, R, up):
+    """S6's plain version on stacked lanes on the host CPU (a worker of
+    ``check_backlog_launches``'s pool): numpy in, numpy ids out."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.kernels.backlog_scan import backlog_scan_reference
+    torch.set_num_threads(1)
+    return backlog_scan_reference(
+        torch.from_numpy(arr), torch.from_numpy(work), R,
+        None if up is None else torch.from_numpy(up)).numpy()
+
+
+# the S6 launch whose times (and plain version's, on the card) the JSON
+# entry reports
+S6_TIMED = "routers least_work"
+
+
+def check_backlog_launches(launches, dev, pool):
     """Every S6 launch of the counted path, at full length: its ids against
-    the plain version on the card (the launches of one shape and mask kind
+    the plain version (``S6_TIMED``'s on the card, timed; the others on
+    ``pool``'s host processes, the launches of one shape and mask kind
     stacked as lanes of one plain call) and against the NumPy recursion on
     the host; then each launch timed by CUDA events on its own inputs.
-    ``launches``: {label: the launch_out dict}.  Returns the JSON entry."""
+    ``launches``: {label: the launch_out dict}.  Returns the JSON entry and
+    a function that waits for the host's plain calls, checks them and
+    returns their count and the seconds from their start."""
     import torch
     from repro_torch.core.fleet import (
         _backlog_assign_np, _masked_backlog_assign_np)
@@ -3279,28 +3540,31 @@ def check_backlog_launches(launches, dev):
     groups = {}
     for label, lo in launches.items():
         arr, work, R, *up = lo["args"]
-        groups.setdefault((R, arr.shape[0], bool(up)), []).append(label)
-    plain_s = 0.0
-    for (R, n, masked), labels in groups.items():
-        cat = [torch.cat([launches[x]["args"][i] for x in labels], dim=-1)
-               for i in ((0, 1, 3) if masked else (0, 1))]
-        ref, ms = wall_ms(lambda: backlog_scan_reference(
-            cat[0], cat[1], R, cat[2] if masked else None))
-        plain_s += ms / 1e3
-        for j, label in enumerate(labels):
-            lo = launches[label]
-            out = lo["out"]
-            assert torch.equal(out[:, 0], ref[:, j]), \
-                f"S6 {label}: kernel differs from its plain version"
-            a, w = (lo["args"][i][:, 0].cpu().numpy() for i in (0, 1))
-            host = (_masked_backlog_assign_np(
-                a, w, R, lo["args"][3][:, :, 0].cpu().numpy().astype(bool))
-                if masked else _backlog_assign_np(a, w, R))
-            assert np.array_equal(out[:, 0].cpu().numpy(), host), \
-                f"S6 {label}: kernel differs from the NumPy recursion"
-    log(f"S6: all {len(launches)} counted launches' ids equal the plain "
-        f"version on the card ({len(groups)} stacked calls, {plain_s:.1f} s) "
-        f"and the NumPy recursion on the host, at full length")
+        if label != S6_TIMED:
+            groups.setdefault((R, arr.shape[0], bool(up)), []).append(label)
+    jobs = [tuple(torch.cat([launches[x]["args"][i] for x in labels],
+                            dim=-1).cpu().numpy() for i in (0, 1))
+            + (R, torch.cat([launches[x]["args"][3] for x in labels],
+                            dim=-1).cpu().numpy() if masked else None)
+            for (R, n, masked), labels in groups.items()]
+    t0 = time.perf_counter()
+    refs = pool.map(_plain_backlog, *zip(*jobs))
+    lo = launches[S6_TIMED]
+    ref, plain_ms = wall_ms(lambda: backlog_scan_reference(*lo["args"]))
+    assert torch.equal(lo["out"], ref), \
+        f"S6 {S6_TIMED}: kernel differs from its plain version"
+    for label, lo in launches.items():
+        R, masked = lo["args"][2], len(lo["args"]) > 3
+        a, w = (lo["args"][i][:, 0].cpu().numpy() for i in (0, 1))
+        host = (_masked_backlog_assign_np(
+            a, w, R, lo["args"][3][:, :, 0].cpu().numpy().astype(bool))
+            if masked else _backlog_assign_np(a, w, R))
+        assert np.array_equal(lo["out"][:, 0].cpu().numpy(), host), \
+            f"S6 {label}: kernel differs from the NumPy recursion"
+    log(f"S6: all {len(launches)} counted launches' ids equal the NumPy "
+        f"recursion on the host at full length; {S6_TIMED}'s equal the plain "
+        f"version on the card ({plain_ms / 1e3:.1f} s), the other "
+        f"{len(launches) - 1}'s are held to it on host processes")
     rows = {}
     for label, lo in launches.items():
         arr, work, R, *up = lo["args"]
@@ -3322,9 +3586,15 @@ def check_backlog_launches(launches, dev):
             f"the kernel alone {kernel_ms:.3f} ms ({1e6 * kernel_ms / n:.1f} "
             f"ns), bound {bnd:.5f} ms (bytes, {nbytes / 1e6:.2f} MB; "
             f"{100 * bnd / ms:.4f}% of it)")
-    timed = "routers least_work"
-    lo = launches[timed]
-    _, plain_ms = wall_ms(lambda: backlog_scan_reference(*lo["args"]))
+    timed = S6_TIMED
+
+    def plain_done():
+        for ((R, n, masked), labels), ref in zip(groups.items(), refs):
+            for j, label in enumerate(labels):
+                assert np.array_equal(
+                    launches[label]["out"][:, 0].cpu().numpy(), ref[:, j]), \
+                    f"S6 {label}: kernel differs from its plain version"
+        return len(jobs), time.perf_counter() - t0
     return {"name": "backlog_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/backlog_scan/csrc/"
                       "backlog_scan.cu",
@@ -3332,7 +3602,7 @@ def check_backlog_launches(launches, dev):
             "max_abs_err": 0.0, "ms": rows[timed]["ms"],
             "kernel_ms": rows[timed]["kernel_ms"], "plain_ms": plain_ms,
             "bound_ms": rows[timed]["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "launch_rows": rows}
+            "library_ms": None, "launch_rows": rows}, plain_done
 
 
 def _plain_lane(kern, args):
@@ -3386,8 +3656,9 @@ def host_pool():
 
 
 # lanes a job of plain_on_host: S1's plain loop steps every lane at once, a
-# few small tensor ops a request, so a job takes several lanes
-PLAIN_LANES_A_JOB = {"batch_scan": 8}
+# few small tensor ops a request whose cost barely grows with the lanes, so
+# a job takes a whole launch of up to 64 lanes
+PLAIN_LANES_A_JOB = {"batch_scan": 64}
 
 
 def plain_on_host(launches, pool):
@@ -3679,9 +3950,12 @@ def run_fleet_sims(dev):
              for i, lo in enumerate(s1_rec.launches)]
             + [("wait_scan", s4, False)], pool)
         noise_s5, noise_s3, noise_s4 = _noise_launches_on_card(s5, s3, s4)
-        backlog = check_backlog_launches(s6, dev)
+        backlog, backlog_done = check_backlog_launches(s6, dev, pool)
         jobs, host_s = plain_done()
         lanes_held, tied, ora_s = oracle_done()
+        s6_jobs, s6_s = backlog_done()
+    log(f"S6: the {s6_jobs} stacked plain calls on host processes equal the "
+        f"kernel's ids ({s6_s:.1f} s from their start)")
     assert tied == 1, f"{tied} crash-fault replica lanes part from the " \
                       f"oracle at a tie, not the one known"
     log(f"every lane of the 41 counted S5 launches (the noise plane and the "
@@ -4548,7 +4822,8 @@ def main() -> int:
     for name in ("flash_attention", "flash_attention_bwd",
                  "ragged_decode_attention", "fused_rmsnorm",
                  "fused_rmsnorm_bwd", "batch_scan", "impatience_scan", "multibin_scan", "wait_scan",
-                 "srpt_scan", "backlog_scan", "tandem_scan", "ssd_scan"):
+                 "srpt_scan", "backlog_scan", "tandem_scan", "ssd_scan",
+                 "ssd_scan_bwd"):
         for line in ptxas_report(K.build_log(name)):
             log(f"ptxas {name}: {line}")
 
@@ -4565,90 +4840,73 @@ def main() -> int:
         f"decode attention resolves to "
         f"{cfg.resolve_decode_attention_impl(engine.device)}")
 
-    kernels = [check_ragged(dev), check_gather(dev, engine, cfg),
-               check_flash(dev), check_rmsnorm(dev), check_flash_bwd(dev),
-               check_rmsnorm_bwd(dev), check_ssd_scan(dev)]
-    check_small_model(dev)
-    check_small_moe(dev)
-    check_small_jamba(dev)
-    check_small_m8c(dev)
+    kernels = [timed(f"phase 2 {check.__name__}", check, dev, *more)
+               for check, *more in (
+                   (check_ragged,), (check_gather, engine, cfg),
+                   (check_flash,), (check_rmsnorm,), (check_flash_bwd,),
+                   (check_rmsnorm_bwd,), (check_ssd_scan,),
+                   (check_ssd_scan_bwd,))]
+    for check in (check_small_model, check_small_moe, check_small_jamba,
+                  check_small_m8c):
+        timed(f"phase 3 {check.__name__}", check, dev)
     from repro_torch.data.pipeline import make_request_stream
     reqs = make_request_stream(32, 4.0, ClippedLogNormal(np.log(96.0), 0.8, 512),
                                vocab=cfg.vocab_size, prompt_len_range=(16, 257),
                                seed=0)
-    t0 = time.perf_counter()
     paths = {}
-    paths["serving schedule"], k4_step = serve_full(engine, reqs)
-    log(f"phase 4 (serving schedule) took {time.perf_counter() - t0:.1f} s")
+    paths["serving schedule"], k4_step = timed(
+        "phase 4 (serving schedule)", serve_full, engine, reqs)
     cal = engine.calibration_log()          # phase 4's measurements (M4)
-    paths["continuous"] = serve_cont(engine, reqs)
+    paths["continuous"] = timed("phase 6 (continuous batching)", serve_cont,
+                                engine, reqs)
     from repro_torch.core.traffic import MMPPTraffic
     fleet_reqs = make_request_stream(
         32, 4.0, ClippedLogNormal(np.log(96.0), 0.8, 512), vocab=cfg.vocab_size,
         prompt_len_range=(16, 257), seed=0,
         traffic=MMPPTraffic(rates=(0.5, 2.0), mean_dwell=(200.0, 100.0)))
-    t0 = time.perf_counter()
-    paths["fleet serving"] = serve_fleet(engine, fleet_reqs)
-    log(f"phase 8a (fleet serving) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["resilient fleet serving"] = serve_resilient(engine, reqs)
-    log(f"phase 8a(c) (resilient fleet serving) took "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["serving under a KV budget"] = serve_memory(engine, reqs)
-    log(f"phase 4m (serving under a KV budget) took "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["dense families"], dense = serve_dense(ecfg, reqs)
-    log(f"phase 4d (the dense families) took {time.perf_counter() - t0:.1f} s")
+    paths["fleet serving"] = timed("phase 8a (fleet serving)", serve_fleet,
+                                   engine, fleet_reqs)
+    paths["resilient fleet serving"] = timed(
+        "phase 8a(c) (resilient fleet serving)", serve_resilient, engine, reqs)
+    paths["serving under a KV budget"] = timed(
+        "phase 4m (serving under a KV budget)", serve_memory, engine, reqs)
+    paths["dense families"], dense = timed(
+        "phase 4d (the dense families)", serve_dense, ecfg, reqs)
     del engine
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     log(f"phase 4e starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
         f"GiB allocated on the card")
-    paths["moe families"], moe = serve_moe(
-        dataclasses.replace(ecfg, max_seq=MOE_MAX_SEQ), reqs)
-    log(f"phase 4e (the MoE families) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["ssm family"], ssm = serve_ssm(ecfg, reqs)
-    log(f"phase 4s (the state-space family) took "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["m8c families"], m8c = serve_m8c(
-        dataclasses.replace(ecfg, max_seq=MOE_MAX_SEQ), reqs)
-    log(f"phase 4v (the audio and vision families) took "
-        f"{time.perf_counter() - t0:.1f} s")
+    moe_ecfg = dataclasses.replace(ecfg, max_seq=MOE_MAX_SEQ)
+    paths["moe families"], moe = timed(
+        "phase 4e (the MoE families)", serve_moe, moe_ecfg, reqs)
+    paths["ssm family"], ssm = timed(
+        "phase 4s (the state-space family)", serve_ssm, ecfg, reqs)
+    paths["m8c families"], m8c = timed(
+        "phase 4v (the audio and vision families)", serve_m8c, moe_ecfg, reqs)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 9t starts with {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
         f"GiB allocated on the card")
-    train_paths, train_rows = run_training()
+    train_paths, train_rows, ssm_train_row = run_training()
     paths.update(train_paths)
-    paths["launcher"] = serve_launcher(dev)
-    t0 = time.perf_counter()
-    paths["simulators"], sim_kernels = run_simulators(dev, cal)
-    log(f"phase 7 (simulators) took {time.perf_counter() - t0:.1f} s")
+    paths["launcher"] = timed("phase 5 (the serving launcher)",
+                              serve_launcher, dev)
+    paths["simulators"], sim_kernels = timed("phase 7 (simulators)",
+                                             run_simulators, dev, cal)
     kernels += sim_kernels
-    t0 = time.perf_counter()
     (paths["fleet simulators"], s6, noise_s5, noise_s3, noise_s4,
-     s1_path, mesh_refs) = run_fleet_sims(dev)
-    log(f"phase 8b (fleet simulators) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["mesh sweeps"] = run_mesh_sweeps(dev, mesh_refs)
-    log(f"phase 8f (the mesh sweeps) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["session simulators"] = run_session_sims(dev)
-    log(f"phase 8c (session simulators) took "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["tandem simulators"], s7 = run_tandem_sims(dev)
-    log(f"phase 8d (tandem simulators) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    paths["autoscale"], s1_autoscale = run_autoscale_sims(dev)
-    log(f"phase 8e (the closed-loop autoscaler) took "
-        f"{time.perf_counter() - t0:.1f} s")
+     s1_path, mesh_refs) = timed("phase 8b (fleet simulators)",
+                                 run_fleet_sims, dev)
+    paths["mesh sweeps"] = timed("phase 8f (the mesh sweeps)",
+                                 run_mesh_sweeps, dev, mesh_refs)
+    paths["session simulators"] = timed("phase 8c (session simulators)",
+                                        run_session_sims, dev)
+    paths["tandem simulators"], s7 = timed("phase 8d (tandem simulators)",
+                                           run_tandem_sims, dev)
+    paths["autoscale"], s1_autoscale = timed(
+        "phase 8e (the closed-loop autoscaler)", run_autoscale_sims, dev)
     kernels.append(s7)
     kernels.append(s6)
     next(k for k in kernels if k["name"] == "fused_rmsnorm")[
@@ -4679,6 +4937,11 @@ def main() -> int:
                 name: {"launches_per_step": row["launches_per_step"][k["name"]],
                        "device_ms_per_step": row["device_ms"][k["name"]]}
                 for name, row in train_rows.items()}
+        if k["name"] in SSM_TRAIN_KERNELS:
+            k["train_mamba2_full_width"] = {
+                "launches_per_step":
+                    ssm_train_row["launches_per_step"][k["name"]],
+                "device_ms_per_step": ssm_train_row["device_ms"][k["name"]]}
     for k in kernels:
         k["launches_by_path"] = {p: n.get(k["name"], 0)
                                  for p, n in paths.items()}

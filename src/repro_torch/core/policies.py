@@ -78,12 +78,6 @@ def single_from_batch(lat: BatchLatencyModel) -> LatencyModel:
     return LatencyModel(a=lat.k3 + lat.k4, c=lat.k1 + lat.k2)
 
 
-def not_ported(what: str, item: str):
-    """Raise for a part of the reference that the port does not have yet,
-    naming its ROADMAP.md item."""
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 # ----------------------------------------------------------------------------
 # Formation states (trigger + member selection, shared by oracle & scheduler)
 # ----------------------------------------------------------------------------

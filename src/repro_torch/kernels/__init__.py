@@ -57,8 +57,9 @@ SOURCES = {
     "srpt_scan": _PKG / "srpt_scan" / "csrc" / "srpt_scan.cu",
     "backlog_scan": _PKG / "backlog_scan" / "csrc" / "backlog_scan.cu",
     "tandem_scan": _PKG / "tandem_scan" / "csrc" / "tandem_scan.cu",
-    # the Mamba2 mixer's chunk-state scan (S8)
+    # the Mamba2 mixer's chunk-state scan (S8) and its backward (S8b)
     "ssd_scan": _PKG / "ssd_scan" / "csrc" / "ssd_scan.cu",
+    "ssd_scan_bwd": _PKG / "ssd_scan" / "csrc" / "ssd_scan_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -80,6 +81,7 @@ EXTRA_FLAGS = {
     "backlog_scan": ("-Xptxas=-v",),
     "tandem_scan": ("-Xptxas=-v",),
     "ssd_scan": ("-Xptxas=-v",),
+    "ssd_scan_bwd": ("-Xptxas=-v",),
 }
 
 LAUNCHES: Dict[str, int] = collections.Counter()

@@ -10,7 +10,9 @@ of the output (both sides compute in fp32 and differ only in the final
 rounding); the gather, the fused norm's residual sum, the simulators'
 float64 scans and batch-event loops (S1-S5), the fleet's routing scan
 (S6), the memory-gated tandem loop (S7) and the SSD's chunk-state scan
-(S8) are bit-equal."""
+(S8) are bit-equal, as are its backward's (S8b) state gradients; S8b's
+chunk-decay gradient, a sum over P*N terms, is held to the error bound of
+fp32 summation."""
 
 import contextlib
 
@@ -2598,36 +2600,140 @@ def test_rmsnorm_backward_rejects_what_it_does_not_take(cuda):
         ops._launch_bwd(xb, xb, xb[0].bfloat16(), xb, xb, 1e-6, False)
 
 
+# S8b's shapes (B, C, H, P, N): mamba2-2.7b's training shape (2 x 2,048
+# tokens, chunks of 256), one chunk of it, an odd state of 63 elements
+# (fewer than the block's threads) and the smoke configs' 32 x 16
+SSD_BWD_SHAPES = [(2, 8, 80, 64, 128), (1, 1, 3, 64, 128), (3, 3, 5, 7, 9),
+                  (2, 5, 4, 32, 16)]
+
+
+def _g_decay_bound(g_states, h_before):
+    """The error bound of two fp32 sums of the same n = P*N rounded
+    products G * h_before, in any orders: 2 gamma_(n-1) sum |G * h|, with
+    gamma_k = k u / (1 - k u) and u = 2^-24."""
+    n = g_states.shape[-1] * g_states.shape[-2]
+    gamma = (n - 1) * 2.0 ** -24 / (1 - (n - 1) * 2.0 ** -24)
+    return 2 * gamma * (g_states * h_before).double().abs().sum((-2, -1))
+
+
 @pytest.mark.gpu
-def test_ssd_scan_under_grad_raises_the_m10b_error(cuda):
-    """S8 has no backward kernel: a CUDA call under autograd raises the
-    M10b error and does not run the plain version in its place; without
-    grad it launches as before; on the CPU autograd differentiates the
-    plain version."""
-    from repro_torch.kernels.ssd_scan import ssd_state_scan
-    decay = torch.rand(2, 3, 4, device=cuda)
-    states = torch.randn(2, 3, 4, 8, 16, device=cuda).requires_grad_()
-    before = dict(K.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="M10b"):
-        ssd_state_scan(decay, states)
-    assert dict(K.LAUNCHES) == before
+@pytest.mark.parametrize("with_ght", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_ssd_scan_bwd_kernel_equals_plain(cuda, shape, with_h0, with_ght):
+    """S8b against its plain version on the same inputs: g_states and
+    g_h0 bit for bit, g_decay within the fp32 summation bound over P*N
+    terms (``_g_decay_bound``); two launches give the same bits."""
+    from repro_torch.kernels.ssd_scan import (
+        ssd_state_scan_bwd_reference, ssd_state_scan_reference)
+    from repro_torch.kernels.ssd_scan import ops
+    decay, states, h0 = _ssd_scan_inputs(*shape, cuda, seed=sum(shape))
+    g_hb, g_ht = (_randn(t.shape, torch.float32, cuda, 5 + i)
+                  for i, t in enumerate((states, h0)))
+    g_ht = g_ht if with_ght else None
+    hb, _ = ssd_state_scan_reference(decay, states, h0 if with_h0 else None)
+    before = K.LAUNCHES["ssd_scan_bwd"]
+    gd, gs, g0 = ops._launch_bwd(decay, hb, g_hb, g_ht, with_h0)
+    again = ops._launch_bwd(decay, hb, g_hb, g_ht, with_h0)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ssd_scan_bwd"] == before + 2
+    rd, rs, r0 = ssd_state_scan_bwd_reference(decay, hb, g_hb, g_ht, with_h0)
+    assert gd.shape == decay.shape and gs.shape == states.shape
+    assert torch.equal(gs, rs)
+    assert (g0 is None) == (r0 is None) == (not with_h0)
+    if with_h0:
+        assert torch.equal(g0, r0)
+    gap = (gd.double() - rd.double()).abs()
+    assert bool((gap <= _g_decay_bound(rs, hb)).all()), float(gap.max())
+    for a, b in zip((gd, gs, g0), again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssd_scan import ops
+    decay, states, h0 = _ssd_scan_inputs(2, 3, 4, 5, 6, cuda, seed=0)
+    with pytest.raises(ValueError, match="g_h_before"):
+        ops._launch_bwd(decay, states, states.transpose(3, 4), None, False)
+    with pytest.raises(ValueError, match="devices"):
+        ops._launch_bwd(decay, states, states, h0.cpu(), False)
+    big = torch.zeros(1, 1, 1, 64, 129, device=cuda)
+    with pytest.raises(ValueError, match="at most 8192"):
+        ops._launch_bwd(torch.ones(1, 1, 1, device=cuda), big, big, None,
+                        False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_under_grad_launches_s8_and_s8b(cuda, monkeypatch, with_h0):
+    """A CUDA call under autograd launches S8, its backward S8b, and the
+    plain versions never run (they raise here); without grad it launches
+    S8 alone.  The gradients equal the plain backward's on the forward's
+    h_before (g_states and g_h0 bit for bit)."""
+    from repro_torch.kernels.ssd_scan import (
+        ssd_state_scan, ssd_state_scan_bwd_reference)
+    from repro_torch.kernels.ssd_scan import ops
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ops, "ssd_state_scan_reference", refuse)
+    monkeypatch.setattr(ops, "ssd_state_scan_bwd_reference", refuse)
+    decay, states, h0 = _ssd_scan_inputs(2, 4, 80, 64, 128, cuda, seed=3)
+    leaves = [decay.requires_grad_(), states.requires_grad_()] + (
+        [h0.requires_grad_()] if with_h0 else [])
+    g_hb = _randn(states.shape, torch.float32, cuda, 8)
+    K.reset_launches()
+    hb, ht = ssd_state_scan(decay, states, h0 if with_h0 else None)
+    assert K.LAUNCHES["ssd_scan"] == 1 and ht.requires_grad
+    grads = torch.autograd.grad((hb * g_hb).sum(), leaves)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ssd_scan"] == 1 and K.LAUNCHES["ssd_scan_bwd"] == 1
+    rd, rs, r0 = ssd_state_scan_bwd_reference(
+        decay.detach(), hb.detach(), g_hb, None, with_h0)
+    assert torch.equal(grads[1], rs)
+    if with_h0:
+        assert torch.equal(grads[2], r0)
+    gap = (grads[0].double() - rd.double()).abs()
+    assert bool((gap <= _g_decay_bound(rs, hb.detach())).all())
     with torch.no_grad():
         ssd_state_scan(decay, states)
-    assert K.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
-    hb, ht = ssd_state_scan(decay.cpu(), states.detach().cpu().requires_grad_())
-    assert ht.requires_grad
+    assert K.LAUNCHES["ssd_scan"] == 2 and K.LAUNCHES["ssd_scan_bwd"] == 1
 
 
 @pytest.mark.gpu
-def test_training_a_mamba_model_on_cuda_raises_the_m10b_error(cuda):
+def test_mamba2_smoke_grads_on_cuda_agree_with_the_cpu(cuda):
+    """mamba2's smoke config, 4 x 64 tokens (two chunks of 32): the loss
+    and every parameter's gradient on the card (S8, S8b, K4, K4b) against
+    the CPU's plain versions from the same params and batch, at chip_smoke
+    phase 9t(a)'s tolerances (loss 2e-5 relative; grads 2e-3 of a leaf's
+    max-abs, the two devices summing in other orders)."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
     from repro_torch.models.model import param_specs
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import init_params, map_tree, tree_leaves
     from repro_torch.training.train_step import TrainConfig, make_grad_fn
     cfg = get_smoke_config("mamba2-2.7b")
-    params = init_params(param_specs(cfg), torch.Generator(
-        device=cuda).manual_seed(0), device=cuda)
-    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32, device=cuda),
-             "labels": torch.zeros((2, 8), dtype=torch.int32, device=cuda)}
-    with pytest.raises(NotImplementedError, match="M10b"):
-        make_grad_fn(cfg, TrainConfig())(params, batch)
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    batch = SyntheticLMDataset(cfg, 64, 4, seed=0).batch(0)
+    grad_fn = make_grad_fn(cfg, TrainConfig())
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        K.reset_launches()
+        g, aux = grad_fn(map_tree(lambda t: t.to(dev, copy=True), params),
+                         {k: torch.from_numpy(v).to(dev)
+                          for k, v in batch.items()})
+        out[dev.type] = ([t.cpu() for t in tree_leaves(g)],
+                         float(aux["ce"]), dict(K.LAUNCHES))
+    launches = out["cuda"][2]
+    assert launches["ssd_scan"] == launches["ssd_scan_bwd"] == \
+        cfg.num_layers, launches
+    assert launches["fused_rmsnorm"] > 0 and \
+        launches["fused_rmsnorm_bwd"] > 0, launches
+    assert not any(out["cpu"][2].values())
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 2e-5 * abs(out["cpu"][1])
+    gaps = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(out["cuda"][0], out["cpu"][0])]
+    assert max(gaps) <= 2e-3, gaps

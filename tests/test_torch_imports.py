@@ -43,7 +43,8 @@ def test_port_files_found():
                 "kernels/tandem_scan/csrc/tandem_scan.cu",
                 "models/mamba.py", "configs/mamba2_2_7b.py",
                 "configs/jamba_1_5_large_398b.py", "kernels/ssd_scan/ops.py",
-                "kernels/ssd_scan/ref.py", "kernels/ssd_scan/csrc/ssd_scan.cu"):
+                "kernels/ssd_scan/ref.py", "kernels/ssd_scan/csrc/ssd_scan.cu",
+                "kernels/ssd_scan/csrc/ssd_scan_bwd.cu"):
         assert port / rel in PORT_FILES or (
             rel.endswith(".cu") and (port / rel).is_file()), rel
 
@@ -53,7 +54,7 @@ def test_every_kernel_source_is_registered():
     launch counter that ``reset_launches`` zeroes."""
     from repro_torch import kernels as K
     sources = sorted((ROOT / "src" / "repro_torch" / "kernels").rglob("*.cu"))
-    assert sorted(K.SOURCES.values()) == sources and len(sources) == 14
+    assert sorted(K.SOURCES.values()) == sources and len(sources) == 15
     K.reset_launches()
     assert {K.LAUNCHES[name] for name in K.SOURCES} == {0}
 
